@@ -7,8 +7,9 @@ Each module holds a kernel's wrapper and its plain PyTorch version:
 - `flood`    — K3, the flood merge's masked min (`csrc/flood.cu`).
 
 A wrapper takes the plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises. `_build` compiles the sources with one
-``nvcc`` call at first use and counts launches (`_build.LAUNCHES`).
+launches the kernel or raises. `_build` compiles the sources at first
+use (one ``nvcc`` per source in parallel, one link) and counts launches
+(`_build.LAUNCHES`).
 """
 from aclswarm_torch.ops._build import LAUNCHES, build, reset_launches
 from aclswarm_torch.ops.flood import flood_merge, flood_merge_plain

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every ``aclswarm_torch/csrc/*.cu`` has a plain ``extern "C"`` interface and
-no PyTorch headers, so one ``nvcc`` call builds them all into one shared
-library in seconds. The library lands in ``build/kernels/`` at the
-repository root, named by a hash of the sources and the flags, so an
-edited source rebuilds and an unchanged tree is reused. Nothing here runs
-at import: the CPU tests import every module on machines without ``nvcc``.
+no PyTorch headers. Each source compiles to an object with its own
+``nvcc``, all started together, and one more ``nvcc`` links the objects
+into one shared library: seconds in all. The library lands in
+``build/kernels/`` at the repository root, named by a hash of the sources
+and the flags, so an edited source rebuilds and an unchanged tree is
+reused. Nothing here runs at import: the CPU tests import every module on
+machines without ``nvcc``.
 
 Every pointer and the stream cross the boundary as ``ctypes.c_void_p``;
 each entry point returns ``cudaGetLastError()`` and `launch` raises on a
@@ -25,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# compile flags of each source; the link adds ``-shared``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes; the stream is the last argument of each
@@ -35,6 +38,12 @@ _ENTRY = {
                             ctypes.POINTER(_I), _P),
     "round_dominant_launch": (_P, _P, _P, _I, _I, _P),
     "flood_merge_launch": (_P, _P, _P, _I, _I, _P),
+    # earlier designs, which chip_smoke.py times the current ones against;
+    # sinkhorn_log_launch also runs the multi-launch design past its
+    # shared-memory limit
+    "sinkhorn_log_multi_launch": (_P, _P, _P, _P, _I, _F, _I, _F,
+                                  ctypes.POINTER(_I), _P),
+    "flood_merge_bytemask_launch": (_P, _P, _P, _I, _I, _P),
 }
 
 # kernel launches per wrapper since the last `reset_launches`
@@ -73,26 +82,42 @@ def lib_path() -> Path:
 
 
 def build() -> dict:
-    """Compile every source into the library with one ``nvcc`` call, unless
-    it is built already. Returns {"library", "seconds", "cached",
-    "ptxas"} and raises with the compiler's output if the build fails."""
+    """Compile every source into the library, one ``nvcc`` per source run
+    in parallel and one link, unless it is built already. Returns
+    {"library", "seconds", "cached", "ptxas"} and raises with the
+    compiler's output if a step fails."""
     target = lib_path()
     if target.exists():
         return {"library": str(target), "seconds": 0.0, "cached": True,
                 "ptxas": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{target.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, _sources())],
-                          capture_output=True, text=True)
-    log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed (nvcc exit "
-                           f"{proc.returncode}):\n{log}")
-    os.replace(tmp, target)        # atomic: a concurrent build never loads
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    try:
+        for src, p, log in zip(_sources(), procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"CUDA kernel build failed: nvcc exit "
+                                   f"{p.returncode} on {src.name}:\n{log}")
+        link = subprocess.run([nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"CUDA kernel link failed (nvcc exit "
+                               f"{link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, target)    # atomic: a concurrent build never loads
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return {"library": str(target), "seconds": time.perf_counter() - t0,
-            "cached": False, "ptxas": log}
+            "cached": False, "ptxas": "\n".join(x.strip() for x in logs)}
 
 
 def _lib() -> ctypes.CDLL:

@@ -7,12 +7,18 @@ Phases, one JSON line each; any failure raises, so the run exits non-zero
 and prints no result line:
 
 1. device  — the card's name, count, and `nvidia-smi` name + power limit;
-2. build   — the three CUDA kernels built from `aclswarm_torch/csrc/` with
-             nvcc (seconds, ptxas register/shared-memory lines);
+2. build   — the CUDA kernels built from `aclswarm_torch/csrc/` with nvcc
+             (seconds, ptxas register/shared-memory lines) and the opcode
+             counts of the two flood-merge kernels in the library's SASS
+             (`cuobjdump -sass`), which show the DPX instruction K3's fold
+             compiles to;
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (n=1000): K1 Sinkhorn atol 5e-5 and
              marginals 1e-4, K2 rounding and K3 flood merge bit-identical;
-             kernel and plain times from CUDA events;
+             kernel, previous-design and plain times from CUDA events; then
+             the edge cases (K3: w=37, an empty comm row, packed 0 and
+             SENTINEL, n=1001; K1: n=1001, n=64, pin/forbid, n=2500 past the
+             stripe limit), each with the launches it made;
 4. reference — the slice at a small size on the card (f32, kernels)
              against the same run on the CPU (f32, plain versions);
 5. slice   — the `simform1000_flooded` deployment
@@ -23,17 +29,24 @@ and prints no result line:
              device time by kernel, the device's idle share, and each
              kernel's launches as the profiler saw them against its
              launch counter;
-7. the `kernels` line, then the result line.
+7. the `kernels` line, then the result line. Each kernel row carries the
+   contract's keys plus `design`, and for the two redesigned kernels
+   `prev_design` and `prev_ms`: the earlier design, timed in this run.
 
 Needs a CUDA card and the repository (it imports `aclswarm_torch`).
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import math
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,6 +54,7 @@ import torch
 N = 1000
 TICKS = 240             # two auctions (ticks 0 and 120) at assign_every=120
 SINKHORN_ITERS = 200    # `sinkhorn_assign`'s default, as the engine calls it
+K1_LAUNCHES_PER_SOLVE = 1   # the persistent design at n=1000
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM rate, and 32-bit
 # non-tensor-core operations — the kernels' float and integer vector work
 PEAK_BYTES_PER_S = 3.35e12
@@ -125,6 +139,37 @@ def phase_device() -> dict:
     return info
 
 
+def _sass_opcodes(library: str) -> dict:
+    """Opcode counts of each flood-merge kernel in the library's SASS."""
+    from aclswarm_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", library],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts: dict[str, Counter] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            current = next((k for k in ("flood_merge_bytemask_kernel",
+                                        "flood_merge_kernel") if k in name),
+                           None)
+            if current:
+                counts[current] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if current and m:
+            counts[current][m.group(1)] += 1
+    if set(counts) != {"flood_merge_kernel", "flood_merge_bytemask_kernel"}:
+        raise AssertionError(f"SASS of the flood kernels not found: "
+                             f"{sorted(counts)}")
+    return {k: {"total": sum(c.values()),
+                "min_ops": {op: x for op, x in c.items() if "MNMX" in op},
+                "top": dict(c.most_common(10))} for k, c in counts.items()}
+
+
 def phase_build() -> None:
     from aclswarm_torch import ops
 
@@ -133,14 +178,130 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": log["library"], "cached": log["cached"],
           "ptxas": [ln for ln in log["ptxas"].splitlines()
-                    if "registers" in ln or "Compiling entry" in ln]})
+                    if "registers" in ln or "Compiling entry" in ln],
+          "sass": _sass_opcodes(log["library"])})
+
+
+def _counted(name: str, fn):
+    """``fn()`` and the launches wrapper ``name`` counted during it."""
+    from aclswarm_torch import ops
+
+    before = ops.LAUNCHES[name]
+    out = fn()
+    return out, ops.LAUNCHES[name] - before
+
+
+def _sinkhorn_multi(cost, tau, iters):
+    """K1's multi-launch design, called past the size rule that routes
+    n=1000 to the persistent design: its time is the `prev_ms` baseline.
+    Not counted: it is no launch of the main path."""
+    from aclswarm_torch.ops import _build
+
+    n = cost.shape[0]
+    out = torch.empty_like(cost)
+    f = torch.zeros(n, dtype=torch.float32, device=cost.device)
+    g = torch.zeros_like(f)
+    launched = ctypes.c_int(0)
+    _build.launch("sinkhorn_log_multi_launch", cost.device, cost.data_ptr(),
+                  out.data_ptr(), f.data_ptr(), g.data_ptr(), n, float(tau),
+                  int(iters), -math.log(n), ctypes.byref(launched))
+    return out
+
+
+def _flood_bytemask(packed, comm):
+    """K3's byte-mask design (the `prev_ms` baseline), not counted."""
+    from aclswarm_torch.ops import _build
+
+    n, w = packed.shape
+    out = torch.empty_like(packed)
+    _build.launch("flood_merge_bytemask_launch", packed.device,
+                  packed.data_ptr(), comm.data_ptr(), out.data_ptr(), n, w)
+    return out
+
+
+def _ab_ms(new, prev, reps: int) -> tuple[float, float]:
+    """Mean ms of two versions timed in turns (new, prev, prev, new)."""
+    t = [time_ms(fn, reps) for fn in (new, prev, prev, new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def _masses(plan):
+    return [torch.exp(torch.logsumexp(plan, dim=d)) for d in (0, 1)]
+
+
+def _check_sinkhorn(label, cost, tau, iters, launches_expected,
+                    rtol=0.0) -> dict:
+    """K1 against its plain version: |kernel - plain| <= 5e-5 + rtol |plain|
+    and row/column masses within 1e-4 of the plain version's."""
+    from aclswarm_torch import ops
+
+    plan, launches = _counted("sinkhorn_log",
+                              lambda: ops.sinkhorn_log(cost, tau, iters))
+    ref = ops.sinkhorn_log_plain(cost, tau, iters)
+    torch.cuda.synchronize()
+    excess = ((plan - ref).abs() - rtol * ref.abs()).max().item()
+    err = (plan - ref).abs().max().item()
+    marg = max((a - b).abs().max().item()
+               for a, b in zip(_masses(plan), _masses(ref)))
+    info = {"check": label, "n": cost.shape[0], "launches": launches,
+            "max_abs_err": err, "mass_err_vs_plain": marg}
+    if not (excess <= 5e-5 and marg <= 1e-4
+            and launches == launches_expected):
+        raise AssertionError(f"K1 edge check failed: {info} (launches "
+                             f"expected {launches_expected}, rtol {rtol})")
+    return info
+
+
+def _check_flood(label, packed, comm) -> dict:
+    from aclswarm_torch import ops
+
+    merged, launches = _counted("flood_merge",
+                                lambda: ops.flood_merge(packed, comm))
+    ref = ops.flood_merge_plain(packed, comm, block=64)
+    info = {"check": label, "n": packed.shape[0], "w": packed.shape[1],
+            "launches": launches, "bit_identical": torch.equal(merged, ref),
+            "baseline_identical": torch.equal(_flood_bytemask(packed, comm),
+                                              ref)}
+    if not (info["bit_identical"] and info["baseline_identical"]
+            and launches == 1):
+        raise AssertionError(f"K3 edge check failed: {info}")
+    return info
+
+
+def _flood_edge_case(n, w, seed, dev):
+    """Packed values over their whole range with 0, SENTINEL and the
+    largest real value (AGE_CAP << 16 | 0xffff) planted; comm at 30% with
+    an empty receiver row and a receiver whose one sender holds SENTINEL
+    everywhere."""
+    from aclswarm_torch.ops.flood import SENTINEL
+    from aclswarm_torch.sim import localization as loclib
+
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, SENTINEL, (n, w), endpoint=True)
+    for value in (0, SENTINEL, (loclib.AGE_CAP << 16) | 0xFFFF):
+        packed.flat[rng.choice(n * w, n, replace=False)] = value
+    comm = rng.random((n, n)) < 0.3
+    comm[0] = False
+    comm[1] = False
+    comm[1, 2] = True
+    packed[2] = SENTINEL
+    return (torch.tensor(packed.astype(np.int32), device=dev),
+            torch.tensor(comm, device=dev))
+
+
+def _uniform_cost(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    q, p = rng.uniform(-65, 65, (n, 3)), rng.uniform(-65, 65, (n, 3))
+    c = np.linalg.norm(q[:, None] - p[None], axis=-1)
+    return torch.tensor(c / c.mean(), dtype=torch.float32, device=dev)
 
 
 def phase_kernels(seed: int) -> dict:
     """Each kernel vs its plain version on the main path's inputs: the
     first auction's normalized cost, its plan, and the flood's packed
-    stripes under the formation's comm graph."""
+    stripes under the formation's comm graph; then the edge cases."""
     from aclswarm_torch import ops
+    from aclswarm_torch.assignment import sinkhorn as sinkhorn_mod
     from aclswarm_torch.core import geometry
     from aclswarm_torch.core import perm as permutil
     from aclswarm_torch.sim import localization as loclib
@@ -156,19 +317,27 @@ def phase_kernels(seed: int) -> dict:
     tau, iters = 0.03, SINKHORN_ITERS
     out = {}
 
-    plan = ops.sinkhorn_log(cost, tau, iters)
+    plan, launches = _counted("sinkhorn_log",
+                              lambda: ops.sinkhorn_log(cost, tau, iters))
     plan_ref = ops.sinkhorn_log_plain(cost, tau, iters)
+    plan_prev = _sinkhorn_multi(cost, tau, iters)
     torch.cuda.synchronize()
     err = (plan - plan_ref).abs().max().item()
-    marg = max((torch.exp(torch.logsumexp(plan, dim=d)) - 1.0 / N)
-               .abs().max().item() for d in (0, 1))
-    if not (err <= 5e-5 and marg <= 1e-4):
+    err_prev = (plan_prev - plan_ref).abs().max().item()
+    marg = max((m - 1.0 / N).abs().max().item() for m in _masses(plan))
+    if not (err <= 5e-5 and marg <= 1e-4 and err_prev <= 5e-5
+            and launches == K1_LAUNCHES_PER_SOLVE):
         raise AssertionError(f"K1 sinkhorn_log: max |kernel - plain| {err} "
-                             f"(limit 5e-5), marginal error {marg} (1e-4)")
+                             f"(limit 5e-5), marginal error {marg} (1e-4), "
+                             f"previous design {err_prev}, launches "
+                             f"{launches} (expected {K1_LAUNCHES_PER_SOLVE})")
     b, by = bound_ms(10 * N * N * iters + 2 * N * N, 8 * N * N)
+    ms, prev_ms = _ab_ms(lambda: ops.sinkhorn_log(cost, tau, iters),
+                         lambda: _sinkhorn_multi(cost, tau, iters), 10)
     out["sinkhorn_log"] = dict(
-        max_abs_err=err, marginal_err=marg, bound_ms=b, bound_by=by,
-        ms=time_ms(lambda: ops.sinkhorn_log(cost, tau, iters), 10),
+        max_abs_err=err, marginal_err=marg, prev_max_abs_err=err_prev,
+        launches_per_solve=launches, bound_ms=b, bound_by=by, ms=ms,
+        prev_ms=prev_ms,
         plain_ms=time_ms(lambda: ops.sinkhorn_log_plain(cost, tau, iters),
                          3))
 
@@ -195,20 +364,56 @@ def phase_kernels(seed: int) -> dict:
         packed = ((torch.clamp(age[:, :w], max=loclib.AGE_CAP) << 16)
                   | ids[:, None]).contiguous()
         merged = ops.flood_merge(packed, comm)
-        if not torch.equal(merged, ops.flood_merge_plain(packed, comm)):
-            raise AssertionError(f"K3 flood_merge (n={N}, w={w}): the "
-                                 "kernel differs from the plain version")
+        ref = ops.flood_merge_plain(packed, comm)
+        if not (torch.equal(merged, ref)
+                and torch.equal(_flood_bytemask(packed, comm), ref)):
+            raise AssertionError(f"K3 flood_merge (n={N}, w={w}): a kernel "
+                                 "differs from the plain version")
         # a masked product: count the (receiver, sender) pairs this comm
         # graph holds, each a select + a min per target
         b, by = bound_ms(2 * nnz * w, 4 * N * w * 2 + N * N)
+        ms, prev_ms = _ab_ms(lambda: ops.flood_merge(packed, comm),
+                             lambda: _flood_bytemask(packed, comm), 50)
         out[f"flood_merge_w{w}"] = dict(
-            max_abs_err=0.0, comm_nnz=nnz, bound_ms=b, bound_by=by,
-            ms=time_ms(lambda: ops.flood_merge(packed, comm), 50),
+            max_abs_err=0.0, comm_nnz=nnz, bound_ms=b, bound_by=by, ms=ms,
+            prev_ms=prev_ms,
             plain_ms=time_ms(lambda: ops.flood_merge_plain(packed, comm),
                              3))
     for name, v in out.items():
         emit({"phase": "kernel", "name": name, "kernel_ms": v["ms"],
               **{k: x for k, x in v.items() if k != "ms"}})
+
+    edges = [_check_flood("w=37, formation comm",
+                          packed[:, :37].contiguous(), comm)]
+    empty = comm.clone()
+    empty[0] = False
+    edges.append(_check_flood("empty comm row, w=500",
+                              packed[:, :N // 2].contiguous(), empty))
+    for n, w in ((N, N // 2), (N + 1, N + 1), (N + 1, 37)):
+        edges.append(_check_flood(
+            "packed 0/SENTINEL/max planted, empty row, SENTINEL-only sender",
+            *_flood_edge_case(n, w, seed + n + w, dev)))
+    plain_multi = 2 * iters + 2
+    edges.append(_check_sinkhorn("n=1001", _uniform_cost(N + 1, seed, dev),
+                                 tau, iters, 1))
+    edges.append(_check_sinkhorn("n=64", _uniform_cost(64, seed, dev), tau,
+                                 iters, 1))
+    pin = torch.zeros(N, N, dtype=torch.bool, device=dev)
+    pin[torch.arange(0, N, 50, device=dev),
+        torch.arange(7, N, 50, device=dev)] = True
+    forbid = (torch.rand(N, N, generator=torch.Generator(device=dev)
+                         .manual_seed(seed), device=dev) < 0.01) & ~pin
+    # forbidden entries reach |plan| ~ 600, where one float32 step is 6e-5:
+    # 5e-5 plus 2^-22 |plain| allows that last bit
+    edges.append(_check_sinkhorn(
+        "pin/forbid (sinkhorn_assign._apply_pin_forbid)",
+        sinkhorn_mod._apply_pin_forbid(cost, pin, forbid).contiguous(), tau,
+        iters, 1, rtol=2.0**-22))
+    edges.append(_check_sinkhorn("n=2500, past the stripe limit",
+                                 _uniform_cost(2500, seed, dev), tau, iters,
+                                 plain_multi))
+    for e in edges:
+        emit({"phase": "edge", **e})
     return out
 
 
@@ -278,19 +483,21 @@ def phase_slice(seed: int) -> dict:
             "finite": finite, "v2f_valid": bool(permutil.is_valid(final.v2f)),
             "q_shape": list(final.swarm.q.shape)}
     emit(info)
-    # K1's design: a scale pass, a row and a column pass per iteration, and
-    # a final pass per solve; one K2 per auction; one K3 stripe per tick
+    # one K1 (a persistent solve) and one K2 per auction; one K3 stripe
+    # per tick
     if not (finite and info["v2f_valid"]
             and final.swarm.q.shape == (N, 3)
-            and launches["sinkhorn_log"] == auctions * (2 * SINKHORN_ITERS
-                                                         + 2)
+            and launches["sinkhorn_log"] == auctions * K1_LAUNCHES_PER_SOLVE
             and launches["round_dominant"] == auctions
             and launches["flood_merge"] == TICKS):
         raise AssertionError(f"slice check failed: {info}")
     return info
 
 
-_KERNEL_OF = {"row_lse_kernel": "sinkhorn_log", "col_lse_kernel":
+# device kernel -> the wrapper that launches it (K1's multi-launch kernels
+# run only past its stripe limit, not on this path)
+_KERNEL_OF = {"sinkhorn_persistent_kernel": "sinkhorn_log",
+              "row_lse_kernel": "sinkhorn_log", "col_lse_kernel":
               "sinkhorn_log", "neg_scale_kernel": "sinkhorn_log",
               "add_potentials_kernel": "sinkhorn_log",
               "round_dominant_kernel": "round_dominant",
@@ -369,17 +576,32 @@ def main(argv=None) -> int:
                                   "aclswarm_tpu/ops/rounding_pallas.py:82"),
                "flood_merge": ("aclswarm_torch/csrc/flood.cu",
                                "aclswarm_tpu/ops/flood_pallas.py:70")}
+    designs = {"sinkhorn_log": ("one cooperative launch per solve, one "
+                                "block per SM, logK stripes in shared "
+                                "memory, iteration-tagged potentials in "
+                                "place of a grid barrier",
+                                "one launch per half-iteration"),
+               "round_dominant": ("whole loop in one 1024-thread block",
+                                  None),
+               "flood_merge": ("bit-packed mask, one DPX add-min "
+                               "(VIADDMNMX) per triple, cp.async double "
+                               "buffer, senders split over 4 groups",
+                               "byte-mask tile, select + signed min")}
     rows = []
     for name, key in (("sinkhorn_log", "sinkhorn_log"),
                       ("round_dominant", "round_dominant"),
                       ("flood_merge", f"flood_merge_w{N // 2}")):
         k = kern[key]
-        rows.append({"name": name, "route": "cuda", "source": sources[name][0],
-                     "replaces": sources[name][1],
-                     "launches": sl["launches"][name],
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": sources[name][0],
+               "replaces": sources[name][1],
+               "launches": sl["launches"][name],
+               "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+               "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"], "library_ms": None,
+               "design": designs[name][0]}
+        if designs[name][1]:
+            row.update(prev_design=designs[name][1], prev_ms=k["prev_ms"])
+        rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

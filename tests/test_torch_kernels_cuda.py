@@ -3,12 +3,19 @@ path's n=1000 shapes (`pytest -m cuda tests/test_torch_kernels_cuda.py`
 on a machine with an H100 and nvcc; skipped elsewhere).
 
 Tolerances as in `chip_smoke.py`: K1 atol 5e-5 and marginals 1e-4 (f32
-reductions in another order); K2 and K3 bit-identical."""
+reductions in another order); K2 and K3 bit-identical. The edge cases
+cover ragged stripes and tiles (n=1001, n=64, w=37), K1 past its
+shared-memory stripe limit (n=2500, the multi-launch design) and with
+pinned/forbidden pairs, and K3's packed extremes (0, SENTINEL) with a
+receiver that has no sender."""
 import numpy as np
 import pytest
 import torch
 
 from aclswarm_torch import ops
+from aclswarm_torch.assignment import sinkhorn as sinkhorn_mod
+from aclswarm_torch.ops.flood import SENTINEL
+from aclswarm_torch.sim.localization import AGE_CAP
 
 pytestmark = pytest.mark.cuda
 N = 1000
@@ -23,21 +30,81 @@ def card():
     return torch.device("cuda")
 
 
-def _cost(card, seed=0):
+def _cost(card, seed=0, n=N):
     rng = np.random.default_rng(seed)
-    q, p = rng.uniform(-65, 65, (N, 3)), rng.uniform(-65, 65, (N, 3))
+    q, p = rng.uniform(-65, 65, (n, 3)), rng.uniform(-65, 65, (n, 3))
     c = np.linalg.norm(q[:, None] - p[None], axis=-1)
     return torch.tensor(c / c.mean(), dtype=torch.float32, device=card)
 
 
+def _masses(plan):
+    return [torch.exp(torch.logsumexp(plan, dim=d)) for d in (0, 1)]
+
+
 def test_sinkhorn_kernel(card):
     cost = _cost(card)
+    before = ops.LAUNCHES["sinkhorn_log"]
     out = ops.sinkhorn_log(cost, 0.03, 200)
+    assert ops.LAUNCHES["sinkhorn_log"] - before == 1     # one persistent solve
     ref = ops.sinkhorn_log_plain(cost, 0.03, 200)
     assert (out - ref).abs().max().item() <= 5e-5
-    for dim in (0, 1):
-        mass = torch.exp(torch.logsumexp(out, dim=dim))
+    for mass in _masses(out):
         assert (mass - 1.0 / N).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n,launches", [(N + 1, 1), (64, 1), (1849, 1),
+                                        (1900, 2 * 200 + 2),
+                                        (2500, 2 * 200 + 2)])
+def test_sinkhorn_kernel_sizes(card, n, launches):
+    """Ragged stripes (n=1001; n=64 with fewer blocks than SMs) take the
+    persistent design, up to its shared-memory stripe limit on an H100
+    (n=1849); n=1900 and n=2500 are past it and take the multi-launch
+    design."""
+    cost = _cost(card, n, n)
+    before = ops.LAUNCHES["sinkhorn_log"]
+    out = ops.sinkhorn_log(cost, 0.03, 200)
+    assert ops.LAUNCHES["sinkhorn_log"] - before == launches
+    ref = ops.sinkhorn_log_plain(cost, 0.03, 200)
+    assert (out - ref).abs().max().item() <= 5e-5
+    for mass, mass_ref in zip(_masses(out), _masses(ref)):
+        assert (mass - mass_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_sinkhorn_kernel_few_iterations(card, iters):
+    """The persistent design's tags start at the caller's zeros (g = 0 for
+    the first half-step, f = g = 0 when no iteration runs)."""
+    cost = _cost(card, 4)
+    out = ops.sinkhorn_log(cost, 0.03, iters)
+    ref = ops.sinkhorn_log_plain(cost, 0.03, iters)
+    assert (out - ref).abs().max().item() <= 5e-5
+
+
+def test_sinkhorn_kernel_deterministic(card):
+    """The persistent design reduces in a fixed order inside each block and
+    waits on tagged entries, so repeated solves agree bit for bit."""
+    cost = _cost(card, 5)
+    first = ops.sinkhorn_log(cost, 0.03, 200)
+    for _ in range(20):
+        assert torch.equal(ops.sinkhorn_log(cost, 0.03, 200), first)
+
+
+def test_sinkhorn_kernel_pin_forbid(card):
+    """Pinned pairs cost 0, forbidden ones 4 (max + 1): forbidden entries
+    of the plan reach |x| ~ 600, where one float32 step is 6.1e-5, so the
+    bound is 5e-5 plus 2^-22 |plain| (the last bit of such an entry)."""
+    cost = _cost(card, 2)
+    idx = torch.arange(0, N, 50, device=card)
+    pin = torch.zeros(N, N, dtype=torch.bool, device=card)
+    pin[idx, (idx + 7) % N] = True
+    g = torch.Generator(device=card).manual_seed(3)
+    forbid = (torch.rand(N, N, generator=g, device=card) < 0.01) & ~pin
+    cost = sinkhorn_mod._apply_pin_forbid(cost, pin, forbid).contiguous()
+    out = ops.sinkhorn_log(cost, 0.03, 200)
+    ref = ops.sinkhorn_log_plain(cost, 0.03, 200)
+    assert ((out - ref).abs() - 2.0**-22 * ref.abs()).max().item() <= 5e-5
+    for mass, mass_ref in zip(_masses(out), _masses(ref)):
+        assert (mass - mass_ref).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("kind", ["plan", "ties"])
@@ -60,3 +127,27 @@ def test_flood_kernel(card, w):
     comm[0] = False
     assert torch.equal(ops.flood_merge(packed, comm),
                        ops.flood_merge_plain(packed, comm, block=100))
+
+
+@pytest.mark.parametrize("n,w", [(N + 1, N + 1), (N + 1, 37), (N, N // 2),
+                                 (64, 64)])
+def test_flood_kernel_extremes(card, n, w):
+    """Packed values over their whole range [0, SENTINEL] with 0, SENTINEL
+    and the largest real value planted; an empty receiver row and a
+    receiver whose one sender holds SENTINEL everywhere."""
+    rng = np.random.default_rng(n + w)
+    packed = rng.integers(0, SENTINEL, (n, w), endpoint=True)
+    for value in (0, SENTINEL, (AGE_CAP << 16) | 0xFFFF):
+        packed.flat[rng.choice(n * w, n, replace=False)] = value
+    comm = rng.random((n, n)) < 0.3
+    comm[0] = False
+    comm[1] = False
+    comm[1, 2] = True
+    packed[2] = SENTINEL
+    p = torch.tensor(packed.astype(np.int32), device=card)
+    c = torch.tensor(comm, device=card)
+    before = ops.LAUNCHES["flood_merge"]
+    out = ops.flood_merge(p, c)
+    assert ops.LAUNCHES["flood_merge"] - before == 1
+    assert torch.equal(out, ops.flood_merge_plain(p, c, block=64))
+    assert (out[:2] == SENTINEL).all()

@@ -96,6 +96,69 @@ def test_flood_blocked_plain_is_identical(block):
         ops.flood_merge_plain(p, c).numpy())
 
 
+def _masked_umin(packed, comm, form):
+    """numpy model of `csrc/flood.cu`'s arithmetic: comm packed into one
+    32-bit word per (receiver, 32-sender chunk) (bit l = sender 32k + l, as
+    `__ballot_sync` packs it) and the word inverted; then, from SENTINEL,
+    ``acc = umin(x, acc)`` per sender. ``form='add'`` is the kernel's
+    masking (`__viaddmin_u32`), ``x = p + top`` with bit s moved to the top
+    (0 for a sender, 2^31 otherwise); ``form='or'`` is ``x = p | nm`` with
+    bit s broadcast to all 32 bits by an arithmetic shift (0 or
+    0xffffffff), folded in sender pairs three-way as `__vimin3_u32` would."""
+    n, w = packed.shape
+    chunks = -(-n // 32)
+    bits = np.zeros((n, chunks * 32), bool)
+    bits[:, :n] = comm
+    weights = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    words = (bits.reshape(n, chunks, 32) * weights).sum(-1, dtype=np.uint32)
+    p = np.zeros((chunks * 32, w), np.uint32)   # senders past n: any value
+    p[:n] = packed.astype(np.uint32)
+    acc = np.full((n, w), SENTINEL, np.uint32)
+    for k in range(chunks):
+        nw = ~words[:, k]
+        if form == "add":
+            for s in range(32):
+                top = (nw << np.uint32(31 - s)) & np.uint32(1 << 31)
+                acc = np.minimum(p[32 * k + s][None, :] + top[:, None], acc)
+            continue
+        for s in range(0, 32, 2):
+            x0, x1 = (p[32 * k + t][None, :]
+                      | ((nw << np.uint32(31 - t)).view(np.int32) >> 31)
+                      .view(np.uint32)[:, None] for t in (s, s + 1))
+            acc = np.minimum(np.minimum(acc, x0), x1)
+    return acc.view(np.int32)
+
+
+@pytest.mark.parametrize("form", ["add", "or"])
+@pytest.mark.parametrize("n,w", [(7, 7), (33, 5), (64, 37), (70, 64)])
+def test_flood_masked_unsigned_min_identity(n, w, form):
+    """The identity K3's bit-identity rests on: with every packed value in
+    [0, 2^31 - 1], the masked unsigned min equals the masked signed min —
+    a non-sender's masked value (p + 2^31, or 0xffffffff) never wins and a
+    receiver with no sender keeps SENTINEL."""
+    from aclswarm_tpu.sim.localization import AGE_CAP
+
+    rng = np.random.default_rng(1000 + n + w)
+    packed = rng.integers(0, SENTINEL, (n, w), endpoint=True)
+    for value in (0, (AGE_CAP << 16) | 0xFFFF, SENTINEL):
+        packed.flat[rng.choice(n * w, max(2, n * w // 20),
+                               replace=False)] = value
+    packed = packed.astype(np.int32)
+    comm = rng.random((n, n)) < 0.4
+    comm[0] = False                    # a receiver with no sender
+    comm[1] = False
+    comm[1, 2] = True                  # its one sender holds SENTINEL
+    packed[2] = SENTINEL
+    out = _masked_umin(packed, comm, form)
+    plain = ops.flood_merge_plain(torch.from_numpy(packed),
+                                  torch.from_numpy(comm)).numpy()
+    ref = np.asarray(flood_merge_pallas(jnp.asarray(packed),
+                                        jnp.asarray(comm), interpret=True))
+    np.testing.assert_array_equal(out, plain)
+    np.testing.assert_array_equal(out, ref)
+    assert (out[:2] == SENTINEL).all()
+
+
 def test_kernel_checks_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         _build.check(torch.zeros(3, 3), "x", torch.float32, (3, 3))
