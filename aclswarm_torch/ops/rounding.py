@@ -7,15 +7,12 @@ Both return the permutation and the number of rounds the loop ran.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from aclswarm_torch.ops import _build
-
-# the kernel keeps 17 bytes per row in one block's shared memory
-_SMEM_PER_ROW = 17
-_SMEM_LIMIT = 232_448
 
 
 def round_dominant_plain(plan_log: torch.Tensor,
@@ -50,21 +47,45 @@ def round_dominant_plain(plan_log: torch.Tensor,
     return assign, torch.tensor(rounds, dtype=torch.int32, device=dev)
 
 
-def round_dominant(plan_log: torch.Tensor, max_rounds: int | None = None
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(n, n) log plan -> ((n,) int32 permutation, () int32 rounds)."""
-    if plan_log.device.type == "cpu":
-        return round_dominant_plain(plan_log, max_rounds)
+def scratch_words(n: int) -> int:
+    """8-byte words of the kernel's zeroed scratch (`carve` in
+    `csrc/rounding.cu`): column keys, two buffers each of published row
+    and column words, the blocks' beats, an entry count and four 4-byte
+    counters."""
+    return 6 * n + 3
+
+
+def rescans(scratch: torch.Tensor, n: int) -> dict:
+    """What a call's rounds after the first rescanned, read back from its
+    scratch (a host sync): rows, columns, and the entries they read."""
+    ctr = scratch[6 * n + 1:].view(torch.int32).tolist()
+    return {"rows": ctr[1], "cols": ctr[2], "entries": int(scratch[6 * n])}
+
+
+def launch(plan_log: torch.Tensor, max_rounds: int | None
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Run the kernel on a checked CUDA plan: (permutation, rounds,
+    scratch, launches made)."""
     n = plan_log.shape[0]
     _build.check(plan_log, "round_dominant plan", torch.float32, (n, n))
-    if _SMEM_PER_ROW * n > _SMEM_LIMIT:
-        raise ValueError(f"round_dominant kernel: n={n} needs "
-                         f"{_SMEM_PER_ROW * n} bytes of shared memory, more "
-                         f"than one block has ({_SMEM_LIMIT})")
-    out = torch.empty((n,), dtype=torch.int32, device=plan_log.device)
-    rounds = torch.empty((), dtype=torch.int32, device=plan_log.device)
-    _build.launch("round_dominant_launch", plan_log.device, plan_log.data_ptr(),
-                  out.data_ptr(), rounds.data_ptr(), n,
-                  n if max_rounds is None else int(max_rounds))
-    _build.LAUNCHES["round_dominant"] += 1
+    dev = plan_log.device
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    rounds = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.zeros((scratch_words(n),), dtype=torch.int64, device=dev)
+    launched = ctypes.c_int(0)
+    _build.launch("round_dominant_launch", dev, plan_log.data_ptr(),
+                  out.data_ptr(), rounds.data_ptr(), scratch.data_ptr(), n,
+                  n if max_rounds is None else int(max_rounds),
+                  ctypes.byref(launched))
+    return out, rounds, scratch, launched.value
+
+
+def round_dominant(plan_log: torch.Tensor, max_rounds: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, n) log plan -> ((n,) int32 permutation, () int32 rounds). On the
+    card: one cooperative launch per call, any n that fits the card."""
+    if plan_log.device.type == "cpu":
+        return round_dominant_plain(plan_log, max_rounds)
+    out, rounds, _, launched = launch(plan_log, max_rounds)
+    _build.LAUNCHES["round_dominant"] += launched
     return out, rounds

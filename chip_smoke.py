@@ -14,11 +14,15 @@ and prints no result line:
              compiles to;
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (n=1000): K1 Sinkhorn atol 5e-5 and
-             marginals 1e-4, K2 rounding and K3 flood merge bit-identical;
-             kernel, previous-design and plain times from CUDA events; then
-             the edge cases (K3: w=37, an empty comm row, packed 0 and
-             SENTINEL, n=1001; K1: n=1001, n=64, pin/forbid, n=2500 past the
-             stripe limit), each with the launches it made;
+             marginals 1e-4, K2 rounding (permutation and round count) and
+             K3 flood merge bit-identical; kernel, previous-design and plain
+             times from CUDA events — K2's two designs from the profiler's
+             device time, with its first round alone and the lines its
+             rounds rescanned; then the edge cases (K3: w=37, an
+             empty comm row, packed 0 and SENTINEL, n=1001; K1: n=1001,
+             n=64, pin/forbid, n=2500 past the stripe limit; K2: all ties,
+             n=1, n=64, n=1001, -inf lines and signed-zero ties, pin/forbid,
+             max_rounds=3, n=14000), each with the launches it made;
 4. reference — the slice at a small size on the card (f32, kernels)
              against the same run on the CPU (f32, plain versions);
 5. slice   — the `simform1000_flooded` deployment
@@ -30,8 +34,9 @@ and prints no result line:
              kernel's launches as the profiler saw them against its
              launch counter;
 7. the `kernels` line, then the result line. Each kernel row carries the
-   contract's keys plus `design`, and for the two redesigned kernels
-   `prev_design` and `prev_ms`: the earlier design, timed in this run.
+   contract's keys plus `design`, `prev_design` and `prev_ms` (the first
+   design, timed in this run); K2's row also its rounds and the dense
+   bound that earlier runs reported.
 
 Needs a CUDA card and the repository (it imports `aclswarm_torch`).
 """
@@ -55,6 +60,11 @@ N = 1000
 TICKS = 240             # two auctions (ticks 0 and 120) at assign_every=120
 SINKHORN_ITERS = 200    # `sinkhorn_assign`'s default, as the engine calls it
 K1_LAUNCHES_PER_SOLVE = 1   # the persistent design at n=1000
+K2_LAUNCHES_PER_CALL = 1    # one cooperative launch per rounding
+# K2's designs as the profiler names their kernels: the current one and
+# the first port's single-block kernel
+K2_KERNELS = ("round_persistent_kernel",)
+K2_PREV_KERNELS = ("round_dominant_kernel",)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM rate, and 32-bit
 # non-tensor-core operations — the kernels' float and integer vector work
 PEAK_BYTES_PER_S = 3.35e12
@@ -118,6 +128,33 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernels: tuple) -> float:
+    """Mean device milliseconds per call of ``fn`` spent in the named
+    kernels, from `torch.profiler`'s kernel events over ``reps`` calls
+    after one warm-up. For a kernel shorter than its wrapper's host work:
+    CUDA events around back-to-back calls would time the host there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if any(k + "(" in e.name for k in kernels)]
+    if not us:
+        raise AssertionError(f"the profiler saw no kernel of {kernels}")
+    return sum(us) / reps / 1e3
+
+
+def _ab_device_ms(new, prev, reps: int) -> tuple[float, float]:
+    """Device ms of two versions, each (fn, kernel names), in turns (new,
+    prev, prev, new)."""
+    t = [device_ms(fn, reps, k) for fn, k in (new, prev, prev, new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
 def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
@@ -219,6 +256,18 @@ def _flood_bytemask(packed, comm):
     return out
 
 
+def _round_single_block(plan):
+    """K2's single-block design (the `prev_ms` baseline), not counted."""
+    from aclswarm_torch.ops import _build
+
+    n = plan.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=plan.device)
+    rounds = torch.empty((), dtype=torch.int32, device=plan.device)
+    _build.launch("round_dominant_single_block_launch", plan.device,
+                  plan.data_ptr(), out.data_ptr(), rounds.data_ptr(), n, n)
+    return out, rounds
+
+
 def _ab_ms(new, prev, reps: int) -> tuple[float, float]:
     """Mean ms of two versions timed in turns (new, prev, prev, new)."""
     t = [time_ms(fn, reps) for fn in (new, prev, prev, new)]
@@ -268,6 +317,36 @@ def _check_flood(label, packed, comm) -> dict:
     return info
 
 
+def _check_rounding(label, plan, max_rounds=None) -> dict:
+    """K2 against its plain version, permutation and round count."""
+    from aclswarm_torch import ops
+
+    (perm, rounds), launches = _counted(
+        "round_dominant", lambda: ops.round_dominant(plan, max_rounds))
+    ref, ref_rounds = ops.round_dominant_plain(plan, max_rounds)
+    info = {"check": label, "n": plan.shape[0], "max_rounds": max_rounds,
+            "launches": launches, "rounds": int(rounds),
+            "bit_identical": bool(torch.equal(perm, ref)
+                                  and int(rounds) == int(ref_rounds)),
+            "assigned": int((perm >= 0).sum())}
+    if not (info["bit_identical"] and launches == K2_LAUNCHES_PER_CALL):
+        raise AssertionError(f"K2 edge check failed: {info}")
+    return info
+
+
+def _rounding_edge_plan(n, seed, dev):
+    """Small integers (many exact ties, +0.0 and -0.0 among them), two rows
+    and two columns all -inf and 1% of the entries -inf."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    plan = torch.randint(-3, 4, (n, n), generator=g, device=dev).float()
+    signs = torch.rand(n, n, generator=g, device=dev) < 0.5
+    plan = torch.where((plan == 0) & signs, torch.full_like(plan, -0.0), plan)
+    plan[[3, n // 2]] = -math.inf
+    plan[:, [5, n - 1]] = -math.inf
+    plan[torch.rand(n, n, generator=g, device=dev) < 0.01] = -math.inf
+    return plan.contiguous()
+
+
 def _flood_edge_case(n, w, seed, dev):
     """Packed values over their whole range with 0, SENTINEL and the
     largest real value (AGE_CAP << 16 | 0xffff) planted; comm at 30% with
@@ -304,6 +383,7 @@ def phase_kernels(seed: int) -> dict:
     from aclswarm_torch.assignment import sinkhorn as sinkhorn_mod
     from aclswarm_torch.core import geometry
     from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.ops import rounding
     from aclswarm_torch.sim import localization as loclib
 
     dev = torch.device("cuda")
@@ -341,17 +421,43 @@ def phase_kernels(seed: int) -> dict:
         plain_ms=time_ms(lambda: ops.sinkhorn_log_plain(cost, tau, iters),
                          3))
 
-    perm, rounds = ops.round_dominant(plan)
+    (perm, rounds), launches = _counted("round_dominant",
+                                        lambda: ops.round_dominant(plan))
     perm_ref, rounds_ref = ops.round_dominant_plain(plan)
+    perm_prev, rounds_prev = _round_single_block(plan)
     if not (torch.equal(perm, perm_ref) and int(rounds) == int(rounds_ref)
-            and bool(permutil.is_valid(perm))):
-        raise AssertionError("K2 round_dominant: the kernel's permutation "
-                             "differs from the plain version's")
+            and bool(permutil.is_valid(perm))
+            and torch.equal(perm_prev, perm_ref)
+            and int(rounds_prev) == int(rounds_ref)
+            and launches == K2_LAUNCHES_PER_CALL):
+        raise AssertionError(f"K2 round_dominant: a design's permutation or "
+                             f"round count differs from the plain version's,"
+                             f" or launches {launches} != "
+                             f"{K2_LAUNCHES_PER_CALL}")
     rounds = int(rounds)
-    b, by = bound_ms(10 * N * N * rounds, 4 * N * N + 4 * N)
+    seen = rounding.rescans(rounding.launch(plan, None)[2], N)
+    # what these inputs need: the plan read once and the permutation written
+    # once; a compare and a select per entry that a scan reads — round 1
+    # reads every entry for its row and for its column, later rounds the
+    # live entries of the lines they rescan
+    entries = 2 * N * N + seen["entries"]
+    b, by = bound_ms(2 * entries, 4 * N * N + 4 * N)
+    # earlier runs' yardstick: the TPU kernel's ten dense sweeps per round
+    b_dense, by_dense = bound_ms(10 * N * N * rounds, 4 * N * N + 4 * N)
+    # device time from the profiler: one call is shorter than the
+    # wrapper's host work, so CUDA events around back-to-back calls time
+    # the host (call_ms)
+    new = (lambda: ops.round_dominant(plan), K2_KERNELS)
+    ms, prev_ms = _ab_device_ms(new, (lambda: _round_single_block(plan),
+                                      K2_PREV_KERNELS), 20)
     out["round_dominant"] = dict(
-        max_abs_err=0.0, rounds=rounds, bound_ms=b, bound_by=by,
-        ms=time_ms(lambda: ops.round_dominant(plan), 20),
+        max_abs_err=0.0, rounds=rounds, launches_per_call=launches,
+        rescanned_rows=seen["rows"], rescanned_cols=seen["cols"],
+        entries_read=entries, bound_ms=b, bound_by=by, dense_bound_ms=b_dense,
+        dense_bound_by=by_dense, ms=ms, prev_ms=prev_ms,
+        first_round_ms=device_ms(lambda: ops.round_dominant(plan, 1), 20,
+                                 K2_KERNELS),
+        call_ms=time_ms(lambda: ops.round_dominant(plan), 20),
         plain_ms=time_ms(lambda: ops.round_dominant_plain(plan), 3))
 
     comm = loclib.comm_mask(formation.adjmat, state.v2f).contiguous()
@@ -412,6 +518,31 @@ def phase_kernels(seed: int) -> dict:
     edges.append(_check_sinkhorn("n=2500, past the stripe limit",
                                  _uniform_cost(2500, seed, dev), tau, iters,
                                  plain_multi))
+    # K2: every edge against the plain version, with the launches it made
+    ties = torch.zeros(N, N, device=dev)
+    info = _check_rounding("all ties (zeros), n=1000: one commit per round",
+                           ties)
+    new = (lambda: ops.round_dominant(ties), K2_KERNELS)
+    info["ms"], info["prev_ms"] = _ab_device_ms(
+        new, (lambda: _round_single_block(ties), K2_PREV_KERNELS), 2)
+    edges.append(info)
+    for n in (1, 64, N + 1):
+        edges.append(_check_rounding(
+            f"n={n}, Sinkhorn plan",
+            ops.sinkhorn_log_plain(_uniform_cost(n, seed + n, dev), tau,
+                                   iters)))
+    edges.append(_check_rounding("-inf rows, columns, entries; +-0.0 ties",
+                                 _rounding_edge_plan(N, seed, dev)))
+    edges.append(_check_rounding(
+        "pin/forbid plan (sinkhorn_assign._apply_pin_forbid)",
+        ops.sinkhorn_log(sinkhorn_mod._apply_pin_forbid(cost, pin, forbid)
+                         .contiguous(), tau, iters)))
+    edges.append(_check_rounding("max_rounds=3, main plan", plan, 3))
+    big = torch.randn(14000, 14000, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(seed))
+    edges.append(_check_rounding(
+        "n=14000 normal plan, past the single block's limit", big))
+    del big
     for e in edges:
         emit({"phase": "edge", **e})
     return out
@@ -483,23 +614,25 @@ def phase_slice(seed: int) -> dict:
             "finite": finite, "v2f_valid": bool(permutil.is_valid(final.v2f)),
             "q_shape": list(final.swarm.q.shape)}
     emit(info)
-    # one K1 (a persistent solve) and one K2 per auction; one K3 stripe
-    # per tick
+    # one K1 (a persistent solve) and one K2 (a persistent rounding) per
+    # auction; one K3 stripe per tick
     if not (finite and info["v2f_valid"]
             and final.swarm.q.shape == (N, 3)
             and launches["sinkhorn_log"] == auctions * K1_LAUNCHES_PER_SOLVE
-            and launches["round_dominant"] == auctions
+            and launches["round_dominant"] == auctions * K2_LAUNCHES_PER_CALL
             and launches["flood_merge"] == TICKS):
         raise AssertionError(f"slice check failed: {info}")
     return info
 
 
 # device kernel -> the wrapper that launches it (K1's multi-launch kernels
-# run only past its stripe limit, not on this path)
+# run only past its stripe limit, K2's single-block kernel only when timed: not
+# on this path)
 _KERNEL_OF = {"sinkhorn_persistent_kernel": "sinkhorn_log",
               "row_lse_kernel": "sinkhorn_log", "col_lse_kernel":
               "sinkhorn_log", "neg_scale_kernel": "sinkhorn_log",
               "add_potentials_kernel": "sinkhorn_log",
+              "round_persistent_kernel": "round_dominant",
               "round_dominant_kernel": "round_dominant",
               "flood_merge_kernel": "flood_merge"}
 
@@ -523,8 +656,9 @@ def phase_profile(seed: int, ms_per_tick: float) -> None:
     sim.rollout(state, formation, gains, sparams, cfg, 2)   # warm-up
     torch.cuda.synchronize()
     ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: host-side op events (~10^5 in this window)
+    # crowd the trace buffers, and a run once lost 4 of 120 K3 events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sim.rollout(state, formation, gains, sparams, cfg, ticks)
         torch.cuda.synchronize()
     counted = dict(ops.LAUNCHES)
@@ -581,8 +715,12 @@ def main(argv=None) -> int:
                                 "memory, iteration-tagged potentials in "
                                 "place of a grid barrier",
                                 "one launch per half-iteration"),
-               "round_dominant": ("whole loop in one 1024-thread block",
-                                  None),
+               "round_dominant": ("stale-only rescans: one cooperative "
+                                  "launch, one block per SM owning rows and "
+                                  "columns, round-tagged published argmaxes "
+                                  "in place of a grid barrier, every block "
+                                  "deciding every commit",
+                                  "whole loop in one 1024-thread block"),
                "flood_merge": ("bit-packed mask, one DPX add-min "
                                "(VIADDMNMX) per triple, cp.async double "
                                "buffer, senders split over 4 groups",
@@ -599,8 +737,10 @@ def main(argv=None) -> int:
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,
                "design": designs[name][0]}
-        if designs[name][1]:
-            row.update(prev_design=designs[name][1], prev_ms=k["prev_ms"])
+        row.update(prev_design=designs[name][1], prev_ms=k["prev_ms"])
+        if name == "round_dominant":
+            row.update(dense_bound_ms=k["dense_bound_ms"],
+                       rounds=k["rounds"])
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,10 @@ reductions in another order); K2 and K3 bit-identical. The edge cases
 cover ragged stripes and tiles (n=1001, n=64, w=37), K1 past its
 shared-memory stripe limit (n=2500, the multi-launch design) and with
 pinned/forbidden pairs, and K3's packed extremes (0, SENTINEL) with a
-receiver that has no sender."""
+receiver that has no sender. K2 is held on all ties, n from 1 to 14,000,
++-0.0 ties and -inf lines, a pin/forbid plan and max_rounds cuts."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -107,15 +110,86 @@ def test_sinkhorn_kernel_pin_forbid(card):
         assert (mass - mass_ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("kind", ["plan", "ties"])
+def _rounding_plan(card, kind):
+    """The plans K2 is held on: a Sinkhorn plan of the main path's size;
+    all ties (one commit per round, every live line stale each round);
+    seeded normal plans at sizes around the grid (n=1, fewer lines than
+    SMs, ragged stripes, past the single-block design's shared-memory
+    limit of 13,673); small integers with +-0.0 ties and -inf rows,
+    columns and entries; a pinned/forbidden Sinkhorn plan."""
+    if kind == "plan":
+        return ops.sinkhorn_log_plain(_cost(card, 1), 0.03, 200)
+    if kind == "ties":
+        return torch.zeros(N, N, device=card)
+    g = torch.Generator(device=card).manual_seed(11)
+    if kind.startswith("n="):
+        n = int(kind[2:])
+        return torch.randn(n, n, generator=g, device=card)
+    if kind == "inf_zero":
+        plan = torch.randint(-3, 4, (N, N), generator=g, device=card).float()
+        neg0 = (plan == 0) & (torch.rand(N, N, generator=g, device=card) < .5)
+        plan = torch.where(neg0, torch.full_like(plan, -0.0), plan)
+        plan[[3, N // 2]] = -math.inf
+        plan[:, [5, N - 1]] = -math.inf
+        plan[torch.rand(N, N, generator=g, device=card) < 0.01] = -math.inf
+        return plan.contiguous()
+    assert kind == "pin_forbid"
+    idx = torch.arange(0, N, 50, device=card)
+    pin = torch.zeros(N, N, dtype=torch.bool, device=card)
+    pin[idx, (idx + 7) % N] = True
+    forbid = (torch.rand(N, N, generator=g, device=card) < 0.01) & ~pin
+    cost = sinkhorn_mod._apply_pin_forbid(_cost(card, 2), pin, forbid)
+    return ops.sinkhorn_log_plain(cost.contiguous(), 0.03, 200)
+
+
+@pytest.mark.parametrize("kind", ["plan", "ties", "n=1", "n=64", "n=1001",
+                                  "n=4096", "n=14000", "inf_zero",
+                                  "pin_forbid"])
 def test_rounding_kernel(card, kind):
-    plan = (ops.sinkhorn_log_plain(_cost(card, 1), 0.03, 200)
-            if kind == "plan" else torch.zeros(N, N, device=card))
+    """Bit-identical permutation and round count, one launch per call."""
+    plan = _rounding_plan(card, kind)
+    before = ops.LAUNCHES["round_dominant"]
     out, rounds = ops.round_dominant(plan)
+    assert ops.LAUNCHES["round_dominant"] - before == 1
     ref, ref_rounds = ops.round_dominant_plain(plan)
     assert torch.equal(out, ref) and int(rounds) == int(ref_rounds)
-    assert torch.equal(torch.sort(out).values,
-                       torch.arange(N, dtype=torch.int32, device=card))
+    if kind != "inf_zero":          # -inf lines can leave rows unassigned
+        n = plan.shape[0]
+        assert torch.equal(torch.sort(out).values,
+                           torch.arange(n, dtype=torch.int32, device=card))
+
+
+@pytest.mark.parametrize("max_rounds", [0, 1, 3])
+def test_rounding_kernel_max_rounds(card, max_rounds):
+    """A cut leaves the rows not yet committed at -1."""
+    plan = _rounding_plan(card, "plan")
+    out, rounds = ops.round_dominant(plan, max_rounds)
+    ref, ref_rounds = ops.round_dominant_plain(plan, max_rounds)
+    assert torch.equal(out, ref) and int(rounds) == int(ref_rounds)
+    assert int(rounds) == max_rounds and bool((out == -1).any())
+
+
+def test_rounding_kernel_deterministic(card):
+    """Round 1 combines column maxima with atomics that land in any order;
+    the keys are order-free, so 20 calls agree bit for bit."""
+    plan = _rounding_plan(card, "inf_zero")
+    first, rounds = ops.round_dominant(plan)
+    for _ in range(20):
+        out, again = ops.round_dominant(plan)
+        assert torch.equal(out, first) and int(again) == int(rounds)
+
+
+def test_rounding_kernel_previous_design(card):
+    """The single-block kernel, kept for timing, agrees too."""
+    from aclswarm_torch.ops import _build
+
+    plan = _rounding_plan(card, "plan")
+    ref, ref_rounds = ops.round_dominant_plain(plan)
+    out = torch.empty(N, dtype=torch.int32, device=card)
+    rounds = torch.empty((), dtype=torch.int32, device=card)
+    _build.launch("round_dominant_single_block_launch", card, plan.data_ptr(),
+                  out.data_ptr(), rounds.data_ptr(), N, N)
+    assert torch.equal(out, ref) and int(rounds) == int(ref_rounds)
 
 
 @pytest.mark.parametrize("w", [N, N // 2, 37])

@@ -7,14 +7,19 @@ held against these plain versions on the card
 Tolerances: K1 atol 5e-5 in float32 (the reference's own kernel
 tolerance, `tests/test_ops.py`; f32 transcendental noise), K2 and K3
 bit-identical (argmax tie rules and an integer min)."""
+import math
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
 from aclswarm_torch import ops
 from aclswarm_torch.ops import _build
+from aclswarm_tpu.assignment.sinkhorn import round_dominant as round_ref
 from aclswarm_tpu.ops import round_dominant_pallas, sinkhorn_log_pallas
 from aclswarm_tpu.ops.flood_pallas import SENTINEL, flood_merge_pallas
 
@@ -65,6 +70,142 @@ def test_rounding_max_rounds_cap():
     plan = torch.zeros(6, 6)
     out, rounds = ops.round_dominant_plain(plan, max_rounds=2)
     assert int(rounds) == 2 and int((out >= 0).sum()) == 2
+
+
+def _stale_rounds(plan, max_rounds=None):
+    """Torch model of `csrc/rounding.cu`'s rounds: each line keeps its
+    first-hit argmax (n when its live entries are all -inf) and round r > 1
+    rescans only the live rows whose argmax column was struck and the live
+    columns whose argmax row was committed in round r - 1. Returns
+    (permutation, rounds, lines rescanned after round 1, lines a full
+    rescan of every live line would have read)."""
+    n = plan.shape[0]
+    max_rounds = n if max_rounds is None else max_rounds
+    idx = torch.arange(n)
+    no = torch.tensor([False])
+
+    def scan(lines, mask):
+        v = torch.where(mask[None, :], -math.inf, lines)
+        return torch.where(v.max(dim=1).values > -math.inf,
+                           torch.argmax(v, dim=1), n)
+
+    assigned = torch.zeros(n, dtype=torch.bool)
+    struck = torch.zeros(n, dtype=torch.bool)
+    rowarg, colarg = scan(plan, struck), scan(plan.T, assigned)
+    out = torch.full((n,), -1, dtype=torch.int32)
+    rounds = rescanned = full = 0
+    while rounds < max_rounds and not bool(assigned.all()):
+        if rounds:
+            rs = ~assigned & torch.cat([struck, no])[rowarg]
+            cs = ~struck & torch.cat([assigned, no])[colarg]
+            rowarg[rs] = scan(plan[rs], struck)
+            colarg[cs] = scan(plan.T[cs], assigned)
+            rescanned += int(rs.sum() + cs.sum())
+        full += 2 * int((~assigned).sum())
+        ok = ~assigned & (torch.cat([colarg, torch.tensor([-1])])[rowarg]
+                          == idx)
+        out[ok] = rowarg[ok].to(torch.int32)
+        assigned |= ok
+        struck[rowarg[ok]] = True
+        rounds += 1
+    return out, rounds, rescanned, full
+
+
+def _check_stale_model(plan, max_rounds=None, pallas=True):
+    out, rounds, _, _ = _stale_rounds(torch.from_numpy(plan), max_rounds)
+    ref = np.asarray(round_ref(jnp.asarray(plan), max_rounds))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    if pallas:          # the Pallas kernel always runs up to n rounds
+        np.testing.assert_array_equal(out.numpy(), np.asarray(
+            round_dominant_pallas(jnp.asarray(plan), interpret=True)))
+    plain, plain_rounds = ops.round_dominant_plain(torch.from_numpy(plan),
+                                                   max_rounds)
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())
+    assert rounds == int(plain_rounds)
+    return out, rounds
+
+
+def _tie_plan(n, seed):
+    """Small integers (many exact ties), signed zeros, -inf lines."""
+    rng = np.random.default_rng(seed)
+    plan = rng.integers(-2, 3, (n, n)).astype(np.float32)
+    zero = plan == 0
+    plan[zero & (rng.random((n, n)) < 0.5)] = -0.0
+    if n > 3:
+        plan[rng.integers(n)] = -np.inf            # a row with no finite entry
+        plan[:, rng.integers(n)] = -np.inf         # and a column
+        plan[rng.random((n, n)) < 0.1] = -np.inf
+    return plan
+
+
+@pytest.mark.parametrize("n", [1, 5, 17, 64, 130])
+def test_stale_rescans_match_reference_normal(n):
+    """The premise of K2's stale-only rescans, bit for bit: seeded normal
+    plans against the reference's XLA and Pallas roundings."""
+    plan = np.random.default_rng(n).normal(size=(n, n)).astype(np.float32)
+    out, _ = _check_stale_model(plan * 3)
+    assert sorted(out.tolist()) == list(range(n))
+
+
+@pytest.mark.parametrize("n,seed", [(5, 0), (17, 1), (40, 2), (64, 3),
+                                    (130, 4)])
+def test_stale_rescans_match_reference_ties(n, seed):
+    """Integer plans full of ties, with +0.0/-0.0 and -inf rows, columns
+    and entries."""
+    _check_stale_model(_tie_plan(n, seed))
+
+
+@pytest.mark.parametrize("kind", ["zeros", "signed_zeros", "ones"])
+def test_stale_rescans_all_ties(kind):
+    """All ties: one commit per round, every live line stale every round."""
+    n = 24
+    plan = np.zeros((n, n), np.float32)
+    if kind == "signed_zeros":
+        plan[np.random.default_rng(0).random((n, n)) < 0.5] = -0.0
+    elif kind == "ones":
+        plan += 1.0
+    out, rounds = _check_stale_model(plan)
+    assert rounds == n
+
+
+@pytest.mark.parametrize("max_rounds", [0, 1, 2, 3])
+def test_stale_rescans_max_rounds(max_rounds):
+    """A cut leaves the rows not yet committed at -1, as the reference."""
+    plan = np.random.default_rng(7).normal(size=(64, 64)).astype(np.float32)
+    out, rounds = _check_stale_model(plan, max_rounds, pallas=False)
+    assert rounds == max_rounds
+    tie = _tie_plan(40, 9)
+    _check_stale_model(tie, max_rounds, pallas=False)
+
+
+def test_stale_rescans_all_minus_inf():
+    """No finite entry: nothing commits and the loop runs its n rounds."""
+    plan = np.full((6, 6), -np.inf, np.float32)
+    out, rounds = _check_stale_model(plan)
+    assert rounds == 6 and (out == -1).all()
+
+
+def test_stale_rescans_read_less_than_full_rounds():
+    """The property K2 relies on: after round 1 the stale lines are fewer
+    than a full rescan of every live line per round reads, and fewer than
+    n lines per round."""
+    n = 130
+    plan = np.random.default_rng(n).normal(size=(n, n)).astype(np.float32)
+    out, rounds, rescanned, full = _stale_rounds(torch.from_numpy(plan * 3))
+    assert rounds > 2
+    assert 2 * n + rescanned < n * rounds
+    assert rescanned < full - 2 * n
+
+
+@settings(max_examples=30, deadline=None)
+@given(n=st.integers(1, 12), seed=st.integers(0, 2**31 - 1),
+       levels=st.integers(1, 4))
+def test_stale_rescans_hypothesis(n, seed, levels):
+    """Small tie-heavy plans: few distinct values, signed zeros, -inf."""
+    rng = np.random.default_rng(seed)
+    values = np.array([-np.inf, -0.0, 0.0, 1.0, -1.0, 2.0], np.float32)
+    plan = rng.choice(values[:levels + 2], size=(n, n))
+    _check_stale_model(plan.astype(np.float32))
 
 
 def _flood_case(n, w, seed):
