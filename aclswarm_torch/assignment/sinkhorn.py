@@ -17,6 +17,7 @@ import torch
 
 from aclswarm_torch import ops
 from aclswarm_torch.core import geometry
+from aclswarm_torch.faults import masking
 
 
 class SinkhornResult(NamedTuple):
@@ -124,15 +125,6 @@ def two_opt_refine(cost: torch.Tensor, v2f: torch.Tensor,
     return v2f
 
 
-def _apply_pin_forbid(c: torch.Tensor, pin: torch.Tensor,
-                      forbid: torch.Tensor) -> torch.Tensor:
-    """Pinned pairs cost 0, forbidden pairs ``4 * (max(c) + 1)`` (the
-    reference's `faults.masking.apply_pin_forbid`)."""
-    big = 4.0 * (torch.max(c) + 1.0)
-    return torch.where(pin, torch.zeros((), dtype=c.dtype, device=c.device),
-                       torch.where(forbid, big, c))
-
-
 def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
                     tau: float = 0.03, n_iters: int = 200,
                     rounding: str = "dominant",
@@ -158,8 +150,8 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
     cost_raw = geometry.cdist_fast(q, p_aligned)
     cost = cost_raw / (torch.mean(cost_raw) + 1e-12)
     if pin is not None:
-        cost = _apply_pin_forbid(cost, pin, forbid)
-        cost_raw = _apply_pin_forbid(cost_raw, pin, forbid)
+        cost = masking.apply_pin_forbid(cost, pin, forbid)
+        cost_raw = masking.apply_pin_forbid(cost_raw, pin, forbid)
     plan_log = sinkhorn_log(cost, tau=tau, n_iters=n_iters, impl=impl)
     if rounding == "dominant":
         v2f = round_dominant(plan_log)

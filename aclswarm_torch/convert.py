@@ -16,6 +16,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from aclswarm_torch.assignment.cbaa import CbaaTables
 from aclswarm_torch.control.safety import TrajGoal
 from aclswarm_torch.core.types import (ControlGains, Formation, SafetyParams,
                                        SwarmState, as_float, resolve_device)
@@ -63,17 +64,31 @@ def safety_params_from_numpy(sp) -> SafetyParams:
     return SafetyParams(**kw)
 
 
+def cbaa_tables_from_numpy(t, device=None, dtype=torch.float32
+                           ) -> CbaaTables:
+    """price (n, n) float, who (n, n) int32."""
+    dev = resolve_device(device)
+    return CbaaTables(price=_floats(t, ("price",), dev, dtype)["price"],
+                      who=_ints(t, ("who",), dev)["who"])
+
+
+def _optional(obj, name):
+    if isinstance(obj, Mapping):
+        return obj.get(name)
+    return getattr(obj, name, None)
+
+
 def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
-    """swarm, goal, v2f, tick, flight, loc, first_auction, assign_enabled.
-    The reference's optional carries (faults, scenario, inv, tel,
-    cbaa_warm) belong to later slices and must be absent."""
-    for extra in ("faults", "scenario", "inv", "tel", "cbaa_warm"):
-        if not isinstance(s, Mapping) and getattr(s, extra, None) is not None:
+    """swarm, goal, v2f, tick, flight, loc, first_auction, assign_enabled,
+    cbaa_warm. The reference's other optional carries (faults, scenario,
+    inv, tel) are not ported yet and must be absent."""
+    for extra in ("faults", "scenario", "inv", "tel"):
+        if _optional(s, extra) is not None:
             raise NotImplementedError(
                 f"SimState.{extra} is not ported yet")
     dev = resolve_device(device)
     swarm, goal, flight = _get(s, "swarm"), _get(s, "goal"), _get(s, "flight")
-    loc = _get(s, "loc")
+    loc, warm = _get(s, "loc"), _optional(s, "cbaa_warm")
     return SimState(
         swarm=SwarmState(**_floats(swarm, ("q", "vel"), dev, dtype)),
         goal=TrajGoal(**_floats(goal, ("pos", "vel", "yaw", "dyaw"), dev,
@@ -89,7 +104,9 @@ def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
         first_auction=torch.as_tensor(
             bool(np.asarray(_get(s, "first_auction"))), device=dev),
         assign_enabled=torch.as_tensor(
-            bool(np.asarray(_get(s, "assign_enabled"))), device=dev))
+            bool(np.asarray(_get(s, "assign_enabled"))), device=dev),
+        cbaa_warm=None if warm is None else cbaa_tables_from_numpy(
+            warm, dev, dtype))
 
 
 def _np(obj) -> dict:
@@ -106,4 +123,7 @@ def sim_state_to_numpy(state: SimState) -> dict:
         "loc": None if state.loc is None else _np(state.loc),
         "first_auction": state.first_auction.cpu().numpy(),
         "assign_enabled": state.assign_enabled.cpu().numpy(),
+        "cbaa_warm": None if state.cbaa_warm is None
+        else {k: v.cpu().numpy()
+              for k, v in state.cbaa_warm._asdict().items()},
     }

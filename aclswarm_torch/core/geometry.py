@@ -77,3 +77,48 @@ def align(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None,
     d=2 (rotation about z only) is the swarm-wide convention."""
     R, t = arun(p, q, w=w, d=d)
     return p @ R.T + t
+
+
+def align_formation_local(q_veh: torch.Tensor, p: torch.Tensor,
+                          adjmat: torch.Tensor, v2f: torch.Tensor,
+                          est: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-agent neighborhood-restricted 2D alignment, all agents at once.
+
+    For vehicle v with formation point i = v2f[v], the alignment weighs
+    only formation points j with adj[i, j] or j == i, paired with the
+    vehicles assigned to them. ``est`` ((n, n, 3), agent axis first) makes
+    each agent align against its own belief of where the others are; None
+    = the shared true state. Returns (n, n, 3): agent v's aligned
+    formation in row v.
+
+    The reference maps `align` over agents; here the n weighted `arun`
+    problems (d=2) are one batch: weighted centroids, an (n, 2, 2) stack of
+    cross-covariances, one batched SVD, the determinant sign fix. The z
+    axis passes through (R=I, t=0 there), as `arun` embeds it."""
+    from aclswarm_torch.core import perm as permutil
+
+    n = adjmat.shape[0]
+    dtype, dev = q_veh.dtype, q_veh.device
+    idx = v2f.long()
+    f2v = permutil.invert(v2f).long()
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    w = ((adjmat[idx] > 0) | eye[idx]).to(dtype)          # (agent, point)
+    # destination clouds in formation order, xy only
+    qs = (q_veh[f2v][None] if est is None else est[:, f2v])[..., :2]
+    ps = p[:, :2]
+    wsum = torch.clamp(torch.sum(w, dim=1), min=1e-12)[:, None]
+    mu_p = torch.sum(w[:, :, None] * ps[None], dim=1) / wsum       # (n, 2)
+    mu_q = torch.sum(w[:, :, None] * qs, dim=1) / wsum
+    pc = ps[None] - mu_p[:, None, :]                                # (n, n, 2)
+    qc = qs - mu_q[:, None, :]
+    sigma = torch.einsum("vmi,vmj->vij", qc * w[:, :, None], pc) \
+        / wsum[:, :, None]
+
+    U, _, Vt = torch.linalg.svd(sigma)
+    sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    S = torch.stack([torch.ones_like(sign), sign], dim=-1)          # (n, 2)
+    Rd = (U * S[:, None, :]) @ Vt
+    td = mu_q - (Rd @ mu_p[:, :, None])[:, :, 0]
+    xy = torch.einsum("md,vkd->vmk", ps, Rd) + td[:, None, :]
+    return torch.cat([xy, p[None, :, 2:3].expand(n, n, 1)], dim=-1)

@@ -11,9 +11,8 @@ decimation and the flood stripe schedule cost no device read. Data-valued
 gates (the airborne gate, `assign_enabled`, `first_auction`) stay tensors
 and act through `torch.where`, exactly as the reference selects on them.
 
-Not in this slice (raise `NotImplementedError`): the 'auction' and 'cbaa'
-assignment modes, faults, scenarios, ``check_mode='on'``,
-``telemetry='on'``, CBAA warm tables and `batched_rollout`.
+Not ported yet (raise `NotImplementedError`): faults, scenarios,
+``check_mode='on'`` and ``telemetry='on'``; `batched_rollout` is absent.
 """
 from __future__ import annotations
 
@@ -22,24 +21,23 @@ from dataclasses import dataclass, fields
 import torch
 
 from aclswarm_torch import control
-from aclswarm_torch.assignment import sinkhorn
+from aclswarm_torch.assignment import auction, cbaa, sinkhorn
+from aclswarm_torch.assignment.cbaa import CbaaTables
 from aclswarm_torch.core import geometry
 from aclswarm_torch.core import perm as permutil
 from aclswarm_torch.core.types import (ControlGains, Formation, SafetyParams,
                                        SwarmState, as_float)
+from aclswarm_torch.faults import masking as faultmask
 from aclswarm_torch.sim import localization as loclib
 from aclswarm_torch.sim import vehicle
 from aclswarm_torch.sim.localization import EstimateTable
 from aclswarm_torch.sim.vehicle import ExternalInputs, FlightState
 
 _LATER = {
-    "auction": "the auction-LAP slice",
-    "cbaa": "the CBAA slice",
     "faults": "the engine-extensions slice (faults)",
     "scenario": "the engine-extensions slice (scenarios)",
     "check_mode": "the engine-extensions slice (invariants)",
     "telemetry": "the engine-extensions slice (telemetry)",
-    "cbaa_warm": "the CBAA slice",
 }
 
 
@@ -77,8 +75,10 @@ class SimConfig:
 class SimState:
     """Everything that persists across control ticks. ``tick`` is a host
     int (the decimation phase); ``first_auction`` and ``assign_enabled``
-    are () bool tensors, as in the reference. The reference's optional
-    carries (faults, scenario, inv, tel, cbaa_warm) are later slices."""
+    are () bool tensors, as in the reference. ``cbaa_warm`` (None = the
+    stateless-auction engine) re-seeds each CBAA auction from the last
+    valid one's fixed point. The reference's other optional carries
+    (faults, scenario, inv, tel) are not ported yet."""
 
     swarm: SwarmState
     goal: control.TrajGoal
@@ -88,6 +88,7 @@ class SimState:
     first_auction: torch.Tensor   # () bool
     assign_enabled: torch.Tensor  # () bool
     loc: EstimateTable | None = None
+    cbaa_warm: CbaaTables | None = None
 
 
 @dataclass
@@ -111,12 +112,13 @@ def init_state(q0, v2f0=None, flying: bool = True,
                device=None, dtype=torch.float32) -> SimState:
     """``flying=True`` starts airborne in FLYING, ``False`` on the ground
     (send CMD_GO with ``cfg.flight_fsm``). ``localization=True``
-    allocates the estimate tables ('flooded' mode). ``device=None`` is the
-    card; the state lives on ``device`` in ``dtype``."""
+    allocates the estimate tables ('flooded' mode). ``cbaa_warm=True``
+    allocates the CBAA warm-start tables (cold, `cbaa.init_tables`).
+    ``device=None`` is the card; the state lives on ``device`` in
+    ``dtype``."""
     for what, on in (("faults", faults is not None), ("check_mode", checks),
                      ("telemetry", telemetry),
-                     ("scenario", scenario is not None),
-                     ("cbaa_warm", cbaa_warm)):
+                     ("scenario", scenario is not None)):
         if on:
             raise _not_ported(what)
     q0 = as_float(q0, device, dtype)
@@ -131,13 +133,12 @@ def init_state(q0, v2f0=None, flying: bool = True,
         flight=vehicle.init_flight(n, dev, dtype, flying=flying),
         loc=loclib.init_table(q0, dev, dtype) if localization else None,
         first_auction=torch.ones((), dtype=torch.bool, device=dev),
-        assign_enabled=torch.ones((), dtype=torch.bool, device=dev))
+        assign_enabled=torch.ones((), dtype=torch.bool, device=dev),
+        cbaa_warm=cbaa.init_tables(n, dev, dtype) if cbaa_warm else None)
 
 
 def _check_cfg(cfg: SimConfig) -> None:
-    if cfg.assignment in ("auction", "cbaa"):
-        raise _not_ported(cfg.assignment)
-    if cfg.assignment not in ("sinkhorn", "none"):
+    if cfg.assignment not in ("auction", "sinkhorn", "cbaa", "none"):
         raise ValueError(f"unknown assignment mode {cfg.assignment!r}")
     for what in ("check_mode", "telemetry"):
         mode = getattr(cfg, what)
@@ -152,39 +153,94 @@ def _check_cfg(cfg: SimConfig) -> None:
 
 
 def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
-           cfg: SimConfig, first: torch.Tensor | None = None
-           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One re-assignment: (new v2f, () bool valid).
+           cfg: SimConfig, est: torch.Tensor | None = None,
+           first: torch.Tensor | None = None,
+           alive: torch.Tensor | None = None,
+           link_mask: torch.Tensor | None = None,
+           warm: CbaaTables | None = None):
+    """One re-assignment: (new v2f, () bool valid), plus the updated
+    `CbaaTables` appended last when ``warm`` is given.
 
-    'sinkhorn' orders the swarm by the last assignment, aligns the
-    formation globally (d=2), solves with `sinkhorn_assign` on the
-    fast-expansion distances, and — with ``cfg.assign_eps`` > 0 — keeps
-    the current assignment unless the candidate improves the total EXACT
-    distance (`cdist`) by that relative margin. ``first`` (() bool) marks
-    the first auction after a dispatch, which the margin never vetoes.
-    The centralized solver uses ground truth (the CBAA slice adds the
-    reference's ``est`` argument).
+    'auction' and 'sinkhorn' follow the centralized path: order the swarm
+    by the *last* assignment, align the formation globally (d=2), then
+    solve the vehicle->point problem — exactly with `auction_lap` on the
+    `cdist` costs, or fast with `sinkhorn_assign`. 'cbaa' follows the
+    decentralized path: per-agent local alignment + the synchronous
+    max-consensus auction. An invalid outcome (auction out of rounds,
+    CBAA without consensus) holds the current assignment.
+
+    The centralized modes always use ground truth; only CBAA consumes the
+    localization estimates ``est`` ((n, n, 3)) when the flooded model is
+    on. With ``cfg.assign_eps`` > 0 the current assignment is kept unless
+    the candidate improves the total EXACT distance by that relative
+    margin (for CBAA the veto runs inside `cbaa_assign`); ``first``
+    (() bool) marks the first auction after a dispatch, which the margin
+    never vetoes.
+
+    ``alive`` (optional (n,) bool) masks the solve to the alive sub-fleet:
+    dead vehicles stay pinned to their points and alive ones bid only over
+    alive-owned points (`faults.masking`; the global alignment keeps all
+    rows). ``link_mask`` degrades CBAA's consensus graph; the centralized
+    solvers ignore it. ``warm`` (CBAA only) re-seeds the auction from the
+    previous one's tables; an invalid auction returns the old tables.
     """
-    if cfg.assignment in ("auction", "cbaa"):
-        raise _not_ported(cfg.assignment)
+    if warm is not None and cfg.assignment != "cbaa":
+        raise ValueError("warm CbaaTables only apply to the 'cbaa' "
+                         f"assignment mode, not {cfg.assignment!r}")
+    true_ = torch.ones((), dtype=torch.bool, device=v2f.device)
+
+    def hysteresis(cand, cost):
+        """Keep the current assignment unless the candidate improves the
+        total of the (n, n) vehicle->aligned-point distances ``cost`` by
+        the relative margin."""
+        if cfg.assign_eps <= 0.0:
+            return cand
+        cost_new = torch.sum(cost.gather(1, cand.long()[:, None]))
+        cost_cur = torch.sum(cost.gather(1, v2f.long()[:, None]))
+        take = cost_new < (1.0 - cfg.assign_eps) * cost_cur
+        if first is not None:
+            take = take | first
+        return torch.where(take, cand, v2f)
+
     if cfg.assignment == "none":
-        return v2f, torch.ones((), dtype=torch.bool, device=v2f.device)
-    if cfg.assignment != "sinkhorn":
+        return v2f, true_
+    if cfg.assignment == "cbaa":
+        res = cbaa.cbaa_from_state(swarm.q, formation.points,
+                                   formation.adjmat, v2f, est=est,
+                                   task_block=cfg.cbaa_task_block,
+                                   alive=alive, comm_extra=link_mask,
+                                   warm=warm, assign_eps=cfg.assign_eps,
+                                   first=first)
+        new_v2f = torch.where(res.valid, res.v2f, v2f)
+        if warm is None:
+            return new_v2f, res.valid
+        # only a VALID auction's fixed point is worth carrying
+        return new_v2f, res.valid, CbaaTables(
+            price=torch.where(res.valid, res.price, warm.price),
+            who=torch.where(res.valid, res.who, warm.who))
+    if cfg.assignment not in ("auction", "sinkhorn"):
         raise ValueError(f"unknown assignment mode {cfg.assignment!r}")
     q_form = permutil.veh_to_formation_order(swarm.q, v2f)
     paligned = geometry.align(formation.points, q_form, d=2)
-    cand = sinkhorn.sinkhorn_assign(swarm.q, paligned).row_to_col
-    valid = torch.ones((), dtype=torch.bool, device=v2f.device)
-    if cfg.assign_eps <= 0.0:
-        return cand, valid
-    cost = geometry.cdist(swarm.q, paligned)
-    rows = torch.arange(cost.shape[0], device=cost.device)
-    cost_new = torch.sum(cost[rows, cand.long()])
-    cost_cur = torch.sum(cost[rows, v2f.long()])
-    take = cost_new < (1.0 - cfg.assign_eps) * cost_cur
-    if first is not None:
-        take = take | first
-    return torch.where(take, cand, v2f), valid
+    if cfg.assignment == "auction":
+        c = geometry.cdist(swarm.q, paligned)
+        if alive is not None:
+            c = faultmask.mask_cost(c, alive, v2f)
+        res = auction.auction_lap(-c)
+        return (torch.where(res.valid, hysteresis(res.row_to_col, c), v2f),
+                res.valid)
+    if alive is None:
+        res = sinkhorn.sinkhorn_assign(swarm.q, paligned)
+    else:
+        pin, forbid = faultmask.pin_forbid(alive, v2f)
+        res = sinkhorn.sinkhorn_assign(swarm.q, paligned, pin=pin,
+                                       forbid=forbid)
+    c = None
+    if cfg.assign_eps > 0.0:
+        c = geometry.cdist(swarm.q, paligned)
+        if alive is not None:
+            c = faultmask.mask_cost(c, alive, v2f)
+    return hysteresis(res.row_to_col, c), true_
 
 
 def step(state: SimState, formation: Formation, gains: ControlGains,
@@ -223,14 +279,23 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
 
     # --- auto-auction, decimated on the host tick; the airborne and
     # enabled gates select on the candidate as in the reference ---
+    # CBAA alone consumes the flooded estimates and the warm tables
+    est = loc.est if cfg.localization == "flooded" else None
+    warm = state.cbaa_warm if cfg.assignment == "cbaa" else None
+    new_warm = state.cbaa_warm
     if cfg.assignment != "none" and state.tick % cfg.assign_every == 0:
-        cand_v2f, cand_valid = assign(swarm, formation, v2f, cfg,
-                                      first=state.first_auction)
+        outs = assign(swarm, formation, v2f, cfg, est=est,
+                      first=state.first_auction, warm=warm)
         take = state.assign_enabled
         if cfg.flight_fsm:
             take = take & torch.all(flying)
-        new_v2f = torch.where(take, cand_v2f, v2f)
-        valid = torch.where(take, cand_valid, true_)
+        new_v2f = torch.where(take, outs[0], v2f)
+        valid = torch.where(take, outs[1], true_)
+        if warm is not None:
+            # a gated-off auction's tables are discarded like its v2f
+            new_warm = CbaaTables(
+                price=torch.where(take, outs[2].price, warm.price),
+                who=torch.where(take, outs[2].who, warm.who))
     else:
         new_v2f, valid = v2f, true_
         take = torch.zeros((), dtype=torch.bool, device=dev)
@@ -281,7 +346,8 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     new_state = SimState(swarm=swarm, goal=goal, v2f=v2f,
                          tick=state.tick + 1, flight=fs, loc=loc,
                          first_auction=first_auction,
-                         assign_enabled=state.assign_enabled)
+                         assign_enabled=state.assign_enabled,
+                         cbaa_warm=new_warm)
     return new_state, StepMetrics(distcmd_norm=distcmd_norm, ca_active=ca,
                                   assign_valid=valid, reassigned=reassigned,
                                   auctioned=take, q=swarm.q, mode=fs.mode,

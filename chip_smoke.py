@@ -23,8 +23,9 @@ and prints no result line:
              n=64, pin/forbid, n=2500 past the stripe limit; K2: all ties,
              n=1, n=64, n=1001, -inf lines and signed-zero ties, pin/forbid,
              max_rounds=3, n=14000), each with the launches it made;
-4. reference — the slice at a small size on the card (f32, kernels)
-             against the same run on the CPU (f32, plain versions);
+4. reference — the Sinkhorn slice and the CBAA slice at a small size on
+             the card (f32, kernels) against the same runs on the CPU (f32,
+             plain versions);
 5. slice   — the `simform1000_flooded` deployment
              (`benchmarks/trials_suite.py`) at n=1000, float32: a seeded
              formation, 240 ticks through `sim.init_state` + `sim.rollout`,
@@ -33,10 +34,28 @@ and prints no result line:
              device time by kernel, the device's idle share, and each
              kernel's launches as the profiler saw them against its
              launch counter;
-7. the `kernels` line, then the result line. Each kernel row carries the
+7. auction — one `auction_lap` at n=1000 on the card against the same call
+             on the CPU from one benefit matrix: assignment, rounds,
+             validity and prices equal; rounds, phases, host reads (the
+             profiler's device-to-host copies), ms, and the total cost
+             beside Sinkhorn's; a tie-heavy integer matrix the same way;
+8. cbaa    — one cold `cbaa_from_state` at n=1000 (`task_block=64`, `est`
+             from a flooded table) on the card against the CPU, then a
+             second auction seeded with the first's tables; rounds, ms per
+             round and per auction, the local alignment's ms; and n=64
+             dense against `task_block=16`, bit-identical;
+9. slice_cbaa — the `simform1000_cbaa_flooded` deployment, 121 ticks (two
+             auctions), with the launch counters read around that run: K3
+             once per tick, K1 and K2 never; ms per tick on and off
+             auction ticks;
+10. slice_auction — the same start under the default assignment
+             ('auction', ground truth), 121 ticks, no kernel of the port on
+             its path; and the default `SimConfig()` at n=6 for 240 ticks
+             on the card against the CPU;
+11. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
-   design, timed in this run); K2's row also its rounds and the dense
-   bound that earlier runs reported.
+   design, timed in this run) and `launches_by_path`; K2's row also its
+   rounds and the dense bound that earlier runs reported.
 
 Needs a CUDA card and the repository (it imports `aclswarm_torch`).
 """
@@ -80,17 +99,30 @@ GAINS = dict(e_xy_thr=1.0, e_z_thr=0.3, kd=0.0005, K1_xy=0.005)
 ENGINE = dict(assignment="sinkhorn", localization="flooded", flood_block=64,
               flood_phases=2, colavoid_neighbors=16, assign_eps=0.01,
               dynamics="doubleint")
+# the simform1000_cbaa_flooded row: the same boxes and limits, CBAA in
+# task blocks of 64, no hysteresis, the keep-out escape on
+ENGINE_CBAA = dict(assignment="cbaa", cbaa_task_block=64,
+                   localization="flooded", flood_block=64, flood_phases=2,
+                   colavoid_neighbors=16, dynamics="doubleint")
+KEEPOUT_REPULSE_VEL = 0.3
+# the default assignment on the same start: the centralized auction reads
+# ground truth, so no estimate tables and no flood
+ENGINE_AUCTION = dict(assignment="auction", localization="truth",
+                      colavoid_neighbors=16, dynamics="doubleint")
+TICKS_AUCTIONS = 121    # two auctions: ticks 0 and 120
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def problem(n: int, seed: int, device, dtype, start_min_dist: float):
+def problem(n: int, seed: int, device, dtype, start_min_dist: float,
+            localization: bool = True, **safety):
     """Formation, parameters and airborne start state from one seed, with
     the suite's generation boxes. Gains are random (n, n, 3, 3) blocks as
     in `__graft_entry__.py`'s dry run: the ADMM gain design that trials
-    run on dispatch belongs to a later slice of the port."""
+    run on dispatch belongs to a later slice of the port. ``safety``
+    overrides `SafetyParams` fields."""
     from aclswarm_torch import sim
     from aclswarm_torch.core import types
     from aclswarm_torch.harness import formgen
@@ -109,8 +141,9 @@ def problem(n: int, seed: int, device, dtype, start_min_dist: float):
                                      gains, device=device, dtype=dtype)
     rx, ry, rz = SUITE["room"]
     sparams = types.SafetyParams(bounds_min=(-rx, -ry, 0.0),
-                                 bounds_max=(rx, ry, rz), **SAFETY)
-    state = sim.init_state(q0, flying=True, localization=True,
+                                 bounds_max=(rx, ry, rz),
+                                 **dict(SAFETY, **safety))
+    state = sim.init_state(q0, flying=True, localization=localization,
                            device=device, dtype=dtype)
     return formation, types.ControlGains(**GAINS), sparams, state
 
@@ -380,9 +413,9 @@ def phase_kernels(seed: int) -> dict:
     first auction's normalized cost, its plan, and the flood's packed
     stripes under the formation's comm graph; then the edge cases."""
     from aclswarm_torch import ops
-    from aclswarm_torch.assignment import sinkhorn as sinkhorn_mod
     from aclswarm_torch.core import geometry
     from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.faults import masking
     from aclswarm_torch.ops import rounding
     from aclswarm_torch.sim import localization as loclib
 
@@ -512,8 +545,8 @@ def phase_kernels(seed: int) -> dict:
     # forbidden entries reach |plan| ~ 600, where one float32 step is 6e-5:
     # 5e-5 plus 2^-22 |plain| allows that last bit
     edges.append(_check_sinkhorn(
-        "pin/forbid (sinkhorn_assign._apply_pin_forbid)",
-        sinkhorn_mod._apply_pin_forbid(cost, pin, forbid).contiguous(), tau,
+        "pin/forbid (faults.masking.apply_pin_forbid)",
+        masking.apply_pin_forbid(cost, pin, forbid).contiguous(), tau,
         iters, 1, rtol=2.0**-22))
     edges.append(_check_sinkhorn("n=2500, past the stripe limit",
                                  _uniform_cost(2500, seed, dev), tau, iters,
@@ -534,8 +567,8 @@ def phase_kernels(seed: int) -> dict:
     edges.append(_check_rounding("-inf rows, columns, entries; +-0.0 ties",
                                  _rounding_edge_plan(N, seed, dev)))
     edges.append(_check_rounding(
-        "pin/forbid plan (sinkhorn_assign._apply_pin_forbid)",
-        ops.sinkhorn_log(sinkhorn_mod._apply_pin_forbid(cost, pin, forbid)
+        "pin/forbid plan (faults.masking.apply_pin_forbid)",
+        ops.sinkhorn_log(masking.apply_pin_forbid(cost, pin, forbid)
                          .contiguous(), tau, iters)))
     edges.append(_check_rounding("max_rounds=3, main plan", plan, 3))
     big = torch.randn(14000, 14000, device=dev,
@@ -554,32 +587,41 @@ def _slice_cfg(**kw):
 
 
 def phase_reference(seed: int) -> None:
-    """The slice at n=64 for 40 ticks, an auction every 10: the card (f32,
-    CUDA kernels) against the CPU (f32, plain versions). Starts spaced
-    wider than the avoidance shell so no vehicle is in another's range in
-    0.4 s: k-pruned avoidance's duplicate-sector coin flip (ROADMAP.md)
-    would otherwise rest on the last bit of two math libraries."""
+    """The Sinkhorn slice and the CBAA slice at n=64 for 40 ticks, an
+    auction every 10: the card (f32, CUDA kernels) against the CPU (f32,
+    plain versions). Starts spaced wider than the avoidance shell so no
+    vehicle is in another's range in 0.4 s: k-pruned avoidance's
+    duplicate-sector coin flip (ROADMAP.md) would otherwise rest on the
+    last bit of two math libraries."""
     from aclswarm_torch import sim
 
-    n, ticks, cfg = 64, 40, _slice_cfg(assign_every=10)
-    finals = {}
-    for dev in ("cuda", "cpu"):
-        formation, gains, sparams, state = problem(n, seed, dev,
-                                                   torch.float32, 3.5)
-        finals[dev], metrics = sim.rollout(state, formation, gains, sparams,
-                                           cfg, ticks)
-        finals[dev + "_auctions"] = int(metrics.auctioned.sum())
-    torch.cuda.synchronize()
-    dq = (finals["cuda"].swarm.q.cpu() - finals["cpu"].swarm.q).abs().max()
-    same_v2f = torch.equal(finals["cuda"].v2f.cpu(), finals["cpu"].v2f)
-    same_age = torch.equal(finals["cuda"].loc.age.cpu(),
-                           finals["cpu"].loc.age)
-    emit({"phase": "reference", "n": n, "ticks": ticks,
-          "auctions": finals["cuda_auctions"], "max_abs_dq": dq.item(),
-          "v2f_equal": same_v2f, "ages_equal": same_age})
-    if not (dq.item() <= 1e-3 and same_v2f and same_age):
-        raise AssertionError("the slice on the card disagrees with the "
-                             "plain CPU run")
+    n, ticks = 64, 40
+    for label, engine in (("sinkhorn", ENGINE),
+                          ("cbaa", dict(ENGINE_CBAA, cbaa_task_block=16))):
+        cfg = sim.SimConfig(**dict(engine, assign_every=10))
+        finals = {}
+        for dev in ("cuda", "cpu"):
+            formation, gains, sparams, state = problem(n, seed, dev,
+                                                       torch.float32, 3.5)
+            finals[dev], metrics = sim.rollout(state, formation, gains,
+                                               sparams, cfg, ticks)
+            finals[dev + "_auctions"] = int(metrics.auctioned.sum())
+            finals[dev + "_valid"] = int(metrics.assign_valid.sum())
+        torch.cuda.synchronize()
+        dq = (finals["cuda"].swarm.q.cpu()
+              - finals["cpu"].swarm.q).abs().max()
+        same_v2f = torch.equal(finals["cuda"].v2f.cpu(), finals["cpu"].v2f)
+        same_age = torch.equal(finals["cuda"].loc.age.cpu(),
+                               finals["cpu"].loc.age)
+        emit({"phase": "reference", "assignment": label, "n": n,
+              "ticks": ticks, "auctions": finals["cuda_auctions"],
+              "valid_ticks": finals["cuda_valid"],
+              "max_abs_dq": dq.item(), "v2f_equal": same_v2f,
+              "ages_equal": same_age})
+        if not (dq.item() <= 1e-3 and same_v2f and same_age
+                and finals["cuda_valid"] == finals["cpu_valid"]):
+            raise AssertionError(f"the {label} slice on the card disagrees "
+                                 "with the plain CPU run")
 
 
 def phase_slice(seed: int) -> dict:
@@ -688,6 +730,426 @@ def phase_profile(seed: int, ms_per_tick: float) -> None:
                              f"profiler's kernel events {traced}")
 
 
+def _sync_ms(fn):
+    """``fn()`` and its host-clock milliseconds, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _device_profile(fn, top: int = 6) -> dict:
+    """``fn()`` under the profiler, device activity only: the
+    device-to-host copies (each read of a flag by the host is one), the
+    kernel launches, the device's busy ms and the kernels that took most
+    of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    reads, by_name = 0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "Memcpy DtoH" in e.name:
+            reads += 1
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            acc = by_name.setdefault(e.name[:80], [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.time_range.elapsed_us() / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"host_reads": reads,
+            "kernel_launches": sum(v[0] for v in by_name.values()),
+            "device_busy_ms": sum(v[1] for v in by_name.values()),
+            "top": [{"name": k, "launches": v[0], "device_ms": v[1]}
+                    for k, v in ranked]}
+
+
+def _auction_reads(iters: int, max_rounds: int, poll_every: int) -> int:
+    """Host reads of one `auction_lap`: it polls after every
+    ``poll_every``-th step, the step after the last live round raises the
+    flag, and no more than ``max_rounds + 1`` steps run."""
+    return min(-(-(iters + 1) // poll_every), (max_rounds + 1) // poll_every)
+
+
+def _same_auction(card, cpu) -> dict:
+    return {"row_to_col_equal": torch.equal(card.row_to_col.cpu(),
+                                            cpu.row_to_col),
+            "iters": int(card.iters), "iters_cpu": int(cpu.iters),
+            "valid": bool(card.valid), "valid_cpu": bool(cpu.valid),
+            "prices_equal": torch.equal(card.prices.cpu(), cpu.prices)}
+
+
+def _auction_agrees(info: dict) -> bool:
+    return (info["row_to_col_equal"] and info["prices_equal"]
+            and info["iters"] == info["iters_cpu"]
+            and info["valid"] == info["valid_cpu"])
+
+
+def phase_auction(seed: int) -> None:
+    """The auction LAP at n=1000, float32, on the slice's own start and
+    formation. The benefit matrix is computed once on the card and copied:
+    two math libraries' distances may differ in the last bit."""
+    from aclswarm_torch.assignment import auction, sinkhorn
+    from aclswarm_torch.core import geometry
+    from aclswarm_torch.core import perm as permutil
+
+    dev = torch.device("cuda")
+    formation, _, _, state = problem(N, seed, dev, torch.float32,
+                                     2 * SUITE["init_radius"])
+    q = state.swarm.q
+    p_al = geometry.align(formation.points,
+                          permutil.veh_to_formation_order(q, state.v2f))
+    cost = geometry.cdist(q, p_al)
+    benefit = -cost
+    auction.auction_lap(benefit, max_rounds=64)              # warm-up
+    card, ms = _sync_ms(lambda: auction.auction_lap(benefit))
+    # the profiler holds every kernel event of its window, so it watches a
+    # solve cut at 1000 rounds; the full solve's reads follow the same rule
+    cut = 1000
+    prof = _device_profile(lambda: auction.auction_lap(benefit,
+                                                       max_rounds=cut))
+    t0 = time.perf_counter()
+    cpu = auction.auction_lap(benefit.cpu())
+    cpu_s = time.perf_counter() - t0
+    # scaling phases of a solve that runs to its end
+    eps = max(float(benefit.abs().max()), 1.0) / 2.0
+    phases = 1
+    while eps > 1e-4:
+        eps, phases = max(eps / 5.0, 1e-4), phases + 1
+    rows = torch.arange(N, device=dev)
+    sk = sinkhorn.sinkhorn_assign(q, p_al).row_to_col
+    iters = int(card.iters)
+    info = {"phase": "auction", "n": N, "dtype": "float32",
+            **_same_auction(card, cpu), "max_rounds": 10000,
+            "phases_to_eps_min": phases, "poll_every": auction.POLL_EVERY,
+            "host_reads": _auction_reads(iters, 10000, auction.POLL_EVERY),
+            "ms": ms, "ms_per_round": ms / max(iters, 1),
+            "cpu_seconds": cpu_s,
+            "first_1000_rounds": {
+                **prof, "device_busy_ms_per_round": prof["device_busy_ms"]
+                / cut, "launches_per_round": prof["kernel_launches"] / cut},
+            "sinkhorn_total_cost": cost[rows, sk.long()].sum().item()}
+    if info["valid"]:
+        info["total_cost"] = cost[rows, card.row_to_col.long()].sum().item()
+    emit(info)
+    expected = _auction_reads(cut, cut, auction.POLL_EVERY)
+    if not (_auction_agrees(info) and prof["host_reads"] == expected
+            and (not info["valid"]
+                 or bool(permutil.is_valid(card.row_to_col)))):
+        raise AssertionError(f"auction check failed: {info} (host reads "
+                             f"expected in the cut solve: {expected})")
+
+    # ties: integer benefits, many equal bids for one object, so each
+    # first-hit argmax (over objects, over bidders) decides
+    n = 257
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ties = torch.randint(0, 4, (n, n), generator=g, device=dev).float()
+    info = {"phase": "auction", "check": f"integer ties, n={n}",
+            **_same_auction(auction.auction_lap(ties),
+                            auction.auction_lap(ties.cpu()))}
+    emit(info)
+    if not (_auction_agrees(info) and info["valid"]):
+        raise AssertionError(f"auction tie check failed: {info}")
+
+
+def _flooded_inputs(seed: int, dev, ticks: int = 6):
+    """q, est and v2f as a CBAA auction finds them: the slice's start after
+    a few hold-mode ticks, so the estimate table holds flooded, slightly
+    stale positions."""
+    from aclswarm_torch import sim
+
+    formation, gains, sparams, state = problem(
+        N, seed, dev, torch.float32, 2 * SUITE["init_radius"],
+        keepout_repulse_vel=KEEPOUT_REPULSE_VEL)
+    cfg = sim.SimConfig(**dict(ENGINE_CBAA, assignment="none"))
+    state, _ = sim.rollout(state, formation, gains, sparams, cfg, ticks)
+    return formation, state.swarm.q, state.loc.est, state.v2f
+
+
+def _same_cbaa(card, cpu) -> dict:
+    out = {k + "_equal": torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+           for k in ("v2f", "f2v", "who")}
+    out.update(rounds=int(card.rounds), rounds_cpu=int(cpu.rounds),
+               valid=bool(card.valid), valid_cpu=bool(cpu.valid),
+               price_max_rel_diff=((card.price.cpu() - cpu.price).abs()
+                                   / cpu.price.abs().clamp(min=1e-30))
+               .max().item())
+    return out
+
+
+def _cbaa_agrees(info: dict) -> bool:
+    return (info["v2f_equal"] and info["f2v_equal"] and info["who_equal"]
+            and info["rounds"] == info["rounds_cpu"]
+            and info["valid"] == info["valid_cpu"])
+
+
+def phase_cbaa(seed: int) -> None:
+    """CBAA at n=1000, float32, `task_block=64`, estimates from a flooded
+    table: a cold auction and one seeded with its tables, each on the card
+    against the CPU from the same q, est and v2f."""
+    from aclswarm_torch.assignment import cbaa
+    from aclswarm_torch.core import geometry
+
+    dev = torch.device("cuda")
+    formation, q, est, v2f = _flooded_inputs(seed, dev)
+    pts, adj = formation.points, formation.adjmat
+    block = ENGINE_CBAA["cbaa_task_block"]
+
+    def run(warm=None, on=dev):
+        tab = None if warm is None else cbaa.CbaaTables(
+            price=warm.price.to(on), who=warm.who.to(on))
+        return cbaa.cbaa_from_state(q.to(on), pts.to(on), adj.to(on),
+                                    v2f.to(on), est=est.to(on),
+                                    task_block=block, warm=tab)
+
+    cbaa.cbaa_from_state(q, pts, adj, v2f, est=est, task_block=block,
+                         n_iters=2)                          # warm-up
+    align_ms = time_ms(lambda: geometry.align_formation_local(
+        q, pts, adj, v2f, est=est), 5)
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_ms = _sync_ms(run)
+    peak = torch.cuda.max_memory_allocated()
+    cold_prof = _device_profile(run)
+    cold_cpu = run(on="cpu")
+    carried = cbaa.CbaaTables(price=cold.price, who=cold.who)
+    warm, warm_ms = _sync_ms(lambda: run(carried))
+    warm_cpu = run(cbaa.CbaaTables(price=cold_cpu.price, who=cold_cpu.who),
+                   on="cpu")
+    # the card's and the CPU's alignments come from two SVD libraries
+    al = geometry.align_formation_local(q, pts, adj, v2f, est=est)
+    al_cpu = geometry.align_formation_local(q.cpu(), pts.cpu(), adj.cpu(),
+                                            v2f.cpu(), est=est.cpu())
+    for label, card, cpu, ms in (("cold", cold, cold_cpu, cold_ms),
+                                 ("warm", warm, warm_cpu, warm_ms)):
+        info = {"phase": "cbaa", "auction": label, "n": N,
+                "dtype": "float32", "task_block": block,
+                **_same_cbaa(card, cpu), "poll_every": cbaa.POLL_EVERY,
+                "ms": ms, "ms_per_round": (ms - align_ms)
+                / max(int(card.rounds), 1), "align_ms": align_ms}
+        if label == "cold":
+            info.update(**cold_prof, peak_memory_bytes=peak,
+                        align_max_abs_diff=(al.cpu() - al_cpu).abs().max()
+                        .item())
+        emit(info)
+        if not _cbaa_agrees(info):
+            raise AssertionError(f"cbaa check failed: {info}")
+    # float32 sums of up to n weighted positions in two orders: the two
+    # alignments may differ by ~1e-4 m on a 130 m formation
+    if not (bool(cold.valid) and bool(warm.valid)
+            and (al.cpu() - al_cpu).abs().max().item() <= 1e-2):
+        raise AssertionError("cbaa: an auction at n=1000 was invalid, or "
+                             "the card's alignment is off the CPU's")
+
+    # dense against blocked on the card, bit for bit
+    n = 64
+    formation, _, _, state = problem(n, seed, dev, torch.float32, 3.5)
+    args = (state.swarm.q, formation.points, formation.adjmat, state.v2f)
+    dense = cbaa.cbaa_from_state(*args)
+    blocked = cbaa.cbaa_from_state(*args, task_block=16)
+    same = all(torch.equal(a, b) for a, b in zip(dense, blocked))
+    emit({"phase": "cbaa", "check": "n=64 dense vs task_block=16",
+          "bit_identical": same, "rounds": int(dense.rounds),
+          "valid": bool(dense.valid)})
+    if not same:
+        raise AssertionError("cbaa: task_block=16 differs from dense")
+
+
+def _cbaa_tick_inputs(state, formation, cfg):
+    """What `step` hands the CBAA auction at ``state``'s tick: positions,
+    the estimate table after this tick's flood, the assignment."""
+    from aclswarm_torch.sim import localization as loclib
+
+    loc = loclib.tick_phased(state.loc, state.swarm.q, formation.adjmat,
+                             state.v2f, state.tick, cfg.flood_every,
+                             cfg.flood_phases, target_block=cfg.flood_block)
+    return state.swarm.q, loc.est, state.v2f
+
+
+def _rollout_in_pieces(state, formation, gains, sparams, cfg) -> dict:
+    """121 ticks as tick 0 (auction), ticks 1-119, tick 120 (auction), each
+    piece ended by a synchronize: the final state, the ms of each auction
+    tick, the ms per tick of the others, the stacked `assign_valid` and
+    `auctioned`, and the state before each auction tick."""
+    from aclswarm_torch import sim
+
+    out = {"auction_tick_ms": [], "befores": []}
+    valid, auctioned = [], []
+    for ticks in (1, TICKS_AUCTIONS - 2, 1):
+        before = state
+        (state, m), ms = _sync_ms(lambda: sim.rollout(
+            before, formation, gains, sparams, cfg, ticks))
+        valid.append(m.assign_valid)
+        auctioned.append(m.auctioned)
+        if ticks == 1:
+            out["auction_tick_ms"].append(ms)
+            out["befores"].append(before)
+        else:
+            out["other_ms_per_tick"] = ms / ticks
+    out.update(final=state, valid=torch.cat(valid),
+               auctioned=torch.cat(auctioned))
+    return out
+
+
+def phase_slice_cbaa(seed: int) -> dict:
+    """The suite's `simform1000_cbaa_flooded` row at full width: n=1000,
+    CBAA in task blocks of 64 on flooded estimates, cold auctions (the
+    trial harness carries no warm tables), 121 ticks."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.assignment import cbaa
+    from aclswarm_torch.core import perm as permutil
+
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = problem(
+        N, seed, dev, torch.float32, 2 * SUITE["init_radius"],
+        keepout_repulse_vel=KEEPOUT_REPULSE_VEL)
+    cfg = sim.SimConfig(**ENGINE_CBAA)
+
+    def auction_at(before, on):
+        q, est, v2f = _cbaa_tick_inputs(before, formation, cfg)
+        return cbaa.cbaa_from_state(
+            q.to(on), formation.points.to(on), formation.adjmat.to(on),
+            v2f.to(on), est=est.to(on), task_block=cfg.cbaa_task_block)
+
+    sim.rollout(state, formation, gains, sparams,
+                sim.SimConfig(**dict(ENGINE_CBAA, assignment="none")), 2)
+    torch.cuda.synchronize()                                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = _rollout_in_pieces(state, formation, gains, sparams, cfg)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    final = run["final"]
+
+    # outside the counted run: each auction once more for its round count,
+    # and an invalid one against the CPU on the same inputs
+    rounds = []
+    for before, ok in zip(run["befores"],
+                          run["valid"][run["auctioned"]].tolist()):
+        again = auction_at(before, dev)
+        rounds.append(int(again.rounds))
+        if not ok:
+            same = _same_cbaa(again, auction_at(before, "cpu"))
+            emit({"phase": "slice_cbaa",
+                  "invalid_auction_at_tick": before.tick, **same})
+            if not _cbaa_agrees(same):
+                raise AssertionError("slice_cbaa: an invalid auction on the "
+                                     f"card differs from the CPU's: {same}")
+
+    tensors = [final.swarm.q, final.swarm.vel, final.goal.pos, final.goal.vel,
+               final.loc.est]
+    finite = all(bool(torch.isfinite(t).all()) for t in tensors)
+    info = {"phase": "slice_cbaa", "n": N, "ticks": TICKS_AUCTIONS,
+            "dtype": "float32", "auction_tick_ms": run["auction_tick_ms"],
+            "other_ms_per_tick": run["other_ms_per_tick"],
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "auctions": int(run["auctioned"].sum()),
+            "valid_auctions": int((run["valid"] & run["auctioned"]).sum()),
+            "rounds_per_auction": rounds, "finite": finite,
+            "v2f_valid": bool(permutil.is_valid(final.v2f)),
+            "cbaa_warm": final.cbaa_warm is not None}
+    emit(info)
+    if not (finite and info["v2f_valid"] and info["auctions"] == 2
+            and final.swarm.q.shape == (N, 3)
+            and launches["flood_merge"] == TICKS_AUCTIONS
+            and launches["sinkhorn_log"] == 0
+            and launches["round_dominant"] == 0):
+        raise AssertionError(f"slice_cbaa check failed: {info}")
+    return info
+
+
+def phase_slice_auction(seed: int) -> dict:
+    """The same start under the engine's default assignment, and the
+    default `SimConfig()` at n=6 on the card against the CPU."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.assignment import auction
+    from aclswarm_torch.core import geometry
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.core import types
+
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = problem(
+        N, seed, dev, torch.float32, 2 * SUITE["init_radius"],
+        localization=False)
+    cfg = sim.SimConfig(**ENGINE_AUCTION)
+
+    sim.rollout(state, formation, gains, sparams,
+                sim.SimConfig(**dict(ENGINE_AUCTION, assignment="none")), 2)
+    torch.cuda.synchronize()                                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = _rollout_in_pieces(state, formation, gains, sparams, cfg)
+    launches = dict(ops.LAUNCHES)
+    final = run["final"]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (final.swarm.q, final.swarm.vel, final.goal.pos))
+    # an auction that ran out of rounds holds the assignment, as in the
+    # reference; it must then equal the CPU's on the same benefit matrix
+    iters = []
+    for before, ok in zip(run["befores"],
+                          run["valid"][run["auctioned"]].tolist()):
+        p_al = geometry.align(formation.points, permutil.veh_to_formation_order(
+            before.swarm.q, before.v2f))
+        benefit = -geometry.cdist(before.swarm.q, p_al)
+        again = auction.auction_lap(benefit)
+        iters.append(int(again.iters))
+        if not ok:
+            same = _same_auction(again, auction.auction_lap(benefit.cpu()))
+            emit({"phase": "slice_auction",
+                  "invalid_auction_at_tick": before.tick, **same})
+            if not _auction_agrees(same):
+                raise AssertionError("slice_auction: an invalid auction on "
+                                     f"the card differs from the CPU's: "
+                                     f"{same}")
+    info = {"phase": "slice_auction", "n": N, "ticks": TICKS_AUCTIONS,
+            "dtype": "float32", "auction_tick_ms": run["auction_tick_ms"],
+            "other_ms_per_tick": run["other_ms_per_tick"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "auctions": int(run["auctioned"].sum()),
+            "valid_auctions": int((run["valid"] & run["auctioned"]).sum()),
+            "rounds_per_auction": iters, "finite": finite,
+            "v2f_valid": bool(permutil.is_valid(final.v2f))}
+    emit(info)
+    # no kernel of the port is on this path: ground truth, no flood, no
+    # Sinkhorn
+    if not (finite and info["v2f_valid"] and info["auctions"] == 2
+            and not any(launches.values())):
+        raise AssertionError(f"slice_auction check failed: {info}")
+
+    # the default configuration, six vehicles on a pentagonal pyramid
+    n, ticks = 6, 240
+    ang = np.linspace(0, 2 * np.pi, 5, endpoint=False)
+    pts = np.concatenate([np.stack([2 * np.cos(ang), 2 * np.sin(ang),
+                                    np.zeros(5)], 1), [[0.0, 0.0, 2.0]]])
+    rng = np.random.default_rng(seed)
+    gains_np = rng.normal(size=(n, n, 3, 3)) * 0.05
+    q0 = rng.normal(size=(n, 3)) * 3.0 + [0.0, 0.0, 2.0]
+    finals = {}
+    for on in ("cuda", "cpu"):
+        form = types.make_formation(pts, np.ones((n, n)) - np.eye(n),
+                                    gains_np, device=on, dtype=torch.float32)
+        sp = types.SafetyParams(bounds_min=(-20.0, -20.0, 0.0),
+                                bounds_max=(20.0, 20.0, 10.0))
+        st = sim.init_state(q0, device=on, dtype=torch.float32)
+        finals[on], m = sim.rollout(st, form, types.ControlGains(), sp,
+                                    sim.SimConfig(), ticks)
+        finals[on + "_valid"] = int((m.assign_valid & m.auctioned).sum())
+    dq = (finals["cuda"].swarm.q.cpu() - finals["cpu"].swarm.q).abs().max()
+    same = torch.equal(finals["cuda"].v2f.cpu(), finals["cpu"].v2f)
+    emit({"phase": "slice_auction", "check": "default SimConfig(), n=6, "
+          "240 ticks, card vs CPU", "max_abs_dq": dq.item(),
+          "v2f_equal": same, "valid_auctions": finals["cuda_valid"]})
+    if not (dq.item() <= 1e-3 and same and finals["cuda_valid"] == 2
+            and finals["cpu_valid"] == 2):
+        raise AssertionError("the default configuration on the card "
+                             "disagrees with the CPU run")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -703,6 +1165,10 @@ def main(argv=None) -> int:
     phase_reference(args.seed)
     sl = phase_slice(args.seed)
     phase_profile(args.seed, sl["ms_per_tick"])
+    phase_auction(args.seed)
+    phase_cbaa(args.seed)
+    sl_cbaa = phase_slice_cbaa(args.seed)
+    sl_auction = phase_slice_auction(args.seed)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -733,6 +1199,10 @@ def main(argv=None) -> int:
         row = {"name": name, "route": "cuda", "source": sources[name][0],
                "replaces": sources[name][1],
                "launches": sl["launches"][name],
+               "launches_by_path": {
+                   "slice": sl["launches"][name],
+                   "slice_cbaa": sl_cbaa["launches"][name],
+                   "slice_auction": sl_auction["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -8,7 +8,11 @@ cover ragged stripes and tiles (n=1001, n=64, w=37), K1 past its
 shared-memory stripe limit (n=2500, the multi-launch design) and with
 pinned/forbidden pairs, and K3's packed extremes (0, SENTINEL) with a
 receiver that has no sender. K2 is held on all ties, n from 1 to 14,000,
-+-0.0 ties and -inf lines, a pin/forbid plan and max_rounds cuts."""
++-0.0 ties and -inf lines, a pin/forbid plan and max_rounds cuts.
+
+The auction LAP and CBAA are plain tensor code with polled device loops;
+at n=257 the card must reproduce the CPU bit for bit from shared inputs
+(one benefit matrix, one aligned formation), ties included."""
 import math
 
 import numpy as np
@@ -16,7 +20,9 @@ import pytest
 import torch
 
 from aclswarm_torch import ops
-from aclswarm_torch.assignment import sinkhorn as sinkhorn_mod
+from aclswarm_torch.assignment import auction, cbaa
+from aclswarm_torch.core import geometry
+from aclswarm_torch.faults import masking
 from aclswarm_torch.ops.flood import SENTINEL
 from aclswarm_torch.sim.localization import AGE_CAP
 
@@ -102,7 +108,7 @@ def test_sinkhorn_kernel_pin_forbid(card):
     pin[idx, (idx + 7) % N] = True
     g = torch.Generator(device=card).manual_seed(3)
     forbid = (torch.rand(N, N, generator=g, device=card) < 0.01) & ~pin
-    cost = sinkhorn_mod._apply_pin_forbid(cost, pin, forbid).contiguous()
+    cost = masking.apply_pin_forbid(cost, pin, forbid).contiguous()
     out = ops.sinkhorn_log(cost, 0.03, 200)
     ref = ops.sinkhorn_log_plain(cost, 0.03, 200)
     assert ((out - ref).abs() - 2.0**-22 * ref.abs()).max().item() <= 5e-5
@@ -138,7 +144,7 @@ def _rounding_plan(card, kind):
     pin = torch.zeros(N, N, dtype=torch.bool, device=card)
     pin[idx, (idx + 7) % N] = True
     forbid = (torch.rand(N, N, generator=g, device=card) < 0.01) & ~pin
-    cost = sinkhorn_mod._apply_pin_forbid(_cost(card, 2), pin, forbid)
+    cost = masking.apply_pin_forbid(_cost(card, 2), pin, forbid)
     return ops.sinkhorn_log_plain(cost.contiguous(), 0.03, 200)
 
 
@@ -225,3 +231,65 @@ def test_flood_kernel_extremes(card, n, w):
     assert ops.LAUNCHES["flood_merge"] - before == 1
     assert torch.equal(out, ops.flood_merge_plain(p, c, block=64))
     assert (out[:2] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("kind", ["distances", "ties"])
+@pytest.mark.parametrize("max_rounds", [10000, 50])
+def test_auction_card_equals_cpu(card, kind, max_rounds):
+    """One benefit matrix, both devices: assignment, rounds, validity and
+    prices equal, with the flag polled every 32 steps on the card and
+    every step on the CPU. Integer benefits make every first-hit argmax
+    decide."""
+    n = 257
+    if kind == "ties":
+        g = torch.Generator().manual_seed(3)
+        benefit = torch.randint(0, 4, (n, n), generator=g).float()
+    else:
+        benefit = -_cost(card, 7, n).cpu()
+    cpu = auction.auction_lap(benefit, max_rounds=max_rounds)
+    out = auction.auction_lap(benefit.to(card), max_rounds=max_rounds)
+    assert torch.equal(out.row_to_col.cpu(), cpu.row_to_col)
+    assert int(out.iters) == int(cpu.iters)
+    assert bool(out.valid) == bool(cpu.valid)
+    assert torch.equal(out.prices.cpu(), cpu.prices)
+
+
+@pytest.mark.parametrize("task_block", [None, 64])
+@pytest.mark.parametrize("warm", [False, True])
+def test_cbaa_card_equals_cpu(card, task_block, warm):
+    """One aligned formation (computed on the CPU), both devices: winner
+    tables, assignment and round count equal, prices to the last bits (the
+    card's norm sums its three squares in another order than the CPU's);
+    then the alignment itself within 1e-3 m of the CPU's on a 60 m box
+    (two SVD libraries and two float32 summation orders; an agent with
+    two or three neighbors has an ill-conditioned fit)."""
+    n = 257
+    rng = np.random.default_rng(5)
+    q = torch.tensor(rng.uniform(-30, 30, (n, 3)), dtype=torch.float32)
+    p = torch.tensor(rng.uniform(-30, 30, (n, 3)), dtype=torch.float32)
+    adj = np.triu(rng.random((n, n)) < 0.05, 1)
+    adj = torch.tensor((adj | adj.T), dtype=torch.float32)
+    v2f = torch.tensor(rng.permutation(n), dtype=torch.int32)
+    est = q[None] + torch.tensor(rng.normal(size=(n, n, 3)) * 0.05,
+                                 dtype=torch.float32)
+    pal = geometry.align_formation_local(q, p, adj, v2f, est=est)
+
+    def run(dev, tables=None):
+        if tables is not None:
+            tables = cbaa.CbaaTables(*(t.to(dev) for t in tables))
+        return cbaa.cbaa_assign(q.to(dev), pal.to(dev), adj.to(dev),
+                                v2f.to(dev), task_block=task_block,
+                                warm=tables)
+
+    cpu, out = run("cpu"), run(card)
+    if warm:
+        carry = (cpu.price, cpu.who)
+        cpu, out = run("cpu", carry), run(card, carry)
+    for k in ("v2f", "f2v", "who"):
+        assert torch.equal(getattr(out, k).cpu(), getattr(cpu, k)), k
+    torch.testing.assert_close(out.price.cpu(), cpu.price, rtol=1e-6, atol=0)
+    assert int(out.rounds) == int(cpu.rounds)
+    assert bool(out.valid) == bool(cpu.valid)
+    pal_card = geometry.align_formation_local(
+        q.to(card), p.to(card), adj.to(card), v2f.to(card), est=est.to(card))
+    assert (pal_card.cpu() - pal).abs().max().item() <= 1e-3
