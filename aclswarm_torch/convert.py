@@ -20,6 +20,8 @@ from aclswarm_torch.assignment.cbaa import CbaaTables
 from aclswarm_torch.control.safety import TrajGoal
 from aclswarm_torch.core.types import (ControlGains, Formation, SafetyParams,
                                        SwarmState, as_float, resolve_device)
+from aclswarm_torch.gains.admm import AdmmCarry
+from aclswarm_torch.gains.params import AdmmParams
 from aclswarm_torch.sim.engine import SimState
 from aclswarm_torch.sim.localization import EstimateTable
 from aclswarm_torch.sim.vehicle import FlightState
@@ -70,6 +72,24 @@ def cbaa_tables_from_numpy(t, device=None, dtype=torch.float32
     dev = resolve_device(device)
     return CbaaTables(price=_floats(t, ("price",), dev, dtype)["price"],
                       who=_ints(t, ("who",), dev)["who"])
+
+
+def admm_params_from_numpy(p) -> AdmmParams:
+    """The reference's `AdmmParams`, field by field."""
+    return AdmmParams(**{k.name: _get(p, k.name) for k in fields(AdmmParams)})
+
+
+def admm_carry_from_numpy(c, device=None, dtype=torch.float32) -> AdmmCarry:
+    """x2, s2, x1, s1 float, iters () int32."""
+    dev = resolve_device(device)
+    return AdmmCarry(**_floats(c, ("x2", "s2", "x1", "s1"), dev, dtype),
+                     iters=_ints(c, ("iters",), dev)["iters"])
+
+
+def admm_carry_to_numpy(carry: AdmmCarry) -> dict:
+    """The port's carry as a dict of numpy arrays, the reference's field
+    names."""
+    return {k: v.cpu().numpy() for k, v in carry._asdict().items()}
 
 
 def _optional(obj, name):

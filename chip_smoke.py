@@ -12,7 +12,17 @@ and prints no result line:
              counts of the two flood-merge kernels in the library's SASS
              (`cuobjdump -sass`), which show the DPX instruction K3's fold
              compiles to;
-3. kernels — each kernel against its plain PyTorch version on the card at
+3. gains   — the ADMM gain design (`aclswarm_torch.gains`): card against
+             CPU at n=200 in float64 and float32; at n=1000 in float32 the
+             main path's design with the launch counters read around it
+             (no kernel of the port runs there), exact zero blocks, the
+             trace, `validate_gains(tol=2e-4)`, cold and warm ms, ADMM and
+             Newton steps, host reads, peak memory, each subproblem's and
+             the Gram pseudo-inverse's ms; and, as a finding, how far gains
+             on cuSOLVER's kernel basis land from the port's (printed, not
+             checked). Every slice below flies these designed gains, x 0.15
+             as the suite scales them (`design`, `problem`);
+4. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (n=1000): K1 Sinkhorn atol 5e-5 and
              marginals 1e-4, K2 rounding (permutation and round count) and
              K3 flood merge bit-identical; kernel, previous-design and plain
@@ -23,36 +33,37 @@ and prints no result line:
              n=64, pin/forbid, n=2500 past the stripe limit; K2: all ties,
              n=1, n=64, n=1001, -inf lines and signed-zero ties, pin/forbid,
              max_rounds=3, n=14000), each with the launches it made;
-4. reference — the Sinkhorn slice and the CBAA slice at a small size on
+5. reference — the Sinkhorn slice and the CBAA slice at a small size on
              the card (f32, kernels) against the same runs on the CPU (f32,
-             plain versions);
-5. slice   — the `simform1000_flooded` deployment
+             plain versions), one copy of the designed gains for both;
+6. slice   — the `simform1000_flooded` deployment
              (`benchmarks/trials_suite.py`) at n=1000, float32: a seeded
              formation, 240 ticks through `sim.init_state` + `sim.rollout`,
              with the launch counters read around that run;
-6. profile — one auction period of the slice under `torch.profiler`:
+7. profile — one auction period of the slice under `torch.profiler`:
              device time by kernel, the device's idle share, and each
              kernel's launches as the profiler saw them against its
-             launch counter;
-7. auction — one `auction_lap` at n=1000 on the card against the same call
+             launch counter; then phases 6 and 7 once more on the random
+             gains earlier runs flew, for the record;
+8. auction — one `auction_lap` at n=1000 on the card against the same call
              on the CPU from one benefit matrix: assignment, rounds,
              validity and prices equal; rounds, phases, host reads (the
              profiler's device-to-host copies), ms, and the total cost
              beside Sinkhorn's; a tie-heavy integer matrix the same way;
-8. cbaa    — one cold `cbaa_from_state` at n=1000 (`task_block=64`, `est`
+9. cbaa    — one cold `cbaa_from_state` at n=1000 (`task_block=64`, `est`
              from a flooded table) on the card against the CPU, then a
              second auction seeded with the first's tables; rounds, ms per
              round and per auction, the local alignment's ms; and n=64
              dense against `task_block=16`, bit-identical;
-9. slice_cbaa — the `simform1000_cbaa_flooded` deployment, 121 ticks (two
+10. slice_cbaa — the `simform1000_cbaa_flooded` deployment, 121 ticks (two
              auctions), with the launch counters read around that run: K3
              once per tick, K1 and K2 never; ms per tick on and off
              auction ticks;
-10. slice_auction — the same start under the default assignment
+11. slice_auction — the same start under the default assignment
              ('auction', ground truth), 121 ticks, no kernel of the port on
-             its path; and the default `SimConfig()` at n=6 for 240 ticks
-             on the card against the CPU;
-11. the `kernels` line, then the result line. Each kernel row carries the
+             its path; and the default `SimConfig()` at n=6 (random gains)
+             for 240 ticks on the card against the CPU;
+12. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run) and `launches_by_path`; K2's row also its
    rounds and the dense bound that earlier runs reported.
@@ -63,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import re
@@ -110,35 +122,61 @@ KEEPOUT_REPULSE_VEL = 0.3
 ENGINE_AUCTION = dict(assignment="auction", localization="truth",
                       colavoid_neighbors=16, dynamics="doubleint")
 TICKS_AUCTIONS = 121    # two auctions: ticks 0 and 120
+GAIN_SCALE = 0.15       # the simform1000 rows' gain_scale
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def problem(n: int, seed: int, device, dtype, start_min_dist: float,
-            localization: bool = True, **safety):
-    """Formation, parameters and airborne start state from one seed, with
-    the suite's generation boxes. Gains are random (n, n, 3, 3) blocks as
-    in `__graft_entry__.py`'s dry run: the ADMM gain design that trials
-    run on dispatch belongs to a later slice of the port. ``safety``
-    overrides `SafetyParams` fields."""
-    from aclswarm_torch import sim
-    from aclswarm_torch.core import types
+def _group(n: int, seed: int, k: int = 1) -> tuple[list, np.ndarray]:
+    """The seeded formations (k of them, one graph) in the suite's boxes."""
     from aclswarm_torch.harness import formgen
 
     group = formgen.generate_group(n, seed=seed, l=SUITE["sim_l"],
                                    w=SUITE["sim_w"], h=SUITE["sim_h"],
-                                   min_dist=SUITE["sim_min_dist"], k=1)
+                                   min_dist=SUITE["sim_min_dist"], k=k)
+    return ([np.asarray(f["points"]) for f in group["formations"]],
+            np.asarray(group["adjmat"], float))
+
+
+@functools.lru_cache(maxsize=None)
+def design(n: int, seed: int) -> torch.Tensor:
+    """The seeded formation's (3n, 3n) gains as the trial harness designs
+    them on dispatch (`aclswarm_tpu/harness/trials.py:274-319,408-415`):
+    ADMM on the card in float32, non-edges in the n-4 bucket. Designed
+    once per (n, seed)."""
+    from aclswarm_torch import gains
+
+    (points,), adj = _group(n, seed)
+    return gains.solve_gains(points.astype(np.float32), adj,
+                             max_nonedges=max(n - 4, 1),
+                             device=torch.device("cuda"))
+
+
+def problem(n: int, seed: int, device, dtype, start_min_dist: float,
+            localization: bool = True, gains: str = "admm", **safety):
+    """Formation, parameters and airborne start state from one seed, with
+    the suite's generation boxes. ``gains='admm'``: the designed gains
+    (`design`) scaled by the suite's gain_scale, one numpy copy for every
+    device; ``'random'``: (n, n, 3, 3) normal blocks x 0.01 from the seed,
+    the gains earlier runs flew. ``safety`` overrides `SafetyParams`
+    fields."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.core import types
+    from aclswarm_torch.harness import formgen
+
+    (points,), adj = _group(n, seed)
     rng = np.random.default_rng(seed)
-    gains = rng.normal(size=(n, n, 3, 3)) * 0.01
+    random_gains = rng.normal(size=(n, n, 3, 3)) * 0.01
+    gain = random_gains if gains == "random" \
+        else design(n, seed).cpu().numpy() * GAIN_SCALE
     q0 = formgen.sample_cylinder_points(rng, n, SUITE["init_area_w"],
                                         SUITE["init_area_h"], 0.0,
                                         start_min_dist)
     q0[:, 2] = 1.0                              # airborne at takeoff_alt
-    formation = types.make_formation(group["formations"][0]["points"],
-                                     np.asarray(group["adjmat"], float),
-                                     gains, device=device, dtype=dtype)
+    formation = types.make_formation(points, adj, gain, device=device,
+                                     dtype=dtype)
     rx, ry, rz = SUITE["room"]
     sparams = types.SafetyParams(bounds_min=(-rx, -ry, 0.0),
                                  bounds_max=(rx, ry, rz),
@@ -581,6 +619,171 @@ def phase_kernels(seed: int) -> dict:
     return out
 
 
+def _gains_kw(n: int, dev) -> dict:
+    return dict(max_nonedges=n - 4, device=dev)
+
+
+def _nonedge_blocks(flat: torch.Tensor, adj: np.ndarray) -> torch.Tensor:
+    """The (3 x 3) blocks of ``flat`` at the graph's non-edges."""
+    n = adj.shape[0]
+    off = torch.as_tensor((adj == 0) & ~np.eye(n, dtype=bool),
+                          device=flat.device)
+    return flat.reshape(n, 3, n, 3).permute(0, 2, 1, 3)[off]
+
+
+def _cusolver_problem(prob, points: np.ndarray):
+    """``prob`` with both kernel bases from the card's SVD (cuSOLVER)
+    instead of LAPACK's gesdd on the host."""
+    p = torch.as_tensor(points, device=prob.q2.device)
+    one, zero = torch.ones_like(p[:, 0]), torch.zeros_like(p[:, 0])
+    N2 = torch.stack([p[:, :2].reshape(-1),
+                      torch.stack([-p[:, 1], p[:, 0]], 1).reshape(-1),
+                      torch.stack([one, zero], 1).reshape(-1),
+                      torch.stack([zero, one], 1).reshape(-1)], 1)
+    q2 = torch.linalg.svd(N2, full_matrices=True)[0][:, 4:]
+    q1 = torch.linalg.svd(torch.stack([p[:, 2], one], 1),
+                          full_matrices=True)[0][:, 2:]
+    return prob._replace(q2=q2[None], q1=q1[None])
+
+
+def phase_gains(seed: int) -> dict:
+    """The ADMM gain design (`aclswarm_torch.gains`), before the slices
+    that fly its gains:
+
+    - card against CPU at n=200, float64 (eigh) and float32 (Newton):
+      gains within 1e-10 / 1e-4, ADMM iterations equal;
+    - n=1000, float32, the main path's design (`design`) with the launch
+      counters read around it: zero blocks exact at the non-edges, the
+      trace within 1e-4 relative, `validate_gains(tol=2e-4)` and its
+      seconds on the host; cold ms, ADMM and Newton steps per
+      subproblem, host reads (the profiler's device-to-host copies),
+      device time by kernel, peak memory; each subproblem's ms and the
+      Gram pseudo-inverse's (Hermitian, and the SVD-based form beside
+      it); the warm start into the group's second formation and into the
+      same formation; and, printed as a finding and not checked, how far
+      gains designed on cuSOLVER's kernel basis land from the port's.
+    """
+    from aclswarm_torch import gains, ops
+    from aclswarm_torch.gains import admm
+
+    dev = torch.device("cuda")
+    params = gains.AdmmParams()
+    n = 200
+    (pts,), adj = _group(n, seed)
+    gains.solve_gains(pts.astype(np.float32), adj, **_gains_kw(n, dev))
+    for dtype, tol in (("float64", 1e-10), ("float32", 1e-4)):
+        p = pts.astype(dtype)
+        (card, st), ms = _sync_ms(lambda: gains.solve_gains(
+            p, adj, telemetry=True, **_gains_kw(n, dev)))
+        t0 = time.perf_counter()
+        cpu, st_cpu = gains.solve_gains(p, adj, telemetry=True,
+                                        **_gains_kw(n, "cpu"))
+        info = {"phase": "gains", "check": f"card vs CPU, n={n}, {dtype}",
+                "max_abs_diff": (card.cpu() - cpu).abs().max().item(),
+                "tol": tol, "iters": st.iters, "iters_cpu": st_cpu.iters,
+                "residual": st.residual, "residual_cpu": st_cpu.residual,
+                "ms": ms, "cpu_ms": (time.perf_counter() - t0) * 1e3}
+        emit(info)
+        if not (info["max_abs_diff"] <= tol and st.iters == st_cpu.iters):
+            raise AssertionError(f"gains: card and CPU disagree: {info}")
+
+    (pa, pb), adj = _group(N, seed, k=2)
+    pa, pb = pa.astype(np.float32), pb.astype(np.float32)
+    kw = _gains_kw(N, dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    A, first_ms = _sync_ms(lambda: design(N, seed))      # the main path's
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    v = gains.validate_gains(A.double(), pa.astype(np.float64), tol=2e-4)
+    validate_s = time.perf_counter() - t0
+    trace = torch.trace(A.double()).item()
+    zero_exact = bool((_nonedge_blocks(A, adj) == 0).all())
+
+    prob = admm.problem(pa[None], adj[None], gains.planar_of(pa), N - 4, dev)
+    rec = admm.new_record()
+    (flat, _, iters, resid), rec_ms = _sync_ms(
+        lambda: admm.solve(prob, params, rec=rec))
+    cold_ms = [_sync_ms(lambda: gains.solve_gains(pa, adj, **kw))[1]
+               for _ in range(2)]
+    prof = _device_profile(lambda: gains.solve_gains(pa, adj, **kw), top=8)
+    sub_ms = {}
+    for d, q in ((2, prob.q2), (1, prob.q1)):
+        sub_ms[f"{d}d"] = _sync_ms(lambda: admm._subproblem(
+            q, prob.i_idx, prob.j_idx, prob.valid, d, params, None,
+            admm.POLL_EVERY, admm.new_record()))[1]
+        U, W, vmask = admm._rows(q, prob.i_idx, prob.j_idx, prob.valid, d)
+        G = admm._gram(U, W, vmask, d)
+        sub_ms[f"{d}d_gram_size"] = G.shape[-1]
+        sub_ms[f"{d}d_gram_ms"] = _sync_ms(
+            lambda: admm._gram(U, W, vmask, d))[1]
+        sub_ms[f"{d}d_pinv_hermitian_ms"] = _sync_ms(
+            lambda: torch.linalg.pinv(G, rtol=1e-12, hermitian=True))[1]
+        sub_ms[f"{d}d_pinv_svd_ms"] = _sync_ms(
+            lambda: torch.linalg.pinv(G, rtol=1e-12))[1]
+
+    # warm starts: the group's next formation from this one's fixed point
+    # (a dispatch), and this formation from its own (a re-dispatch)
+    carry0 = gains.init_carry(N, gains.planar_of(pa), device=dev)
+    (a_warm, carry_a), _ = _sync_ms(lambda: gains.solve_gains(
+        pa, adj, carry=carry0, **kw))
+    (_, st_b), b_cold_ms = _sync_ms(lambda: gains.solve_gains(
+        pb, adj, telemetry=True, **kw))
+    (gb, _, st_bw), b_warm_ms = _sync_ms(lambda: gains.solve_gains(
+        pb, adj, carry=carry_a, telemetry=True, **kw))
+    (_, _, st_aw), a_again_ms = _sync_ms(lambda: gains.solve_gains(
+        pa, adj, carry=carry_a, telemetry=True, **kw))
+    gb_cold = gains.solve_gains(pb, adj, **kw)
+
+    cu = _cusolver_problem(prob, pa)
+    g_cu, _, it_cu, _ = admm.solve(cu, params)
+    info = {"phase": "gains", "n": N, "dtype": "float32",
+            "nonedges": int(prob.valid.sum()), "bucket": N - 4,
+            "launches": launches, "first_ms": first_ms, "cold_ms": cold_ms,
+            "recorded_ms": rec_ms, "admm_iters": int(iters[0]),
+            "admm_steps_2d_1d": [int(s[0]) for s in rec["admm"]],
+            "newton_steps_per_psd": [int(s[0]) for s in rec["newton_live"]],
+            "newton_steps_run": rec["newton_run"],
+            "flag_reads": rec["host_reads"], "poll_every": admm.POLL_EVERY,
+            "residual": float(resid[0]),
+            "same_as_entry_point": torch.equal(flat[0], A),
+            "cold_carry_bitwise_cold": torch.equal(a_warm, A),
+            **{k: x for k, x in prof.items()},
+            "subproblem_ms": sub_ms,
+            "peak_memory_bytes": peak, "memory_before_bytes": before,
+            "zero_blocks_exact": zero_exact, "trace": trace,
+            "trace_expected": -3.0 * (N - 2),
+            "validate": {k: v[k] for k in ("no_positive", "kernel_ok",
+                                           "strictly_negative_rest",
+                                           "nullity")},
+            "kernel_eigs": v["eigenvalues"][-6:].tolist(),
+            "largest_rest_eig": float(v["eigenvalues"][-7]),
+            "validate_seconds": validate_s,
+            "warm_next_formation": {
+                "cold_iters": st_b.iters, "cold_ms": b_cold_ms,
+                "warm_iters": st_bw.iters, "warm_ms": b_warm_ms,
+                "max_abs_diff_warm_vs_cold": (gb - gb_cold).abs().max()
+                .item()},
+            "warm_same_formation": {"iters": st_aw.iters,
+                                    "ms": a_again_ms},
+            "cusolver_basis": {
+                "max_abs_q2_diff": (cu.q2 - prob.q2).abs().max().item(),
+                "max_abs_gains_diff": (g_cu[0] - A).abs().max().item(),
+                "iters": int(it_cu[0])}}
+    emit(info)
+    if not (zero_exact and not any(launches.values())
+            and abs(trace - info["trace_expected"]) <= 1e-4 * 3 * (N - 2)
+            and v["no_positive"] and v["kernel_ok"]
+            and v["strictly_negative_rest"] and info["same_as_entry_point"]
+            and info["cold_carry_bitwise_cold"]
+            and bool(torch.isfinite(A).all())):
+        raise AssertionError(f"gains check failed at n={N}: {info}")
+    return info
+
+
 def _slice_cfg(**kw):
     from aclswarm_torch import sim
     return sim.SimConfig(**dict(ENGINE, **kw))
@@ -624,13 +827,16 @@ def phase_reference(seed: int) -> None:
                                  "with the plain CPU run")
 
 
-def phase_slice(seed: int) -> dict:
+def phase_slice(seed: int, gains_kind: str = "admm") -> dict:
+    """The slice's 240 ticks on designed gains (the main path) or on the
+    random gains earlier runs flew (for the record)."""
     from aclswarm_torch import ops, sim
     from aclswarm_torch.core import perm as permutil
 
     dev = torch.device("cuda")
     formation, gains, sparams, state = problem(
-        N, seed, dev, torch.float32, 2 * SUITE["init_radius"])
+        N, seed, dev, torch.float32, 2 * SUITE["init_radius"],
+        gains=gains_kind)
     cfg = _slice_cfg()
     sim.rollout(state, formation, gains, sparams, cfg, 2)   # warm-up
     torch.cuda.synchronize()
@@ -647,12 +853,13 @@ def phase_slice(seed: int) -> dict:
                final.loc.est, metrics.q, metrics.distcmd_norm]
     finite = all(bool(torch.isfinite(t).all()) for t in tensors)
     auctions = TICKS // cfg.assign_every + (TICKS % cfg.assign_every > 0)
-    info = {"phase": "slice", "n": N, "ticks": TICKS, "dtype": "float32",
-            "ms_per_tick": seconds / TICKS * 1e3,
+    info = {"phase": "slice", "gains": gains_kind, "n": N, "ticks": TICKS,
+            "dtype": "float32", "ms_per_tick": seconds / TICKS * 1e3,
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "launches": launches, "auctions": auctions,
             "reassigned_ticks": int(metrics.reassigned.sum()),
             "ca_active_vehicle_ticks": int(metrics.ca_active.sum()),
+            "mean_distcmd_norm": metrics.distcmd_norm.mean().item(),
             "finite": finite, "v2f_valid": bool(permutil.is_valid(final.v2f)),
             "q_shape": list(final.swarm.q.shape)}
     emit(info)
@@ -679,7 +886,8 @@ _KERNEL_OF = {"sinkhorn_persistent_kernel": "sinkhorn_log",
               "flood_merge_kernel": "flood_merge"}
 
 
-def phase_profile(seed: int, ms_per_tick: float) -> None:
+def phase_profile(seed: int, ms_per_tick: float,
+                  gains_kind: str = "admm") -> None:
     """Where a tick's time goes: one auction period (120 ticks) of the
     slice under `torch.profiler`. Device time is summed from the kernel
     events; the idle share compares it with the untraced run's time per
@@ -693,7 +901,7 @@ def phase_profile(seed: int, ms_per_tick: float) -> None:
 
     formation, gains, sparams, state = problem(
         N, seed, torch.device("cuda"), torch.float32,
-        2 * SUITE["init_radius"])
+        2 * SUITE["init_radius"], gains=gains_kind)
     cfg, ticks = _slice_cfg(), 120
     sim.rollout(state, formation, gains, sparams, cfg, 2)   # warm-up
     torch.cuda.synchronize()
@@ -715,7 +923,8 @@ def phase_profile(seed: int, ms_per_tick: float) -> None:
     busy = sum(v[1] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     traced = {k: by_name.get(k, [0])[0] for k in counted}
-    emit({"phase": "profile", "ticks": ticks, "window": "ticks 0-119 "
+    emit({"phase": "profile", "gains": gains_kind, "ticks": ticks,
+          "window": "ticks 0-119 "
           "(one auction)", "device_time_measured": busy > 0,
           "launches_counted": counted, "launches_traced": traced,
           "device_busy_ms_per_tick": busy / ticks,
@@ -1161,10 +1370,13 @@ def main(argv=None) -> int:
 
     phase_device()
     phase_build()
+    gn = phase_gains(args.seed)
     kern = phase_kernels(args.seed)
     phase_reference(args.seed)
     sl = phase_slice(args.seed)
     phase_profile(args.seed, sl["ms_per_tick"])
+    sl_random = phase_slice(args.seed, "random")
+    phase_profile(args.seed, sl_random["ms_per_tick"], "random")
     phase_auction(args.seed)
     phase_cbaa(args.seed)
     sl_cbaa = phase_slice_cbaa(args.seed)
@@ -1200,6 +1412,7 @@ def main(argv=None) -> int:
                "replaces": sources[name][1],
                "launches": sl["launches"][name],
                "launches_by_path": {
+                   "gains": gn["launches"][name],
                    "slice": sl["launches"][name],
                    "slice_cbaa": sl_cbaa["launches"][name],
                    "slice_auction": sl_auction["launches"][name]},

@@ -4,7 +4,8 @@ from the same numpy state, float64 on the CPU.
 The main case is the `simform1000_flooded` deployment scaled down to
 n=24: Sinkhorn assignment with the assign_eps hysteresis, flooded
 localization with two phased stripes, k-pruned avoidance, doubleint
-dynamics, an auction every 10 ticks — 40 ticks. Variants: the truth
+dynamics, an auction every 10 ticks — 40 ticks, on random gains and on
+gains each package designs itself. Variants: the truth
 information model under each dynamics model, the flight FSM from a ground
 start under an operator schedule, and the hold ('none') mode.
 
@@ -24,8 +25,11 @@ import jax
 import jax.numpy as jnp
 
 from aclswarm_torch import convert
+from aclswarm_torch import gains as tgains
 from aclswarm_torch import sim
+from aclswarm_torch.core.types import make_formation
 from aclswarm_torch.harness import formgen
+from aclswarm_tpu import gains as jgains
 from aclswarm_tpu import sim as jsim
 from aclswarm_tpu.core.types import ControlGains as JControlGains
 from aclswarm_tpu.core.types import SafetyParams as JSafetyParams
@@ -42,6 +46,7 @@ N, TICKS, ATOL = 24, 40, 1e-8
 # `test_torch_control.py::test_colavoid_duplicate_sector_coin_flip`).
 # Seed 3 hits that at tick 37 of the tracking variant; seeds 4-8 do not.
 SEED = 4
+GAIN_SCALE = 0.15   # the simform1000 rows' gain_scale (trials_suite.py)
 SLICE = dict(assignment="sinkhorn", localization="flooded", flood_phases=2,
              colavoid_neighbors=8, assign_eps=0.01, dynamics="doubleint",
              assign_every=10)
@@ -73,7 +78,9 @@ def _problem(seed=SEED, ground=False):
 
 
 def _roll_both(cfg_kw, ground=False, inputs=None, ticks=TICKS,
-               cbaa_warm=False, problem=None):
+               cbaa_warm=False, problem=None, tform=None):
+    """Both rollouts from one problem; ``tform`` replaces the port's copy
+    of the reference's formation."""
     jform, jsp, jcg, q0 = problem or _problem(ground=ground)
     loc = cfg_kw.get("localization") == "flooded"
     jst = jsim.init_state(jnp.asarray(q0), flying=not ground,
@@ -89,7 +96,8 @@ def _roll_both(cfg_kw, ground=False, inputs=None, ticks=TICKS,
         joy_yawrate=torch.as_tensor(inputs["joy_yawrate"]),
         joy_active=torch.as_tensor(inputs["joy_active"]))
     tf, tm = sim.rollout(convert.sim_state_from_numpy(_np(jst), **f64),
-                         convert.formation_from_numpy(_np(jform), **f64),
+                         tform or convert.formation_from_numpy(_np(jform),
+                                                               **f64),
                          convert.control_gains_from_numpy(_np(jcg)),
                          convert.safety_params_from_numpy(_np(jsp)),
                          sim.SimConfig(**cfg_kw), ticks, tin)
@@ -138,6 +146,27 @@ def test_slice_rollout_parity(flood_block):
     _assert_parity(jf, jm, tf, tm)
     assert int(tm.auctioned.sum()) == TICKS // SLICE["assign_every"]
     assert bool(tm.ca_active.any())          # avoidance really engaged
+
+
+def test_slice_rollout_parity_on_designed_gains():
+    """The slice flying gains each package designs itself, as the trial
+    harness designs them on dispatch (`harness/trials.py:274-319,414-415`):
+    ADMM in the n-4 bucket, scaled by the suite's gain_scale 0.15. The two
+    designs agree to 1e-12; the rollouts at the file's tolerances."""
+    jform, jsp, jcg, q0 = _problem()
+    pts, adj = np.asarray(jform.points), np.asarray(jform.adjmat)
+    jgain = np.asarray(jgains.solve_gains(pts, adj, max_nonedges=N - 4)) \
+        * GAIN_SCALE
+    tgain = tgains.solve_gains(pts, adj, max_nonedges=N - 4,
+                               device="cpu") * GAIN_SCALE
+    np.testing.assert_allclose(tgain.numpy(), jgain, rtol=0, atol=1e-12)
+    tform = make_formation(pts, adj, tgain, device="cpu",
+                           dtype=torch.float64)
+    jf, jm, tf, tm = _roll_both(
+        SLICE, problem=(jmake_formation(pts, adj, jgain), jsp, jcg, q0),
+        tform=tform)
+    _assert_parity(jf, jm, tf, tm)
+    assert int(tm.auctioned.sum()) == TICKS // SLICE["assign_every"]
 
 
 @pytest.mark.parametrize("dynamics", ["tracking", "firstorder", "doubleint"])

@@ -35,7 +35,7 @@ def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"engine.py", "sinkhorn.py", "flood.py", "chip_smoke.py",
             "convert.py", "_build.py", "auction.py", "cbaa.py",
-            "masking.py"} <= names
+            "masking.py", "admm.py", "params.py"} <= names
 
 
 def test_init_state_without_device_needs_the_card(monkeypatch):

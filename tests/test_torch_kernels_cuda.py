@@ -12,17 +12,21 @@ receiver that has no sender. K2 is held on all ties, n from 1 to 14,000,
 
 The auction LAP and CBAA are plain tensor code with polled device loops;
 at n=257 the card must reproduce the CPU bit for bit from shared inputs
-(one benefit matrix, one aligned formation), ties included."""
+(one benefit matrix, one aligned formation), ties included. The ADMM gain
+design is tensor code too: held against the CPU at n=64, with its kernel
+basis computed on the host, and checked at n=1000 in float32."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from aclswarm_torch import ops
+from aclswarm_torch import gains, ops
 from aclswarm_torch.assignment import auction, cbaa
 from aclswarm_torch.core import geometry
 from aclswarm_torch.faults import masking
+from aclswarm_torch.gains import admm as gains_admm
+from aclswarm_torch.harness import formgen
 from aclswarm_torch.ops.flood import SENTINEL
 from aclswarm_torch.sim.localization import AGE_CAP
 
@@ -293,3 +297,86 @@ def test_cbaa_card_equals_cpu(card, task_block, warm):
     pal_card = geometry.align_formation_local(
         q.to(card), p.to(card), adj.to(card), v2f.to(card), est=est.to(card))
     assert (pal_card.cpu() - pal).abs().max().item() <= 1e-3
+
+
+def _gain_case(n, seed, dtype="float32"):
+    """A seeded non-planar formation and a `simform` graph (K_n minus up to
+    n-4 edges)."""
+    pts = (np.random.default_rng(seed).normal(size=(n, 3)) * 10).astype(dtype)
+    return pts, formgen.random_adjmat(np.random.default_rng(seed), n)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float64", 1e-10),
+                                        ("float32", 1e-4)])
+def test_gains_card_equals_cpu(card, dtype, tol):
+    """The ADMM gain design (tensor code, no kernel) on the card against
+    the CPU: gains within 1e-10 at float64 (eigh) and 1e-4 at float32
+    (Newton; two float32 matmul orders, where float32 and float64 differ
+    by ~2e-6 at n=200), ADMM iterations equal."""
+    n = 64
+    pts, adj = _gain_case(n, 1, dtype)
+    a, st = gains.solve_gains(pts, adj, max_nonedges=n - 4, telemetry=True,
+                              device=card)
+    b, st_cpu = gains.solve_gains(pts, adj, max_nonedges=n - 4,
+                                  telemetry=True, device="cpu")
+    assert a.device.type == "cuda" and a.dtype == b.dtype
+    assert (a.cpu() - b).abs().max().item() <= tol
+    assert st.iters == st_cpu.iters
+
+
+def test_gains_kernel_basis_is_the_hosts(card):
+    """Q reaches the card as LAPACK's gesdd computed it on the host, bit
+    for bit: cuSOLVER picks another basis of the degenerate space."""
+    pts, adj = _gain_case(48, 2)
+    prob = gains_admm.problem(pts[None], adj[None], False, None, card)
+    assert torch.equal(prob.q2[0].cpu(),
+                       torch.from_numpy(gains_admm._kernel_2d(pts[:, :2])))
+    assert torch.equal(prob.q1[0].cpu(), torch.from_numpy(
+        gains_admm._kernel_1d(pts[:, 2], False)))
+
+
+def test_gains_poll_interval_gives_the_same_bits(card):
+    pts, adj = _gain_case(64, 3)
+    outs = [gains.solve_gains(pts, adj, poll_every=k, device=card)
+            for k in (1, 4, 40)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+def test_gains_batch_against_serial_on_card(card):
+    """Three formations in one batch against their serial solves (float32,
+    1e-5: a formation's products inside the batch may round otherwise)."""
+    n = 48
+    cases = [_gain_case(n, s) for s in (4, 5, 6)]
+    pts = np.stack([c[0] for c in cases])
+    adjs = np.stack([c[1] for c in cases])
+    batched = gains.solve_gains_batch(pts, adjs, max_nonedges=n - 4,
+                                      device=card)
+    for b in range(3):
+        serial = gains.solve_gains(pts[b], adjs[b], max_nonedges=n - 4,
+                                   device=card)
+        assert (batched[b] - serial).abs().max().item() <= 1e-5
+
+
+def test_gains_n1000_float32_invariants(card):
+    """The main path's size: zero blocks exact at the non-edges, the trace
+    within 1e-4 relative, the eigenstructure at `validate_gains(tol=2e-4)`
+    (`tests/test_f32.py`), a warm re-solve of the same formation in fewer
+    iterations."""
+    n = 1000
+    pts, adj = _gain_case(n, 7)
+    carry0 = gains.init_carry(n, gains.planar_of(pts), device=card)
+    A, carry, st = gains.solve_gains(pts, adj, max_nonedges=n - 4,
+                                     carry=carry0, telemetry=True,
+                                     device=card)
+    off = torch.as_tensor((adj == 0) & ~np.eye(n, dtype=bool), device=card)
+    assert bool((A.reshape(n, 3, n, 3).permute(0, 2, 1, 3)[off] == 0).all())
+    assert abs(torch.trace(A.double()).item() + 3 * (n - 2)) \
+        <= 1e-4 * 3 * (n - 2)
+    v = gains.validate_gains(A.double(), pts.astype(np.float64), tol=2e-4)
+    assert v["no_positive"] and v["kernel_ok"] \
+        and v["strictly_negative_rest"]
+    _, _, st_warm = gains.solve_gains(pts, adj, max_nonedges=n - 4,
+                                      carry=carry, telemetry=True,
+                                      device=card)
+    assert st_warm.iters < st.iters
