@@ -10,6 +10,8 @@ Entry points run on the card unless the caller asks for the CPU:
 """
 import torch
 
+__version__ = "0.1.0"
+
 # The reference runs every contraction at precision="highest"
 # (`aclswarm_tpu/core/geometry.py`, `control/distcntrl.py`): its default
 # reduced-precision matmuls cost ~1e-2 alignment error. TF32 keeps ~3

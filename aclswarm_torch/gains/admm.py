@@ -128,6 +128,16 @@ def _trace(x: torch.Tensor) -> torch.Tensor:
     return x.diagonal(dim1=-2, dim2=-1).sum(-1)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched product, taken formation by formation: the CPU's BLAS rounds
+    a (B, m, k) @ (B, k, p) product otherwise than B lone (1, m, k)
+    products, so a batch of formations would not equal its serial solves
+    bit for bit."""
+    if a.shape[0] == 1:
+        return a @ b
+    return torch.cat([a[i:i + 1] @ b[i:i + 1] for i in range(a.shape[0])])
+
+
 def _proj_struct(B: torch.Tensor, d: int) -> torch.Tensor:
     """Project (..., dm, dm) onto symmetric (d=1) or complex-structured
     symmetric (d=2) matrices: 2 x 2 blocks [[a, b], [-b, a]]."""
@@ -177,13 +187,13 @@ def _gram(U, W, vmask, d):
     nb, K, dm = U.shape
     if d == 2:
         JU, JW = _rot_rows(U), _rot_rows(W)
-        G = 0.25 * ((U @ _mT(U)) * (W @ _mT(W))
-                    + (U @ _mT(W)) * (W @ _mT(U))
-                    + (U @ _mT(JU)) * (W @ _mT(JW))
-                    + (U @ _mT(JW)) * (W @ _mT(JU)))
+        G = 0.25 * (_mm(U, _mT(U)) * _mm(W, _mT(W))
+                    + _mm(U, _mT(W)) * _mm(W, _mT(U))
+                    + _mm(U, _mT(JU)) * _mm(W, _mT(JW))
+                    + _mm(U, _mT(JW)) * _mm(W, _mT(JU)))
     else:
-        G = 0.5 * ((U @ _mT(U)) * (W @ _mT(W))
-                   + (U @ _mT(W)) * (W @ _mT(U)))
+        G = 0.5 * (_mm(U, _mT(U)) * _mm(W, _mT(W))
+                   + _mm(U, _mT(W)) * _mm(W, _mT(U)))
     g = (U * W).sum(-1)
     Gf = torch.zeros((nb, K + 1, K + 1), dtype=U.dtype, device=U.device)
     Gf[:, :K, :K] = G
@@ -217,14 +227,14 @@ def _constraint_system(Q, i_idx, j_idx, valid, d):
 
     def C(B):
         """(B, K+1) constraint values of a structured (B, dm, dm)."""
-        return torch.cat([((U @ B) * W).sum(-1), _trace(B)[:, None]], dim=-1)
+        return torch.cat([(_mm(U, B) * W).sum(-1), _trace(B)[:, None]], dim=-1)
 
     def Ct(y):
         """sum_k y_k H_k as a dense structured (B, dm, dm)."""
-        M = _mT(U) @ (y[:, :K, None] * W)
+        M = _mm(_mT(U), y[:, :K, None] * W)
         return _proj_struct(M, d) + y[:, K, None, None] * eye
 
-    return C, Ct, (lambda r: (Ginv @ r[..., None])[..., 0])
+    return C, Ct, (lambda r: _mm(Ginv, r[..., None])[..., 0])
 
 
 def _psd_eigh(W, params):
@@ -235,7 +245,7 @@ def _psd_eigh(W, params):
     keep = torch.where(keep.any(-1, keepdim=True), keep,
                        torch.ones_like(keep))
     lam_kept = torch.where(keep, lam, torch.zeros_like(lam))
-    return (V * lam_kept[..., None, :]) @ _mT(V)
+    return _mm(V * lam_kept[..., None, :], _mT(V))
 
 
 def _psd_newton(W, params, poll_every, rec):
@@ -253,10 +263,10 @@ def _psd_newton(W, params, poll_every, rec):
         v = torch.full((nb, m), 1.0, dtype=dtype, device=dev) \
             / torch.full((), m, dtype=dtype, device=dev).sqrt()
         for _ in range(12):
-            v = (W @ v[..., None])[..., 0]
+            v = _mm(W, v[..., None])[..., 0]
             v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True)
                      + tiny)
-        sigma = torch.linalg.vector_norm((W @ v[..., None])[..., 0], dim=-1)
+        sigma = torch.linalg.vector_norm(_mm(W, v[..., None])[..., 0], dim=-1)
         ub = torch.minimum(torch.linalg.vector_norm(W, dim=(-2, -1)),
                            W.abs().sum(-1).amax(-1))
         scale = torch.maximum(
@@ -273,7 +283,7 @@ def _psd_newton(W, params, poll_every, rec):
         done = torch.zeros(nb, dtype=torch.bool, device=dev)
         steps = torch.zeros(nb, dtype=torch.int32, device=dev)
         for k in range(params.newton_iters):
-            Znew = 1.5 * Z - 0.5 * ((Z @ Z) @ Z)
+            Znew = 1.5 * Z - 0.5 * _mm(_mm(Z, Z), Z)
             num = torch.sqrt(((Znew - Z) ** 2).sum((-2, -1)))
             den = torch.sqrt((Z ** 2).sum((-2, -1))) + tiny
             live = ~done
@@ -288,9 +298,9 @@ def _psd_newton(W, params, poll_every, rec):
         rec["newton_live"].append(steps)
     else:
         for _ in range(params.newton_iters):
-            Z = 1.5 * Z - 0.5 * ((Z @ Z) @ Z)
+            Z = 1.5 * Z - 0.5 * _mm(_mm(Z, Z), Z)
         rec["newton_run"] += params.newton_iters
-    return (W + Z @ W) / 2.0
+    return (W + _mm(Z, W)) / 2.0
 
 
 def _subproblem(Q, i_idx, j_idx, valid, d, params, warm, poll_every, rec):
@@ -374,7 +384,7 @@ def _subproblem(Q, i_idx, j_idx, valid, d, params, warm, poll_every, rec):
 
     # the final projection with S = 0 (`solver.cpp:333-346`)
     X22 = (-W_of(C - mu * X) / mu)[:, dm:, dm:]
-    return -(Q @ X22 @ _mT(Q)), X, S, steps, diff
+    return -_mm(_mm(Q, X22), _mT(Q)), X, S, steps, diff
 
 
 def _kernel_2d(pts_xy: np.ndarray) -> np.ndarray:

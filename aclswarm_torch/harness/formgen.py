@@ -2,13 +2,18 @@
 `aclswarm_tpu/harness/formgen.py`'s generator, same draws from the same
 seed): formation points are rejection-sampled so their pairwise xy
 distance is >= ``min_dist`` in an l x w x h box, and the graph is K_n
-minus m ~ U[1, n-4] random edges (n < 5 is fully connected).
+minus m ~ U[1, n-4] random edges (n < 5 is fully connected). A group is
+emitted in the formation-library dict format (`generate_group`) or as
+loaded `FormationSpec`s (`generate_specs`); `is_rigid_2d` checks the
+2D rigidity behind the n-4 removal rule.
 """
 from __future__ import annotations
 
 import string
 
 import numpy as np
+
+from aclswarm_torch.harness.formations import FormationSpec
 
 
 def sample_cylinder_points(rng: np.random.Generator, n: int, l: float,
@@ -64,3 +69,35 @@ def generate_group(n: int, seed: int | None = None, fc: bool = False,
                                           min_dist).tolist()}
         for i in range(k)]
     return {"agents": n, "adjmat": adjmat.tolist(), "formations": formations}
+
+
+def generate_specs(n: int, seed: int | None = None, **kw
+                   ) -> list[FormationSpec]:
+    """Same, as loaded `FormationSpec`s (gains left to the caller: trials
+    design them on dispatch with `aclswarm_torch.gains.solve_gains`)."""
+    group = generate_group(n, seed, **kw)
+    adjmat = np.asarray(group["adjmat"], dtype=np.float64)
+    return [FormationSpec(name=f["name"],
+                          points=np.asarray(f["points"], dtype=np.float64),
+                          adjmat=adjmat, gains=None)
+            for f in group["formations"]]
+
+
+def rigidity_rank_2d(points: np.ndarray, adjmat: np.ndarray) -> int:
+    """Rank of the 2D rigidity matrix of (xy of points, graph). A
+    generically rigid 2D framework on n >= 2 vertices has rank 2n - 3."""
+    p = np.asarray(points, dtype=np.float64)[:, :2]
+    A = np.asarray(adjmat)
+    n = p.shape[0]
+    edges = [(i, j) for i in range(n) for j in range(i + 1, n) if A[i, j]]
+    R = np.zeros((len(edges), 2 * n))
+    for row, (i, j) in enumerate(edges):
+        d = p[i] - p[j]
+        R[row, 2 * i:2 * i + 2] = d
+        R[row, 2 * j:2 * j + 2] = -d
+    return int(np.linalg.matrix_rank(R))
+
+
+def is_rigid_2d(points: np.ndarray, adjmat: np.ndarray) -> bool:
+    n = np.asarray(points).shape[0]
+    return rigidity_rank_2d(points, adjmat) == 2 * n - 3

@@ -1,0 +1,701 @@
+"""Monte-Carlo trial driver (port of `aclswarm_tpu/harness/trials.py`):
+the reference's `trials.sh`/`trial.sh` stack on the torch engine.
+
+Each seeded trial generates (`simformN`) or loads its formation group,
+samples non-overlapping ground starts, takes off through the flight FSM,
+and cycles through the group's formations under the supervisor FSM
+(`harness.supervisor.TrialFSM`), which observes every control tick. The
+fleet rolls in chunks of `chunk_ticks` (`sim.rollout`); FSM actions
+(CMD_GO, formation dispatch) take effect at the next chunk boundary — the
+analogue of the reference's dispatch latency — and assignment events
+between a dispatch decision and its application are suppressed, since
+they belong to the outgoing formation. A dispatch designs the
+formation's gains on the device (`gains.solve_gains`, the n-4 bucket for
+`simformN`, x `gain_scale`, optionally warm from the previous design),
+resets the assignment to the identity and re-phases the tick so an
+auction runs on the first tick of the formation. Completed trials append
+one CSV row each in the reference schema.
+
+The trial runs on ``TrialConfig.device`` (None = the card, which must be
+present) in ``TrialConfig.dtype``. The host reads the chunk's signals in
+two device-to-host copies per chunk, never per tick. A chunk that fails
+on the device raises: there is no CPU re-run.
+
+Run:
+    python -m aclswarm_torch.harness.trials -f swarm6_3d -m 1 \\
+        --set device=cpu --set dtype=float64
+    python -m aclswarm_torch.harness.trials --analyze trials.csv -n 6 -m 1
+
+Fields of the reference's config that the port does not run yet raise
+`NotImplementedError` naming their queue item in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import dataclasses
+import re
+import sys
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from aclswarm_torch import convert
+from aclswarm_torch import gains as gainslib
+from aclswarm_torch import sim
+from aclswarm_torch.core import config as configlib
+from aclswarm_torch.core import perm as permutil
+from aclswarm_torch.core.types import (ControlGains, SafetyParams,
+                                       make_formation, resolve_device)
+from aclswarm_torch.harness import formations as formlib
+from aclswarm_torch.harness import formgen
+from aclswarm_torch.harness.formations import FormationSpec
+from aclswarm_torch.harness.supervisor import NAMES, TRIAL_TIMEOUT, TrialFSM
+from aclswarm_torch.resilience import checkpoint as ckptlib
+from aclswarm_torch.resilience.crash import maybe_crash
+from aclswarm_torch.sim.vehicle import CMD_GO, ExternalInputs
+
+
+@dataclasses.dataclass
+class TrialConfig:
+    """Trial parameterization: every field and default of the reference's
+    `TrialConfig` (see it for each field's meaning and measured reasons),
+    plus where and in what precision the port runs."""
+
+    formation: str = "swarm6_3d"    # library group name, or simformN
+    library: Optional[str] = None   # formations.yaml path (None = shipped)
+    trials: int = 1                 # Monte-Carlo trial count (trials.sh -m)
+    seed: int = 1                   # trial t runs with seed+t
+    out: str = "trials.csv"         # CSV results path (append)
+    batch: int = 1                  # > 1: the batched driver (not ported)
+    # engine knobs (SimConfig mirror)
+    assignment: str = "auction"     # auction | sinkhorn | cbaa
+    dynamics: str = "doubleint"     # doubleint | tracking | firstorder
+    localization: str = "truth"     # truth | flooded
+    flood_block: Optional[int] = None
+    flood_phases: int = 1
+    cbaa_task_block: Optional[int] = None
+    tau: float = 0.15
+    control_dt: float = 0.01
+    assign_every: int = 120
+    assign_eps: float = 0.0
+    check_mode: str = "off"
+    telemetry: str = "off"
+    telemetry_dump: Optional[str] = None
+    profile_dir: Optional[str] = None
+    profile_chunk: int = 1
+    colavoid_neighbors: Optional[int] = None
+    scenario: Optional[str] = None
+    scenario_seed: Optional[int] = None
+    scenario_horizon: Optional[int] = None
+    chunk_ticks: int = 50           # FSM action latency bound (0.5 s)
+    # initial-condition sampling (trial.sh:7-9: 20 x 20 area, r=0.75)
+    init_area_w: float = 20.0
+    init_area_h: float = 20.0
+    init_radius: float = 0.75
+    # room bounds (trial.sh:96)
+    room_x: float = 100.0
+    room_y: float = 100.0
+    room_z: float = 30.0
+    # simformN generation (trial.sh:60: -l 15 -w 15 -h 2)
+    sim_l: float = 15.0
+    sim_w: float = 15.0
+    sim_h: float = 2.0
+    sim_min_dist: float = 2.0
+    sim_formations: int = 2
+    sim_fc: bool = False
+    # scale knobs (None = the reference SIL defaults)
+    max_vel_xy: Optional[float] = None
+    max_vel_z: Optional[float] = None
+    max_accel_xy: Optional[float] = None
+    max_accel_z: Optional[float] = None
+    keepout_repulse_vel: Optional[float] = None
+    colavoid_dz_ignore: Optional[float] = None
+    trial_timeout: Optional[float] = None
+    e_xy_thr: Optional[float] = None
+    e_z_thr: Optional[float] = None
+    kd: Optional[float] = None
+    K1_xy: Optional[float] = None
+    K2_xy: Optional[float] = None
+    K1_z: Optional[float] = None
+    K2_z: Optional[float] = None
+    gain_scale: Optional[float] = None
+    # warm-start each on-dispatch gain design from the previous one's
+    # fixed point (`gains.AdmmCarry`); off = the reference's cold solve
+    warm_gains: bool = False
+    verbose: bool = True
+    record_dir: Optional[str] = None
+    # chunk-boundary checkpoints every `checkpoint_every` chunks into
+    # `checkpoint_dir` (None = off); with `resume`, a matching checkpoint
+    # continues the run bit for bit, a mismatched one is refused
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 10
+    resume: bool = True
+    # where and in what precision the port runs: None = the card
+    device: Optional[str] = None
+    dtype: str = "float32"          # float32 | float64
+
+
+# config fields that cannot change results: excluded from the checkpoint
+# manifest's config hash
+_CKPT_EXCLUDE = ("out", "verbose", "checkpoint_dir", "checkpoint_every",
+                 "resume", "telemetry_dump", "profile_dir",
+                 "profile_chunk")
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+_SIMFORM = re.compile(r"^simform(\d+)$")
+
+
+def _not_ported(field: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"TrialConfig.{field} is not ported yet: it arrives with ROADMAP.md "
+        f"queue 1 item {item}")
+
+
+def _check_ported(cfg: TrialConfig) -> None:
+    """Raise for the reference's fields that the port does not run."""
+    if cfg.batch > 1:
+        raise _not_ported("batch > 1", "10 (batched trials)")
+    if cfg.scenario is not None:
+        raise _not_ported("scenario", "13 (scenarios)")
+    if cfg.check_mode == "on":
+        raise _not_ported("check_mode='on'", "12 (invariants)")
+    if cfg.telemetry == "on" or cfg.telemetry_dump is not None:
+        raise _not_ported("telemetry", "12 (device telemetry)")
+    if cfg.profile_dir is not None:
+        raise _not_ported("profile_dir", "12 (device telemetry)")
+    if cfg.record_dir is not None:
+        raise _not_ported("record_dir", "12 (recordings, with "
+                          "harness/review.py)")
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {cfg.dtype!r} "
+                         f"(expected one of {sorted(_DTYPES)})")
+
+
+def _ckpt_cfg_hash(cfg: TrialConfig) -> str:
+    d = {k: v for k, v in dataclasses.asdict(cfg).items()
+         if k not in _CKPT_EXCLUDE}
+    return ckptlib.config_hash(d)
+
+
+def _fingerprint(cfg: TrialConfig) -> str:
+    return ckptlib.dtype_fingerprint(_DTYPES[cfg.dtype],
+                                     resolve_device(cfg.device))
+
+
+def _formations_for_trial(cfg: TrialConfig, seed: int
+                          ) -> list[FormationSpec]:
+    m = _SIMFORM.match(cfg.formation)
+    if m:
+        return formgen.generate_specs(
+            int(m.group(1)), seed=seed, l=cfg.sim_l, w=cfg.sim_w,
+            h=cfg.sim_h, min_dist=cfg.sim_min_dist, k=cfg.sim_formations,
+            fc=cfg.sim_fc)
+    return formlib.load_group(cfg.library, cfg.formation)
+
+
+def _gains_for(spec: FormationSpec, max_nonedges: Optional[int] = None,
+               warm: bool = False, carry=None, device=None,
+               dtype=torch.float32):
+    """Library gains if shipped, else the on-dispatch device ADMM solve in
+    ``dtype`` on ``device``. ``max_nonedges`` pins the padded constraint
+    bucket. ``warm=True`` threads an `AdmmCarry` through the solve and
+    returns ``(gains, new_carry)``: ``carry`` seeds it (None or a carry of
+    another shape falls back to the cold `init_carry`, which equals the
+    carry-free solve bit for bit). Library gains run no solve and pass
+    the carry through."""
+    if spec.gains is not None:
+        g = np.asarray(spec.gains)
+        return (g, carry) if warm else g
+    pts = np.asarray(spec.points, dtype=str(dtype).removeprefix("torch."))
+    if not warm:
+        return gainslib.solve_gains(pts, spec.adjmat,
+                                    max_nonedges=max_nonedges, device=device)
+    cold = gainslib.init_carry(pts.shape[0], gainslib.planar_of(pts),
+                               dtype=dtype, device=device)
+    if carry is None or any(
+            tuple(getattr(carry, f).shape) != tuple(getattr(cold, f).shape)
+            for f in ("x2", "s2", "x1", "s1")):
+        carry = cold
+    return gainslib.solve_gains(pts, spec.adjmat, max_nonedges=max_nonedges,
+                                carry=carry, device=device)
+
+
+def _trial_overrides(cfg: TrialConfig, *fields) -> dict:
+    """Optional scale knobs: None = keep the reference default."""
+    return {k: getattr(cfg, k) for k in fields
+            if getattr(cfg, k) is not None}
+
+
+def _trial_sparams(cfg: TrialConfig) -> SafetyParams:
+    """Room bounds + the launch-file-class scale knobs, as host tuples."""
+    return SafetyParams(
+        bounds_min=(-cfg.room_x, -cfg.room_y, 0.0),
+        bounds_max=(cfg.room_x, cfg.room_y, cfg.room_z),
+        **_trial_overrides(cfg, "max_vel_xy", "max_vel_z", "max_accel_xy",
+                           "max_accel_z", "keepout_repulse_vel",
+                           "colavoid_dz_ignore"))
+
+
+def _trial_cgains(cfg: TrialConfig) -> ControlGains:
+    return ControlGains(**_trial_overrides(
+        cfg, "e_xy_thr", "e_z_thr", "kd", "K1_xy", "K2_xy", "K1_z", "K2_z"))
+
+
+def _engine_kw(cfg: TrialConfig) -> dict:
+    """The TrialConfig -> SimConfig mirror (minus `assignment`)."""
+    return dict(control_dt=cfg.control_dt, assign_every=cfg.assign_every,
+                dynamics=cfg.dynamics, tau=cfg.tau,
+                localization=cfg.localization,
+                flood_block=cfg.flood_block,
+                flood_phases=cfg.flood_phases,
+                colavoid_neighbors=cfg.colavoid_neighbors,
+                assign_eps=cfg.assign_eps,
+                cbaa_task_block=cfg.cbaa_task_block,
+                check_mode=cfg.check_mode,
+                telemetry=cfg.telemetry,
+                flight_fsm=True)
+
+
+def _dispatch_gains(cfg: TrialConfig, spec: FormationSpec, n: int,
+                    carry=None, device=None, dtype=torch.float32):
+    """On-dispatch gain design with the padded-constraint bucket rule:
+    complete graphs have no non-edges (a 1-slot bucket), random `simformN`
+    graphs remove at most n-4 edges, a static bound shared by every seed;
+    library groups use their exact count. x ``cfg.gain_scale``. With
+    ``cfg.warm_gains`` the return is ``(gains, new_carry)``."""
+    if not _SIMFORM.match(cfg.formation):
+        bucket = None
+    elif cfg.sim_fc:
+        bucket = 1
+    else:
+        bucket = max(n - 4, 1)
+    out = _gains_for(spec, bucket, warm=cfg.warm_gains, carry=carry,
+                     device=device, dtype=dtype)
+    g, new_carry = out if cfg.warm_gains else (out, None)
+    if cfg.gain_scale is not None:
+        g = g * cfg.gain_scale
+    return (g, new_carry) if cfg.warm_gains else g
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _carry_payload(carry):
+    """`AdmmCarry` -> checkpoint payload (dict of arrays | None), so a
+    resumed trial's next dispatch is as warm as the uninterrupted run's."""
+    if carry is None:
+        return None
+    return {k: _host(v) for k, v in carry._asdict().items()}
+
+
+def _carry_restore(d, device, dtype):
+    """Checkpoint payload -> `AdmmCarry` (None passes through)."""
+    if d is None:
+        return None
+    return convert.admm_carry_from_numpy(d, device=device, dtype=dtype)
+
+
+def _chunk_inputs(chunk: int, n: int, device, dtype, go: bool
+                  ) -> ExternalInputs:
+    """A chunk's operator inputs: no joystick, CMD_GO on its first tick
+    when ``go``."""
+    cmd = torch.zeros((chunk,), dtype=torch.int32, device=device)
+    if go:
+        cmd[0] = CMD_GO
+    return ExternalInputs(
+        cmd=cmd,
+        joy_vel=torch.zeros((chunk, n, 3), dtype=dtype, device=device),
+        joy_yawrate=torch.zeros((chunk, n), dtype=dtype, device=device),
+        joy_active=torch.zeros((chunk, n), dtype=torch.bool, device=device))
+
+
+def _host_signals(metrics):
+    """What the FSM reads of a chunk's stacked `StepMetrics`, in two
+    device-to-host copies: positions and |distcmd| (floats), and the
+    collision-avoidance flags, `reassigned` and the valid-auction flag
+    (booleans). Returns q (T, n, 3), distcmd (T, n), ca (T, n), reassigned
+    (T,), auction_ok (T,)."""
+    T, n = metrics.distcmd_norm.shape
+    floats = torch.cat([metrics.q.reshape(T, 3 * n), metrics.distcmd_norm],
+                       dim=1).cpu().numpy()
+    flags = torch.cat([metrics.ca_active, metrics.reassigned[:, None],
+                       (metrics.auctioned & metrics.assign_valid)[:, None]],
+                      dim=1).cpu().numpy()
+    return (floats[:, :3 * n].reshape(T, n, 3), floats[:, 3 * n:],
+            flags[:, :n], flags[:, n], flags[:, n + 1])
+
+
+def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
+    """One seeded trial: ground start -> takeoff -> cycle through the
+    group's formations -> COMPLETE/TERMINATE. Returns the finished FSM."""
+    _check_ported(cfg)
+    dev = resolve_device(cfg.device)
+    dtype = _DTYPES[cfg.dtype]
+    seed = cfg.seed + trial_idx
+    rng = np.random.default_rng(seed)
+    specs = _formations_for_trial(cfg, seed)
+    n = specs[0].n
+
+    # non-overlapping ground starts (z = 0)
+    q0 = formgen.sample_cylinder_points(
+        rng, n, cfg.init_area_w, cfg.init_area_h, 0.0,
+        min_dist=2 * cfg.init_radius)
+
+    sparams = _trial_sparams(cfg)
+    trial_timeout = (TRIAL_TIMEOUT if cfg.trial_timeout is None
+                     else cfg.trial_timeout)
+
+    # fail fast on formations that planar avoidance can never reach
+    for spec in specs:
+        formlib.check_feasible(spec, float(sparams.r_keep_out))
+
+    engine_kw = _engine_kw(cfg)
+    hover_cfg = sim.SimConfig(assignment="none", **engine_kw)
+    fly_cfg = sim.SimConfig(assignment=cfg.assignment, **engine_kw)
+
+    # pre-dispatch: no formation committed -> no graph, no gains, no control
+    hover_formation = make_formation(specs[0].points, np.zeros((n, n)), None,
+                                     device=dev, dtype=dtype)
+    gains_cache: dict = {}
+    # warm-start seed for the next dispatch solve (None until the first
+    # solve, and always None with warm_gains off)
+    admm_carry = None
+
+    state = sim.init_state(q0, flying=False,
+                           localization=cfg.localization == "flooded",
+                           device=dev, dtype=dtype)
+    fsm = TrialFSM(n, len(specs), takeoff_alt=sparams.takeoff_alt,
+                   dt=cfg.control_dt, trial_timeout=trial_timeout)
+    cgains = _trial_cgains(cfg)
+
+    cur_formation, cur_cfg = hover_formation, hover_cfg
+    pending_go = False
+    pending_dispatch: Optional[int] = None
+    # the last committed formation index (None = pre-dispatch hover):
+    # enough, with `gains_cache`, to rebuild `cur_formation` on resume
+    committed_idx: Optional[int] = None
+    # the first valid auction after a formation commit always counts as
+    # an accepted assignment, even if unchanged (the reference's
+    # `formation_just_received_`)
+    formation_just_received = False
+    chunk = cfg.chunk_ticks
+    max_ticks = int(trial_timeout / cfg.control_dt) + 10 * chunk
+    ticks_done = 0
+    chunk_idx = 0
+    inputs = {go: _chunk_inputs(chunk, n, dev, dtype, go)
+              for go in (False, True)}
+
+    ckpt_dir = cfg.checkpoint_dir
+    stem = f"trial{trial_idx:05d}"
+    if ckpt_dir is not None:
+        cfg_hash, fingerprint = _ckpt_cfg_hash(cfg), _fingerprint(cfg)
+    if ckpt_dir is not None and cfg.resume:
+        path = ckptlib.latest_checkpoint(ckpt_dir, stem)
+        if path is not None:
+            payload, man = ckptlib.load_checkpoint(
+                path, expected=ckptlib.expected_manifest(
+                    "trial", cfg_hash, fingerprint, trial=trial_idx))
+            state = ckptlib.restore_state(state, payload["state"], path=path)
+            fsm.restore(payload["fsm"])
+            # copies: the codec's arrays are read-only views of the file
+            gains_cache = {int(k): np.array(v)
+                           for k, v in payload["gains_cache"].items()}
+            admm_carry = _carry_restore(payload.get("admm_carry"), dev,
+                                        dtype)
+            pending_go = payload["pending_go"]
+            pending_dispatch = payload["pending_dispatch"]
+            formation_just_received = payload["formation_just_received"]
+            committed_idx = payload["committed_idx"]
+            ticks_done = payload["ticks_done"]
+            chunk_idx = int(man["chunk"])
+            if committed_idx is not None:
+                spec = specs[committed_idx]
+                cur_formation = make_formation(
+                    spec.points, spec.adjmat, gains_cache[committed_idx],
+                    device=dev, dtype=dtype)
+                cur_cfg = fly_cfg
+
+    while chunk_idx < max_ticks // chunk + 1:
+        if fsm.done:
+            break
+        state, metrics = sim.rollout(state, cur_formation, cgains, sparams,
+                                     cur_cfg, chunk, inputs[pending_go])
+        pending_go = False
+        ticks_done += chunk
+        q, dn, ca, reassigned, auction_ok = _host_signals(metrics)
+
+        suppress_events = False
+        for t in range(chunk):
+            event = bool(reassigned[t])
+            if formation_just_received and bool(auction_ok[t]):
+                event = True
+                formation_just_received = False
+            event = event and not suppress_events
+            action = fsm.step(q[t], dn[t], ca[t], event)
+            if action == "takeoff":
+                pending_go = True
+            elif action == "dispatch":
+                pending_dispatch = fsm.curr_formation_idx
+                suppress_events = True   # stale events belong to the old form
+            if fsm.done:
+                break
+
+        if pending_dispatch is not None and not fsm.done:
+            spec = specs[pending_dispatch]
+            if pending_dispatch not in gains_cache:
+                if cfg.warm_gains:
+                    g, admm_carry = _dispatch_gains(
+                        cfg, spec, n, carry=admm_carry, device=dev,
+                        dtype=dtype)
+                else:
+                    g = _dispatch_gains(cfg, spec, n, device=dev,
+                                        dtype=dtype)
+                gains_cache[pending_dispatch] = g
+            cur_formation = make_formation(spec.points, spec.adjmat,
+                                           gains_cache[pending_dispatch],
+                                           device=dev, dtype=dtype)
+            cur_cfg = fly_cfg
+            # the auctioneer resets to the identity assignment on a new
+            # formation, and control starts only after the formation's
+            # first assignment: re-phasing the tick puts an auction on the
+            # first post-dispatch tick (assignment runs before the control
+            # law inside `step`)
+            state = dataclasses.replace(
+                state, v2f=permutil.identity(n, dev), tick=0,
+                first_auction=torch.ones((), dtype=torch.bool, device=dev))
+            formation_just_received = True
+            committed_idx = pending_dispatch
+            pending_dispatch = None
+
+        # chunk boundary: checkpoint first, then the scripted-preemption
+        # hook, so a crash at boundary k resumes from k
+        chunk_idx += 1
+        if ckpt_dir is not None and not fsm.done \
+                and chunk_idx % max(1, cfg.checkpoint_every) == 0:
+            payload = {
+                "state": convert.sim_state_to_numpy(state),
+                "fsm": fsm.snapshot(),
+                "gains_cache": {str(k): _host(v)
+                                for k, v in gains_cache.items()},
+                "admm_carry": _carry_payload(admm_carry),
+                "pending_go": pending_go,
+                "pending_dispatch": pending_dispatch,
+                "formation_just_received": formation_just_received,
+                "committed_idx": committed_idx,
+                "ticks_done": ticks_done,
+            }
+            ckptlib.write_checkpoint(
+                ckpt_dir, stem, payload,
+                ckptlib.make_manifest("trial", cfg_hash, chunk_idx,
+                                      fingerprint, trial=trial_idx,
+                                      ticks_done=ticks_done))
+        maybe_crash("trial", chunk_idx)
+
+    if ckpt_dir is not None and fsm.done:
+        # finished: interim checkpoints are dead weight; the done-marker
+        # (`run_trials`) carries the result
+        ckptlib.clear_checkpoints(ckpt_dir, stem)
+    # the reference's executor records CPU re-runs here; the port has none
+    fsm.execution = {}
+    return fsm
+
+
+def analyze(data: np.ndarray, n: int, m: int) -> dict:
+    """CSV reduction (`analyze_simtrials.m`): completion %, totals across
+    the formation cycle, mean/std statistics."""
+    data = np.atleast_2d(np.asarray(data, dtype=np.float64))
+    if data.size == 0:
+        return {"completion_pct": 0.0, "trials_completed": 0, "trials": m}
+    f = (data.shape[1] - 1 - n) // 3
+    r = 1
+    dist = data[:, r:r + n]; r += n
+    time = data[:, r:r + f]; r += f
+    coltime = data[:, r:r + f]; r += f
+    nassign = data[:, r:r + f]
+    total_time = time.sum(axis=1)
+    total_col = coltime.sum(axis=1)
+    total_assign = nassign.sum(axis=1)
+    avgdist = dist.mean(axis=1)
+    return {
+        "trials": m,
+        "trials_completed": int(data.shape[0]),
+        "completion_pct": 100.0 * data.shape[0] / m,
+        "formations_per_trial": int(f),
+        "time_mean_s": float(total_time.mean()),
+        "time_std_s": float(total_time.std()),
+        "colavoid_time_mean_s": float(total_col.mean()),
+        "colavoid_time_std_s": float(total_col.std()),
+        "assignments_mean": float(total_assign.mean()),
+        "assignments_std": float(total_assign.std()),
+        "dist_min_m": float(avgdist.min()),
+        "dist_mean_m": float(avgdist.mean()),
+        "dist_std_m": float(avgdist.std()),
+    }
+
+
+def print_analysis(stats: dict) -> None:
+    print(f"Completion: {stats['completion_pct']:.2f} % "
+          f"({stats['trials_completed']}/{stats['trials']})")
+    if stats["trials_completed"] == 0:
+        return
+    print(f"Average Time: {stats['time_mean_s']:.2f} s "
+          f"(std {stats['time_std_s']:.2f})")
+    print(f"Average Time in ColAvoid: {stats['colavoid_time_mean_s']:.2f} s "
+          f"(std {stats['colavoid_time_std_s']:.2f})")
+    print(f"Average Num Assignments: {stats['assignments_mean']:.2f} "
+          f"(std {stats['assignments_std']:.2f})")
+    print(f"Average Distance: min {stats['dist_min_m']:.2f} / "
+          f"mean {stats['dist_mean_m']:.2f} / std {stats['dist_std_m']:.2f} m")
+
+
+def _csv_trial_ids(path: str) -> set[int]:
+    """Trial ids (column 0) already appended to the CSV, read once at
+    `run_trials` start: resumed runs use them to make appends
+    idempotent."""
+    p = Path(path)
+    ids: set[int] = set()
+    if not p.exists():
+        return ids
+    with open(p) as f:
+        for line in f:
+            first = line.split(",", 1)[0].strip()
+            try:
+                ids.add(int(float(first)))
+            except ValueError:
+                continue
+    return ids
+
+
+def _write_done_marker(cfg: TrialConfig, key: str, pairs: list) -> None:
+    """Persist finished trials (``pairs`` = [(trial_idx, fsm), ...]) so a
+    resumed `run_trials` replays their results instead of recomputing
+    them."""
+    payload = {"trials": [
+        {"trial": int(t), "snap": f.snapshot(),
+         "ctor": {"n_vehicles": f.n, "n_formations": f.n_formations,
+                  "takeoff_alt": float(f.takeoff_alt), "dt": f.dt,
+                  "trial_timeout": f.trial_timeout}}
+        for t, f in pairs]}
+    ckptlib.write_checkpoint(
+        cfg.checkpoint_dir, f"{key}.done", payload,
+        ckptlib.make_manifest("trials_done", _ckpt_cfg_hash(cfg), 0,
+                              _fingerprint(cfg), key=key),
+        keep=1)
+
+
+def _load_done_marker(cfg: TrialConfig, key: str):
+    """[(trial_idx, restored fsm), ...] from a done-marker, or None when
+    there is none. A mismatched marker raises `CheckpointMismatch`."""
+    path = ckptlib.latest_checkpoint(cfg.checkpoint_dir, f"{key}.done")
+    if path is None:
+        return None
+    payload, _ = ckptlib.load_checkpoint(
+        path, expected=ckptlib.expected_manifest(
+            "trials_done", _ckpt_cfg_hash(cfg), _fingerprint(cfg), key=key))
+    out = []
+    for rec in payload["trials"]:
+        fsm = TrialFSM(**rec["ctor"])
+        fsm.restore(rec["snap"])
+        out.append((int(rec["trial"]), fsm))
+    return out
+
+
+def run_trials(cfg: TrialConfig) -> dict:
+    """The `trials.sh` loop: K seeded trials, completed rows appended to
+    the CSV as each trial finishes, the `analyze_simtrials` summary
+    returned (and printed when verbose).
+
+    With ``cfg.checkpoint_dir`` every finished trial leaves a done-marker
+    and the trial in flight checkpoints at chunk boundaries: a killed run
+    resumed with the same config replays finished results and continues
+    the interrupted trial bit for bit; CSV appends are idempotent by trial
+    id."""
+    _check_ported(cfg)
+    rows = []
+    n = None
+    ckpt = cfg.checkpoint_dir is not None
+    appended_ids = _csv_trial_ids(cfg.out) if ckpt else set()
+
+    def _log_and_append(t, fsm, replayed=False):
+        nonlocal n
+        n = fsm.n
+        if cfg.verbose:
+            times = ", ".join(f"{x:.2f}" for x in fsm.times)
+            replay = " [resumed]" if replayed else ""
+            print(f"trial {t} (seed {cfg.seed + t}): {NAMES[fsm.state]}"
+                  f" [conv times: {times}]{replay}", flush=True)
+        if fsm.completed:
+            row = fsm.csv_row(t)
+            rows.append(row)
+            if not (ckpt and t in appended_ids):
+                with open(cfg.out, "a", newline="") as f:
+                    csv.writer(f).writerow(row)
+                appended_ids.add(t)
+
+    for t in range(cfg.trials):
+        key = f"trial{t:05d}"
+        done = _load_done_marker(cfg, key) if ckpt and cfg.resume else None
+        if done is not None:
+            _log_and_append(*done[0], replayed=True)
+            continue
+        fsm = run_trial(cfg, t)
+        _log_and_append(t, fsm)
+        if ckpt:
+            _write_done_marker(cfg, key, [(t, fsm)])
+    if rows:
+        stats = analyze(np.asarray(rows, dtype=np.float64), n, cfg.trials)
+    else:
+        stats = analyze(np.empty((0, 0)), n or 0, cfg.trials)
+    if cfg.verbose:
+        print_analysis(stats)
+    return stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Monte-Carlo formation trials (trials.sh equivalent)")
+    ap.add_argument("-f", "--formation", default=None,
+                    help="formation group or simformN")
+    ap.add_argument("-m", "--trials", type=int, default=None)
+    ap.add_argument("-s", "--seed", type=int, default=None)
+    ap.add_argument("-o", "--out", default=None, help="CSV output path")
+    ap.add_argument("--config", default=None, help="yaml config file")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE", help="config override")
+    ap.add_argument("--save-config", default=None,
+                    help="write the resolved config to this yaml and exit")
+    ap.add_argument("--analyze", default=None, metavar="CSV",
+                    help="only analyze an existing results file")
+    ap.add_argument("-n", "--agents", type=int, default=None,
+                    help="(with --analyze) vehicle count of the CSV")
+    args = ap.parse_args(argv)
+
+    if args.analyze:
+        if args.agents is None or args.trials is None:
+            ap.error("--analyze requires -n (agents) and -m (total trials)")
+        data = np.loadtxt(args.analyze, delimiter=",", ndmin=2)
+        print_analysis(analyze(data, args.agents, args.trials))
+        return 0
+
+    overrides = dict(configlib.parse_overrides(args.set))
+    for key in ("formation", "trials", "seed", "out"):
+        val = getattr(args, key)
+        if val is not None:
+            overrides[key] = str(val)
+    cfg = configlib.load_layers(TrialConfig, file=args.config,
+                                overrides=overrides)
+    if args.save_config:
+        configlib.to_yaml(cfg, args.save_config)
+        print(f"wrote {args.save_config}")
+        return 0
+    stats = run_trials(cfg)
+    return 0 if stats["trials_completed"] == stats["trials"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

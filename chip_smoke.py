@@ -63,17 +63,32 @@ and prints no result line:
              ('auction', ground truth), 121 ticks, no kernel of the port on
              its path; and the default `SimConfig()` at n=6 (random gains)
              for 240 ticks on the card against the CPU;
-12. the `kernels` line, then the result line. Each kernel row carries the
+12. trial   — the `simform1000_flooded` row flown as a trial through
+             `harness.trials.run_trial` (float32, `trial_timeout` cut to
+             14 s): takeoff, hover, one dispatch whose ADMM design is
+             validated, Sinkhorn auctions after it; the FSM's path, the
+             launch counts (K3 every tick, K1 = K2 = the auctions after
+             the dispatch), the device-to-host copies of whole chunks, ms
+             per tick of hover and flying chunks, the FSM's host ms per
+             chunk, wall against simulated seconds; then `swarm6_3d` (seed
+             1, library gains) on the card against the CPU;
+13. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run) and `launches_by_path`; K2's row also its
    rounds and the dense bound that earlier runs reported.
+
+Each phase is followed by a line with its seconds. The `gains` phase's
+cuSOLVER-basis finding and the `cbaa` phase's cold card-against-CPU
+auction run at seeds S, S+1 and S+2.
 
 Needs a CUDA card and the repository (it imports `aclswarm_torch`).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -123,6 +138,24 @@ ENGINE_AUCTION = dict(assignment="auction", localization="truth",
                       colavoid_neighbors=16, dynamics="doubleint")
 TICKS_AUCTIONS = 121    # two auctions: ticks 0 and 120
 GAIN_SCALE = 0.15       # the simform1000 rows' gain_scale
+# the simform1000_flooded row of benchmarks/trials_suite.py, as a trial
+TRIAL_ROW = dict(
+    formation="simform1000", assignment="sinkhorn", localization="flooded",
+    flood_block=64, flood_phases=2, colavoid_neighbors=16, chunk_ticks=100,
+    sim_l=130.0, sim_w=130.0, sim_h=3.0, sim_min_dist=3.0,
+    init_area_w=120.0, init_area_h=120.0, init_radius=1.0,
+    room_x=200.0, room_y=200.0, room_z=30.0, max_vel_xy=1.0, max_vel_z=0.5,
+    max_accel_xy=1.0, max_accel_z=1.0, trial_timeout=1200.0,
+    e_xy_thr=1.0, e_z_thr=0.3, kd=0.0005, K1_xy=0.005, gain_scale=0.15,
+    assign_eps=0.01)
+# the one cut: takeoff (~6 s with the 1 s CMD_GO latency), the full 5 s
+# hover, a dispatch at a chunk boundary near tick 1100 and at least two
+# auctions after it
+TRIAL_TIMEOUT_CUT = 14.0
+# device-to-host copies a trial chunk may make: the FSM's signals
+# (`trials._host_signals`), and per auction tick the global alignment's
+# (`geometry.align` makes two on the card: a (2, 2) SVD, two determinants)
+CHUNK_READS, AUCTION_READS = 2, 2
 
 
 def emit(obj) -> None:
@@ -143,15 +176,15 @@ def _group(n: int, seed: int, k: int = 1) -> tuple[list, np.ndarray]:
 @functools.lru_cache(maxsize=None)
 def design(n: int, seed: int) -> torch.Tensor:
     """The seeded formation's (3n, 3n) gains as the trial harness designs
-    them on dispatch (`aclswarm_tpu/harness/trials.py:274-319,408-415`):
-    ADMM on the card in float32, non-edges in the n-4 bucket. Designed
-    once per (n, seed)."""
-    from aclswarm_torch import gains
+    them on dispatch (`harness.trials._dispatch_gains`): ADMM on the card
+    in float32, non-edges in the n-4 bucket, before the suite's
+    gain_scale. Designed once per (n, seed)."""
+    from aclswarm_torch.harness import formations, trials
 
     (points,), adj = _group(n, seed)
-    return gains.solve_gains(points.astype(np.float32), adj,
-                             max_nonedges=max(n - 4, 1),
-                             device=torch.device("cuda"))
+    cfg = trials.TrialConfig(formation=f"simform{n}", device="cuda")
+    spec = formations.FormationSpec("A", points, adj, None)
+    return trials._dispatch_gains(cfg, spec, n, device=torch.device("cuda"))
 
 
 def problem(n: int, seed: int, device, dtype, start_min_dist: float,
@@ -646,6 +679,20 @@ def _cusolver_problem(prob, points: np.ndarray):
     return prob._replace(q2=q2[None], q1=q1[None])
 
 
+def _cusolver_distance(prob, A, points, params, seed: int) -> dict:
+    """How far gains designed on cuSOLVER's kernel basis land from ``A``,
+    the port's (gesdd's basis) for the same problem."""
+    from aclswarm_torch.gains import admm
+
+    cu = _cusolver_problem(prob, points)
+    g_cu, _, it_cu, _ = admm.solve(cu, params)
+    return {"seed": seed,
+            "max_abs_q2_diff": (cu.q2 - prob.q2).abs().max().item(),
+            "max_abs_q1_diff": (cu.q1 - prob.q1).abs().max().item(),
+            "max_abs_gains_diff": (g_cu[0] - A).abs().max().item(),
+            "iters": int(it_cu[0])}
+
+
 def phase_gains(seed: int) -> dict:
     """The ADMM gain design (`aclswarm_torch.gains`), before the slices
     that fly its gains:
@@ -738,8 +785,19 @@ def phase_gains(seed: int) -> dict:
         pa, adj, carry=carry_a, telemetry=True, **kw))
     gb_cold = gains.solve_gains(pb, adj, **kw)
 
-    cu = _cusolver_problem(prob, pa)
-    g_cu, _, it_cu, _ = admm.solve(cu, params)
+    # the cuSOLVER basis, a finding at three seeds: this formation's
+    # design, then the seeds after it
+    basis = [_cusolver_distance(prob, A, pa, params, seed)]
+    for s in (seed + 1, seed + 2):
+        (ps,), adj_s = _group(N, s)
+        ps = ps.astype(np.float32)
+        prob_s = admm.problem(ps[None], adj_s[None], gains.planar_of(ps),
+                              N - 4, dev)
+        basis.append(_cusolver_distance(
+            prob_s, admm.solve(prob_s, params)[0][0], ps, params, s))
+    for line in basis:
+        emit({"phase": "gains", "check": "cuSOLVER kernel basis (finding, "
+              "not checked)", **line})
     info = {"phase": "gains", "n": N, "dtype": "float32",
             "nonedges": int(prob.valid.sum()), "bucket": N - 4,
             "launches": launches, "first_ms": first_ms, "cold_ms": cold_ms,
@@ -769,10 +827,7 @@ def phase_gains(seed: int) -> dict:
                 .item()},
             "warm_same_formation": {"iters": st_aw.iters,
                                     "ms": a_again_ms},
-            "cusolver_basis": {
-                "max_abs_q2_diff": (cu.q2 - prob.q2).abs().max().item(),
-                "max_abs_gains_diff": (g_cu[0] - A).abs().max().item(),
-                "iters": int(it_cu[0])}}
+            "cusolver_basis": basis[0]}
     emit(info)
     if not (zero_exact and not any(launches.values())
             and abs(trace - info["trace_expected"]) <= 1e-4 * 3 * (N - 2)
@@ -1156,7 +1211,10 @@ def _cbaa_agrees(info: dict) -> bool:
 def phase_cbaa(seed: int) -> None:
     """CBAA at n=1000, float32, `task_block=64`, estimates from a flooded
     table: a cold auction and one seeded with its tables, each on the card
-    against the CPU from the same q, est and v2f."""
+    against the CPU from the same q, est and v2f; then the cold auction
+    card against CPU at seeds ``seed`` + 1 and + 2, one line each (a
+    near-tie within the alignments' ~1e-6 would flip a winner at one seed
+    and not another)."""
     from aclswarm_torch.assignment import cbaa
     from aclswarm_torch.core import geometry
 
@@ -1191,7 +1249,7 @@ def phase_cbaa(seed: int) -> None:
                                             v2f.cpu(), est=est.cpu())
     for label, card, cpu, ms in (("cold", cold, cold_cpu, cold_ms),
                                  ("warm", warm, warm_cpu, warm_ms)):
-        info = {"phase": "cbaa", "auction": label, "n": N,
+        info = {"phase": "cbaa", "auction": label, "seed": seed, "n": N,
                 "dtype": "float32", "task_block": block,
                 **_same_cbaa(card, cpu), "poll_every": cbaa.POLL_EVERY,
                 "ms": ms, "ms_per_round": (ms - align_ms)
@@ -1209,6 +1267,19 @@ def phase_cbaa(seed: int) -> None:
             and (al.cpu() - al_cpu).abs().max().item() <= 1e-2):
         raise AssertionError("cbaa: an auction at n=1000 was invalid, or "
                              "the card's alignment is off the CPU's")
+
+    for s in (seed + 1, seed + 2):
+        formation, q, est, v2f = _flooded_inputs(s, dev)
+        args = (formation.points, formation.adjmat, v2f)
+        card, ms = _sync_ms(lambda: cbaa.cbaa_from_state(
+            q, *args, est=est, task_block=block))
+        cpu = cbaa.cbaa_from_state(q.cpu(), *(a.cpu() for a in args),
+                                   est=est.cpu(), task_block=block)
+        info = {"phase": "cbaa", "auction": "cold", "seed": s, "n": N,
+                **_same_cbaa(card, cpu), "ms": ms}
+        emit(info)
+        if not _cbaa_agrees(info):
+            raise AssertionError(f"cbaa check failed at seed {s}: {info}")
 
     # dense against blocked on the card, bit for bit
     n = 64
@@ -1415,6 +1486,301 @@ def phase_slice_auction(seed: int) -> dict:
     return info
 
 
+class _TrialProbe:
+    """Wraps the harness's `sim.rollout`, `gains.solve_gains` and
+    `TrialFSM._next_state` for one trial (the harness itself is not
+    touched): per chunk the synchronized rollout ms, the host ms until the
+    next chunk starts, its configuration and its launch counts; the
+    transitions; each dispatch's design (gains, ms, ADMM iterations); and,
+    on the card, the profiler's device-to-host copies, kernel launches and
+    device busy time over whole chosen chunks and over the dispatch (from
+    the decision to the next chunk)."""
+
+    def __init__(self, profile_chunks=(), cuda: bool = True):
+        self.chunks, self.transitions, self.designs = [], [], []
+        self.profile_chunks, self.cuda = set(profile_chunks), cuda
+        self.final_state = self._last_end = self._prof = None
+        self._prof_label = None
+        self.windows: dict = {}       # profiled window -> device counts
+        self.auctioned = 0
+        self.profiler_seconds = 0.0   # opening and reading the profiler
+
+    def _sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def _start_profile(self, label):
+        from torch.profiler import ProfilerActivity, profile
+
+        self._stop_profile()
+        t0 = time.perf_counter()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+        self._prof_label = label
+        self.profiler_seconds += time.perf_counter() - t0
+
+    def _stop_profile(self):
+        if self._prof is None:
+            return
+        self._sync()
+        t0 = time.perf_counter()
+        self._prof.stop()
+        from torch.autograd import DeviceType
+
+        events = [e for e in self._prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        kernels = [e for e in events
+                   if "Memcpy" not in e.name and "Memset" not in e.name]
+        self.windows[self._prof_label] = {
+            "host_reads": sum("Memcpy DtoH" in e.name for e in events),
+            "kernel_launches": len(kernels),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in kernels) / 1e3}
+        self._prof = self._prof_label = None
+        self.profiler_seconds += time.perf_counter() - t0
+
+    def install(self, stack):
+        """Patch the three hooks for the life of ``stack`` (an ExitStack)."""
+        from aclswarm_torch import gains, ops, sim
+        from aclswarm_torch.harness import supervisor
+
+        rollout, solve = sim.rollout, gains.solve_gains
+        next_state = supervisor.TrialFSM._next_state
+        probe = self
+
+        def _rollout(state, formation, cgains, sparams, cfg, n_ticks,
+                     inputs=None):
+            probe._sync()
+            start = time.perf_counter()
+            if probe._last_end is not None:
+                probe.chunks[-1]["host_ms"] = (start - probe._last_end) * 1e3
+            probe._stop_profile()
+            i = len(probe.chunks)
+            if probe.cuda and i in probe.profile_chunks:
+                probe._start_profile(i)
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            final, metrics = rollout(state, formation, cgains, sparams, cfg,
+                                     n_ticks, inputs)
+            probe._sync()
+            t1 = time.perf_counter()
+            auctions = 0 if cfg.assignment == "none" else sum(
+                (state.tick + t) % cfg.assign_every == 0
+                for t in range(n_ticks))
+            probe.chunks.append({
+                "chunk": i, "assignment": cfg.assignment,
+                "tick0": state.tick, "ticks": n_ticks, "auctions": auctions,
+                "ms": (t1 - t0) * 1e3, "profiled": probe._prof is not None,
+                "launches": {k: ops.LAUNCHES[k] - before[k]
+                             for k in before}})
+            probe.auctioned = probe.auctioned + metrics.auctioned.sum()
+            probe.final_state, probe._last_end = final, t1
+            return final, metrics
+
+        def _solve(points, adj, *args, **kw):
+            probe._sync()
+            t0 = time.perf_counter()
+            out = solve(points, adj, *args, **dict(kw, telemetry=True))
+            probe._sync()
+            probe.designs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                  "iters": out[-1].iters,
+                                  "residual": out[-1].residual,
+                                  "gains": out[0], "points": points,
+                                  "adj": np.asarray(adj)})
+            return out[:-1] if len(out) > 2 else out[0]
+
+        def _next_state(fsm, state, reset=True):
+            probe.transitions.append((supervisor.NAMES[state],
+                                      fsm.tick_count))
+            if probe.cuda and state == \
+                    supervisor.TrialState.WAITING_ON_ASSIGNMENT:
+                probe._start_profile("dispatch")
+            return next_state(fsm, state, reset)
+
+        for mod, name, fn in ((sim, "rollout", _rollout),
+                              (gains, "solve_gains", _solve),
+                              (supervisor.TrialFSM, "_next_state",
+                               _next_state)):
+            original = getattr(mod, name)
+            setattr(mod, name, fn)
+            stack.callback(setattr, mod, name, original)
+        stack.callback(self._stop_profile)
+
+
+def _fly_trial(cfg, profile_chunks=()):
+    """``run_trial(cfg, 0)`` under a `_TrialProbe`: (fsm, probe, wall s)."""
+    from aclswarm_torch.harness import trials
+
+    probe = _TrialProbe(profile_chunks, cuda=cfg.device == "cuda")
+    with contextlib.ExitStack() as stack:
+        probe.install(stack)
+        t0 = time.perf_counter()
+        fsm = trials.run_trial(cfg, 0)
+        probe._sync()
+        wall = time.perf_counter() - t0
+    return fsm, probe, wall
+
+
+def _mean(xs):
+    return float(np.mean(xs)) if xs else None
+
+
+def phase_trial(seed: int) -> dict:
+    """The `simform1000_flooded` row flown as a trial through the port's
+    `run_trial` on the card in float32, `trial_timeout` cut to
+    `TRIAL_TIMEOUT_CUT`: takeoff, hover, one dispatch (ADMM on the card in
+    the n-4 bucket, x 0.15) and the Sinkhorn auctions after it
+    (`_check_trial`). Then `swarm6_3d` (seed 1, library gains, float32) on
+    the card against the CPU: the same verdict and states, the transition
+    ticks side by side."""
+    from aclswarm_torch.harness import trials
+
+    cfg = trials.TrialConfig(**TRIAL_ROW, seed=seed, trials=1,
+                             verbose=False, device="cuda", dtype="float32")
+    info = _check_trial(dataclasses.replace(
+        cfg, trial_timeout=TRIAL_TIMEOUT_CUT))
+
+    # a small trial, card against CPU: the same verdict and FSM states
+    small = trials.TrialConfig(formation="swarm6_3d", seed=1, trials=1,
+                               verbose=False, dtype="float32")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        s_fsm, s_probe, s_wall = _fly_trial(
+            dataclasses.replace(small, device=dev))
+        runs[dev] = (s_fsm, s_probe.transitions, s_wall)
+    (c_fsm, c_tr, c_wall), (h_fsm, h_tr, h_wall) = runs["cuda"], runs["cpu"]
+    same_ticks = c_tr == h_tr
+    emit({"phase": "trial", "check": "swarm6_3d seed 1 float32, card vs CPU",
+          "verdict": trials.NAMES[c_fsm.state],
+          "verdict_cpu": trials.NAMES[h_fsm.state],
+          "transitions": [[s, t, th] for (s, t), (_, th) in zip(c_tr, h_tr)]
+          if [s for s, _ in c_tr] == [s for s, _ in h_tr]
+          else {"card": c_tr, "cpu": h_tr},
+          "transition_ticks_equal": same_ticks,
+          "times": c_fsm.times, "times_cpu": h_fsm.times,
+          "wall_seconds": c_wall, "wall_seconds_cpu": h_wall})
+    if not (c_fsm.state == h_fsm.state
+            and [s for s, _ in c_tr] == [s for s, _ in h_tr]):
+        raise AssertionError("trial: swarm6_3d on the card disagrees with "
+                             f"the CPU: {c_tr} vs {h_tr}")
+    return info
+
+
+def _check_trial(cfg, profile_chunks=(6, 12)) -> dict:
+    """Fly ``cfg`` (trial 0) and check it: the FSM's path through FLYING,
+    the one dispatch's design (`validate_gains(tol=2e-4)`, zero blocks
+    exact), K3 once per tick and K1 = K2 = the auctions after the
+    dispatch (none before), a finite final state with `v2f` a permutation,
+    and the device-to-host copies of the chunks in ``profile_chunks`` (a
+    hover chunk and the second after the dispatch); prints ms per tick of
+    the hover and the flying chunks, the FSM's host ms per chunk, the
+    design's ms and iterations, wall against simulated seconds, peak
+    memory and the transition ticks."""
+    from aclswarm_torch import gains, ops
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.harness import trials
+
+    cuda = cfg.device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    fsm, probe, wall = _fly_trial(cfg, profile_chunks)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    chunks = probe.chunks
+    hover = [c for c in chunks if c["assignment"] == "none"]
+    fly = [c for c in chunks if c["assignment"] != "none"]
+    ticks = sum(c["ticks"] for c in chunks)
+    fly_ticks = sum(c["ticks"] for c in fly)
+    auctions_expected = -(-fly_ticks // cfg.assign_every)
+    auctioned = int(probe.auctioned)
+    dispatched = [c["chunk"] for c in chunks if c["chunk"] and
+                  c["tick0"] == 0]
+    # timed chunks: not the first, none under the profiler; the host
+    # gap of the chunk whose FSM decided the dispatch holds the design
+    timed = [c for c in chunks[1:] if not c["profiled"]]
+    host = [c["host_ms"] for c in timed
+            if "host_ms" in c and c["chunk"] + 1 not in dispatched]
+
+    (design,) = probe.designs if len(probe.designs) == 1 else (None,)
+    if design is None:
+        raise AssertionError(f"trial: {len(probe.designs)} gain designs, "
+                             "expected exactly one dispatch")
+    A, pts, adj = design["gains"], design["points"], design["adj"]
+    t0 = time.perf_counter()
+    v = gains.validate_gains(A.double(), np.asarray(pts, np.float64),
+                             tol=2e-4)
+    validate_s = time.perf_counter() - t0
+    zero_exact = bool((_nonedge_blocks(A, adj) == 0).all())
+    final = probe.final_state
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        final.swarm.q, final.swarm.vel, final.goal.pos, final.goal.vel,
+        final.loc.est))
+    states = [s for s, _ in probe.transitions]
+    info = {
+        "phase": "trial", "formation": cfg.formation, "n": fsm.n,
+        "seed": cfg.seed, "dtype": cfg.dtype,
+        "trial_timeout": cfg.trial_timeout,
+        "verdict": trials.NAMES[fsm.state], "transitions": probe.transitions,
+        "chunks": len(chunks), "ticks": ticks,
+        "simulated_seconds": ticks * cfg.control_dt, "wall_seconds": wall,
+        "profiler_seconds": probe.profiler_seconds,
+        "wall_seconds_less_profiler": wall - probe.profiler_seconds,
+        "hover_ms_per_tick": _mean([c["ms"] / c["ticks"] for c in timed
+                                    if c["assignment"] == "none"]),
+        "flying_ms_per_tick": _mean([c["ms"] / c["ticks"] for c in timed
+                                     if c["assignment"] != "none"]),
+        "fsm_host_ms_per_chunk": _mean(host),
+        "chunk_ms": [round(c["ms"], 3) for c in chunks],
+        "profiled_chunks": sorted(probe.profile_chunks),
+        "dispatch_chunks": dispatched,
+        "design_ms": design["ms"], "design_admm_iters": design["iters"],
+        "design_residual": design["residual"],
+        "validate": {k: v[k] for k in ("no_positive", "kernel_ok",
+                                       "strictly_negative_rest")},
+        "validate_seconds": validate_s, "zero_blocks_exact": zero_exact,
+        "profiled": [dict(w, window=k) if k == "dispatch" else dict(
+            w, window=f"chunk {k}", assignment=chunks[k]["assignment"],
+            auctions=chunks[k]["auctions"],
+            kernel_launches_per_tick=w["kernel_launches"] / chunks[k]["ticks"],
+            device_busy_ms_per_tick=w["device_busy_ms"] / chunks[k]["ticks"])
+            for k, w in probe.windows.items()],
+        "launches": launches,
+        "launches_hover": {k: sum(c["launches"][k] for c in hover)
+                           for k in launches},
+        "auctions_after_dispatch": auctioned,
+        "auctions_expected": auctions_expected,
+        "peak_memory_bytes": peak, "finite": finite,
+        "v2f_valid": bool(permutil.is_valid(final.v2f))}
+    emit(info)
+    # two copies per chunk (`trials._host_signals`), plus the alignment's
+    # per auction tick
+    reads_ok = [w["host_reads"] <= CHUNK_READS
+                + AUCTION_READS * chunks[k]["auctions"]
+                for k, w in probe.windows.items() if k != "dispatch"]
+    ok = (states[:4] == ["TAKING_OFF", "HOVERING", "WAITING_ON_ASSIGNMENT",
+                         "FLYING"]
+          and fsm.done and len(dispatched) == 1
+          and v["no_positive"] and v["kernel_ok"]
+          and v["strictly_negative_rest"] and zero_exact
+          and auctioned == auctions_expected >= 2
+          and finite and info["v2f_valid"])
+    # the wrappers count kernel launches, and the profiler traces, only
+    # on the card
+    if cuda:
+        ok = ok and (launches["flood_merge"] == ticks
+                     and launches["sinkhorn_log"] == auctioned
+                     and launches["round_dominant"] == auctioned
+                     and not any(info["launches_hover"][k]
+                                 for k in ("sinkhorn_log", "round_dominant"))
+                     and len(reads_ok) == len(profile_chunks)
+                     and all(reads_ok))
+    if not ok:
+        raise AssertionError(f"trial check failed: {info}")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1424,19 +1790,27 @@ def main(argv=None) -> int:
         return 2
     import aclswarm_torch  # noqa: F401  (needs the repository)
 
-    phase_device()
-    phase_build()
-    gn = phase_gains(args.seed)
-    kern = phase_kernels(args.seed)
-    phase_reference(args.seed)
-    sl = phase_slice(args.seed)
-    phase_profile(args.seed, sl["ms_per_tick"])
-    sl_random = phase_slice(args.seed, "random")
-    phase_profile(args.seed, sl_random["ms_per_tick"], "random")
-    phase_auction(args.seed)
-    phase_cbaa(args.seed)
-    sl_cbaa = phase_slice_cbaa(args.seed)
-    sl_auction = phase_slice_auction(args.seed)
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        emit({"phase": name, "phase_seconds": time.perf_counter() - t0})
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    gn = timed("gains", phase_gains, args.seed)
+    kern = timed("kernels", phase_kernels, args.seed)
+    timed("reference", phase_reference, args.seed)
+    sl = timed("slice", phase_slice, args.seed)
+    timed("profile", phase_profile, args.seed, sl["ms_per_tick"])
+    sl_random = timed("slice", phase_slice, args.seed, "random")
+    timed("profile", phase_profile, args.seed, sl_random["ms_per_tick"],
+          "random")
+    timed("auction", phase_auction, args.seed)
+    timed("cbaa", phase_cbaa, args.seed)
+    sl_cbaa = timed("slice_cbaa", phase_slice_cbaa, args.seed)
+    sl_auction = timed("slice_auction", phase_slice_auction, args.seed)
+    tr = timed("trial", phase_trial, args.seed)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -1471,7 +1845,8 @@ def main(argv=None) -> int:
                    "gains": gn["launches"][name],
                    "slice": sl["launches"][name],
                    "slice_cbaa": sl_cbaa["launches"][name],
-                   "slice_auction": sl_auction["launches"][name]},
+                   "slice_auction": sl_auction["launches"][name],
+                   "trial": tr["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -412,19 +412,32 @@ class TestBatch:
         adjs[2, 1, 5] = adjs[2, 5, 1] = 0
         return pts, adjs
 
-    def test_batch_against_serial(self):
-        """Each formation of the batch equals its serial solve in the same
-        bucket at ATOL. Not bit for bit in general, on the CPU either: a
-        formation's products inside the batch may round otherwise than
-        its lone products (at this size the eigh path came out equal, the
-        Newton path 1-2 ulp apart)."""
-        pts, adjs = self._batch()
-        batched = tg.solve_gains_batch(pts, adjs, max_nonedges=2, **CPU)
+    @pytest.mark.parametrize("dtype,psd_method", [
+        (np.float64, "auto"),      # the reference's case: the eigh path
+        (np.float32, "newton"),    # the Newton-Schulz path
+    ])
+    def test_batch_against_serial(self, dtype, psd_method):
+        """`test_gains.py::test_batch_bit_parity_with_serial`: each
+        formation of the batch equals its serial solve in the same bucket
+        bit for bit, on the reference's case (rng(4) points x 4, n=10,
+        B=3, only ``adjs[1]`` loses edge 0-3, ``max_nonedges=2``). The
+        solver takes every product formation by formation (`admm._mm`):
+        the CPU's BLAS rounds a (3, m, m) product otherwise than three
+        (1, m, m) ones, which left the Newton path 1 ulp apart before."""
+        n, B = 10, 3
+        pts = (np.random.default_rng(4).normal(size=(B, n, 3)) * 4
+               ).astype(dtype)
+        adjs = np.stack([fc_adj(n)] * B)
+        adjs[1, 0, 3] = adjs[1, 3, 0] = 0
+        params = tg.AdmmParams(psd_method=psd_method)
+        batched = tg.solve_gains_batch(pts, adjs, params, max_nonedges=2,
+                                       **CPU)
         assert batched.shape == (3, 30, 30)
         for b in range(3):
-            serial = tg.solve_gains(pts[b], adjs[b], max_nonedges=2, **CPU)
-            np.testing.assert_allclose(batched[b].numpy(), serial.numpy(),
-                                       rtol=0, atol=ATOL, err_msg=str(b))
+            serial = tg.solve_gains(pts[b], adjs[b], params, max_nonedges=2,
+                                    **CPU)
+            np.testing.assert_array_equal(batched[b].numpy(),
+                                          serial.numpy(), err_msg=str(b))
 
     def test_batch_against_reference_batch(self):
         pts, adjs = self._batch()
@@ -435,7 +448,7 @@ class TestBatch:
     def test_formations_stop_on_their_own_flags(self):
         """Formations whose Newton loops end at different steps, float32:
         each matches its serial solve at 1e-6 (steps past a formation's
-        end are gated off; rounding as in `test_batch_against_serial`)."""
+        end are gated off)."""
         pts, adjs = self._batch()
         pts = pts.astype(np.float32)
         pts[1] *= 3.0

@@ -35,7 +35,9 @@ def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"engine.py", "sinkhorn.py", "flood.py", "chip_smoke.py",
             "convert.py", "_build.py", "auction.py", "cbaa.py",
-            "masking.py", "admm.py", "params.py"} <= names
+            "masking.py", "admm.py", "params.py", "trials.py",
+            "supervisor.py", "formations.py", "checkpoint.py", "crash.py",
+            "config.py"} <= names
 
 
 def test_init_state_without_device_needs_the_card(monkeypatch):
@@ -44,3 +46,17 @@ def test_init_state_without_device_needs_the_card(monkeypatch):
         sim.init_state(np.zeros((4, 3)))
     state = sim.init_state(np.zeros((4, 3)), device="cpu")
     assert state.swarm.q.device.type == "cpu"
+
+
+def test_run_trial_without_device_needs_the_card(monkeypatch):
+    """`run_trial` with ``device=None`` and no card raises instead of
+    flying the trial on the CPU."""
+    from aclswarm_torch.harness import trials
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = trials.TrialConfig(formation="simform6", verbose=False)
+    assert cfg.device is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trials.run_trial(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trials.run_trials(cfg)

@@ -14,7 +14,8 @@ The auction LAP and CBAA are plain tensor code with polled device loops;
 at n=257 the card must reproduce the CPU bit for bit from shared inputs
 (one benefit matrix, one aligned formation), ties included. The ADMM gain
 design is tensor code too: held against the CPU at n=64, with its kernel
-basis computed on the host, and checked at n=1000 in float32."""
+basis computed on the host, and checked at n=1000 in float32. A short
+`swarm4` trial flies through the trial driver on the card."""
 import math
 
 import numpy as np
@@ -380,3 +381,14 @@ def test_gains_n1000_float32_invariants(card):
                                       carry=carry, telemetry=True,
                                       device=card)
     assert st_warm.iters < st.iters
+
+
+def test_swarm4_trial_on_the_card(card):
+    """`swarm4` (seed 3, library gains, the default auction, float32) flown
+    through `run_trial` on the card completes both formations."""
+    from aclswarm_torch.harness import trials
+
+    fsm = trials.run_trial(trials.TrialConfig(
+        formation="swarm4", seed=3, verbose=False, device="cuda"), 0)
+    assert fsm.completed, trials.NAMES[fsm.state]
+    assert len(fsm.times) == 2 and fsm.execution == {}
