@@ -7,6 +7,10 @@ parallel 2-opt repair. Every data-dependent loop on the main path runs on
 the card: K2 holds the rounding loop, and the 2-opt repair runs its full
 sweep budget (see `two_opt_refine`), so an assignment never reads a value
 back to the host.
+
+`sinkhorn_assign` also solves a batch of trials, the clouds ``(B, n, 3)``:
+one K1 call and one K2 call for the whole batch, the rest batched on the
+trial axis.
 """
 from __future__ import annotations
 
@@ -21,9 +25,9 @@ from aclswarm_torch.faults import masking
 
 
 class SinkhornResult(NamedTuple):
-    row_to_col: torch.Tensor  # (n,) rounded permutation (v2f for our costs)
-    plan_log: torch.Tensor    # (n, n) final log transport plan
-    err: torch.Tensor         # () final row-marginal L1 error
+    row_to_col: torch.Tensor  # ([B,] n) rounded permutation (v2f here)
+    plan_log: torch.Tensor    # ([B,] n, n) final log transport plan
+    err: torch.Tensor         # ([B,]) final row-marginal L1 error
 
 
 def sinkhorn_log(cost: torch.Tensor, tau: float = 0.03, n_iters: int = 200,
@@ -110,18 +114,20 @@ def two_opt_refine(cost: torch.Tensor, v2f: torch.Tensor,
     changing and every later sweep is idle too. Running them on the card
     costs a few small kernels; stopping early would cost a host read of
     the swap flag every sweep."""
-    n = cost.shape[0]
+    n = cost.shape[-1]
     idx = torch.arange(n, device=cost.device)
     eye = torch.eye(n, dtype=torch.bool, device=cost.device)
     for _ in range(sweeps):
         v = v2f.long()
-        a = cost[idx, v]
-        M = cost[:, v]                              # M[i, k] = cost[i, v2f[k]]
-        gain = a[:, None] + a[None, :] - M - M.T
+        a = torch.gather(cost, -1, v[..., None])[..., 0]   # cost[i, v2f[i]]
+        # M[i, k] = cost[i, v2f[k]]
+        M = torch.gather(cost, -1, v[..., None, :].expand(cost.shape))
+        gain = a[..., :, None] + a[..., None, :] - M - M.mT
         gain = torch.where(eye, torch.full_like(gain, -math.inf), gain)
-        b = torch.argmax(gain, dim=1)
-        ok = (b[b] == idx) & (gain[idx, b] > 1e-7)
-        v2f = torch.where(ok, v2f[b], v2f)
+        b = torch.argmax(gain, dim=-1)
+        ok = (torch.gather(b, -1, b) == idx) \
+            & (torch.gather(gain, -1, b[..., None])[..., 0] > 1e-7)
+        v2f = torch.where(ok, torch.gather(v2f, -1, b), v2f)
     return v2f
 
 
@@ -147,8 +153,14 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
     if (pin is None) != (forbid is None):
         raise ValueError("sinkhorn_assign: pass pin and forbid together "
                          "or not at all")
+    if q.ndim > 2 and rounding != "dominant":
+        raise ValueError("a batch of trials rounds with 'dominant' (K2) "
+                         f"only, not {rounding!r}")
     cost_raw = geometry.cdist_fast(q, p_aligned)
-    cost = cost_raw / (torch.mean(cost_raw) + 1e-12)
+    # each trial's mean alone, as its serial solve reduces it
+    mean = torch.mean(cost_raw) if cost_raw.ndim == 2 else torch.stack(
+        [torch.mean(c) for c in cost_raw])[:, None, None]
+    cost = cost_raw / (mean + 1e-12)
     if pin is not None:
         cost = masking.apply_pin_forbid(cost, pin, forbid)
         cost_raw = masking.apply_pin_forbid(cost_raw, pin, forbid)
@@ -163,6 +175,6 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
         raise ValueError(f"unknown rounding mode {rounding!r}")
     if refine_sweeps > 0:
         v2f = two_opt_refine(cost_raw, v2f, sweeps=refine_sweeps)
-    row_mass = torch.exp(torch.logsumexp(plan_log, dim=1))
-    err = torch.sum(torch.abs(row_mass - 1.0 / cost.shape[0]))
+    row_mass = torch.exp(torch.logsumexp(plan_log, dim=-1))
+    err = torch.sum(torch.abs(row_mass - 1.0 / cost.shape[-1]), dim=-1)
     return SinkhornResult(row_to_col=v2f, plan_log=plan_log, err=err)

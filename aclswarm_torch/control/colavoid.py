@@ -7,7 +7,8 @@ desired heading inside any sector is rotated to the nearest free sector
 edge within ±90°, else zeroed. All angle tests are circular, so sectors
 straddling ±pi need no special case. The reference vmaps `_one_agent`
 over agents; here the agent axis is written out as the leading tensor
-dimension.
+dimension. A batch of trials ((B, n, 3) positions) folds into that axis:
+every agent's avoidance is a row of its own.
 """
 from __future__ import annotations
 
@@ -121,31 +122,36 @@ def collision_avoidance(q: torch.Tensor, vel_des: torch.Tensor,
     ``neighbor_mask`` (n,) bool: vehicles with a False bit cast no sector.
     Scenario ``obstacles`` arrive with the scenarios slice.
 
-    Returns ((n, 3) safe velocities, (n,) bool avoidance-active flags).
+    Returns ((n, 3) safe velocities, (n,) bool avoidance-active flags); a
+    leading trial axis of ``q``, ``vel_des`` (and ``neighbor_mask``) comes
+    back on both.
     """
     if obstacles is not None:
         raise NotImplementedError(
             "collision_avoidance obstacles belong to the scenarios slice, "
             "not yet ported")
-    n = q.shape[0]
-    qij = q[None, :, :] - q[:, None, :]           # (i, j, 3): j relative to i
+    n = q.shape[-2]
+    # (..., i, j, 3): j relative to i
+    qij = q[..., None, :, :] - q[..., :, None, :]
     dxy = torch.linalg.vector_norm(qij[..., :2], dim=-1)
     eye = torch.eye(n, dtype=torch.bool, device=q.device)
     active = (dxy <= params.d_avoid_thresh) & ~eye
     if neighbor_mask is not None:
-        active = active & neighbor_mask[None, :]
+        active = active & neighbor_mask[..., None, :]
     if params.colavoid_dz_ignore > 0.0:
         # opt-in cylinder half-height: vertically clear neighbors cast none
         active = active & (torch.abs(qij[..., 2]) <= params.colavoid_dz_ignore)
 
+    # every agent of every trial is one row
+    rows_xy, rows_act = qij[..., :2].reshape(-1, n, 2), active.reshape(-1, n)
     if max_neighbors is not None and max_neighbors < n - 1:
         # rank by the activation mask, not raw planar distance (an
         # inactive vehicle must not take a top-k slot)
         d_masked = torch.where(active, dxy, torch.full_like(dxy, math.inf))
-        idx = _smallest_k_indices(d_masked, max_neighbors)    # (n, k)
-        cols_xy = torch.gather(qij[..., :2], 1,
-                               idx[:, :, None].expand(-1, -1, 2))
-        cols_act = torch.gather(active, 1, idx)
+        idx = _smallest_k_indices(d_masked.reshape(-1, n), max_neighbors)
+        cols_xy = torch.gather(rows_xy, 1, idx[:, :, None].expand(-1, -1, 2))
+        cols_act = torch.gather(rows_act, 1, idx)
     else:
-        cols_xy, cols_act = qij[..., :2], active
-    return _agents(cols_xy, cols_act, vel_des, params)
+        cols_xy, cols_act = rows_xy, rows_act
+    v, flags = _agents(cols_xy, cols_act, vel_des.reshape(-1, 3), params)
+    return v.reshape(vel_des.shape), flags.reshape(vel_des.shape[:-1])

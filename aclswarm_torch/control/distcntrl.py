@@ -4,6 +4,11 @@ of `aclswarm_tpu/control/distcntrl.py`).
 As in the reference: the damping term scales with the degree of the
 vehicle's formation point (``deg * kd * -vel``), the scale term has
 per-axis deadbands, and everything is computed in formation space.
+
+`compute` also takes a batch of trials (a leading ``(B,)`` axis on the
+state, the formation and ``v2f``). The trial axis is folded into the agent
+axis for the gain contraction, so each vehicle's 3x3 block products are
+the very operation of a single trial.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ def scale_control(qij: torch.Tensor, dstar_xy: torch.Tensor,
 def compute(state: SwarmState, formation: Formation, v2f: torch.Tensor,
             gains: ControlGains, rel: torch.Tensor | None = None
             ) -> torch.Tensor:
-    """All n vehicles' velocity commands (vehicle order), (n, 3).
+    """All n vehicles' velocity commands (vehicle order), ([B,] n, 3).
 
     ``rel`` (optional) is the per-agent relative view in vehicle order,
     ``rel[v, w]`` = v's estimate of (w's position − its own); ``None``
@@ -39,15 +44,16 @@ def compute(state: SwarmState, formation: Formation, v2f: torch.Tensor,
     adj = (formation.adjmat > 0).to(state.q.dtype)
     if rel is None:
         q_form = permutil.veh_to_formation_order(state.q, v2f)
-        qij = q_form[None, :, :] - q_form[:, None, :]
+        qij = q_form[..., None, :, :] - q_form[..., :, None, :]
     else:
-        f2v = permutil.invert(v2f).long()
-        qij = rel[f2v][:, f2v]
+        qij = permutil.take_pairs(rel, permutil.invert(v2f).long())
 
     F = scale_control(qij, formation.dstar_xy, formation.dstar_z, gains)
-    lin = torch.einsum("ijab,ijb->ija", formation.gains, qij)
-    up = torch.sum(adj[..., None] * (lin + F * qij), dim=1)
-    deg = torch.sum(adj, dim=1)
+    g = formation.gains
+    lin = torch.einsum("ijab,ijb->ija", g.reshape(-1, *g.shape[-3:]),
+                       qij.reshape(-1, *qij.shape[-2:])).reshape(qij.shape)
+    up = torch.sum(adj[..., None] * (lin + F * qij), dim=-2)
+    deg = torch.sum(adj, dim=-1)
     up_veh = permutil.formation_to_veh_order(up, v2f)
     deg_veh = permutil.formation_to_veh_order(deg, v2f)
-    return gains.kp * up_veh - gains.kd * deg_veh[:, None] * state.vel
+    return gains.kp * up_veh - gains.kd * deg_veh[..., None] * state.vel

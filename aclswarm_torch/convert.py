@@ -5,8 +5,11 @@ The ``*_from_numpy`` functions take the reference's objects with numpy
 leaves (e.g. ``jax.tree.map(np.asarray, formation)``; any object with the
 same attribute names, or a mapping, will do) and build the port's objects
 on ``device`` in ``dtype``. `sim_state_to_numpy` goes the other way, to a
-nested dict of numpy arrays with the reference's field names. This module
-imports neither JAX nor the reference package.
+nested dict of numpy arrays with the reference's field names. A batch of
+trials crosses the same way, every leaf with a leading (B,) axis (the
+reference's batched `SimState`, `Formation` and `SummaryCarry`); a
+batched state's tick is then a (B,) array. This module imports neither JAX
+nor the reference package.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from aclswarm_torch.gains.admm import AdmmCarry
 from aclswarm_torch.gains.params import AdmmParams
 from aclswarm_torch.sim.engine import SimState
 from aclswarm_torch.sim.localization import EstimateTable
+from aclswarm_torch.sim.summary import SummaryCarry
 from aclswarm_torch.sim.vehicle import FlightState
 
 
@@ -109,12 +113,13 @@ def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
     dev = resolve_device(device)
     swarm, goal, flight = _get(s, "swarm"), _get(s, "goal"), _get(s, "flight")
     loc, warm = _get(s, "loc"), _optional(s, "cbaa_warm")
+    tick = np.asarray(_get(s, "tick"))
     return SimState(
         swarm=SwarmState(**_floats(swarm, ("q", "vel"), dev, dtype)),
         goal=TrajGoal(**_floats(goal, ("pos", "vel", "yaw", "dyaw"), dev,
                                 dtype)),
         v2f=_ints(s, ("v2f",), dev)["v2f"],
-        tick=int(np.asarray(_get(s, "tick"))),
+        tick=int(tick) if tick.ndim == 0 else tick.astype(np.int64),
         flight=FlightState(
             **_ints(flight, ("mode", "ticks_in_mode"), dev),
             **_floats(flight, ("initial_alt", "takeoff_alt"), dev, dtype)),
@@ -122,9 +127,9 @@ def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
             est=_floats(loc, ("est",), dev, dtype)["est"],
             age=_ints(loc, ("age",), dev)["age"]),
         first_auction=torch.as_tensor(
-            bool(np.asarray(_get(s, "first_auction"))), device=dev),
+            np.array(_get(s, "first_auction"), bool), device=dev),
         assign_enabled=torch.as_tensor(
-            bool(np.asarray(_get(s, "assign_enabled"))), device=dev),
+            np.array(_get(s, "assign_enabled"), bool), device=dev),
         cbaa_warm=None if warm is None else cbaa_tables_from_numpy(
             warm, dev, dtype))
 
@@ -147,3 +152,22 @@ def sim_state_to_numpy(state: SimState) -> dict:
         else {k: v.cpu().numpy()
               for k, v in state.cbaa_warm._asdict().items()},
     }
+
+
+def summary_carry_from_numpy(c, device=None, dtype=torch.float32
+                             ) -> SummaryCarry:
+    """The reference's `SummaryCarry` (one trial or a batch): the float
+    histories and filters in ``dtype``, the recovery clock as it is."""
+    dev = resolve_device(device)
+    return SummaryCarry(
+        **_floats(c, ("dn_hist", "ca_hist", "fx", "fy", "cumdist"), dev,
+                  dtype),
+        **{k: torch.as_tensor(np.array(_get(c, k), bool), device=dev)
+           for k in ("inited", "rec_pending")},
+        **_ints(c, ("rec_since", "rec_churn"), dev))
+
+
+def summary_carry_to_numpy(carry: SummaryCarry) -> dict:
+    """The port's carry as a dict of numpy arrays, the reference's field
+    names."""
+    return _np(carry)

@@ -4,10 +4,24 @@
 Products run in full float32 on the card: the package turns TF32 off at
 import (`aclswarm_torch/__init__.py`), the counterpart of the reference's
 ``precision="highest"``.
+
+`cdist`, `cdist_fast`, `arun` and `align` also take a batch of trials, the
+clouds ``(B, n, 3)``: one rigid alignment per trial, with a batched SVD and
+determinant. Their matrix products are taken trial by trial (`_mm`).
 """
 from __future__ import annotations
 
 import torch
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``, trial by trial over leading trial axes of ``a`` (a
+    matrix per trial; ``b`` a matrix or a vector per trial): the CPU's
+    BLAS rounds a batched product otherwise than lone ones, and a batch
+    must equal its serial runs bit for bit."""
+    if a.ndim == 2:
+        return a @ b
+    return torch.stack([_mm(x, y) for x, y in zip(a, b)])
 
 
 def pdistmat(x: torch.Tensor) -> torch.Tensor:
@@ -24,59 +38,63 @@ def pdistmat(x: torch.Tensor) -> torch.Tensor:
 def cdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Cross distances ||a_i - b_j|| by direct subtraction — exact near
     zero (the assignment hysteresis cost)."""
-    return torch.linalg.vector_norm(a[:, None, :] - b[None, :, :], dim=-1)
+    return torch.linalg.vector_norm(a[..., :, None, :] - b[..., None, :, :],
+                                    dim=-1)
 
 
 def cdist_fast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Cross distances via the |x|^2 + |y|^2 - 2xy expansion (one matrix
-    product; ~sqrt(eps)*scale absolute error near zero, harmless for
-    assignment costs)."""
+    product per trial; ~sqrt(eps)*scale absolute error near zero, harmless
+    for assignment costs)."""
     sa = torch.sum(a * a, dim=-1)
     sb = torch.sum(b * b, dim=-1)
-    return torch.sqrt(torch.clamp(sa[:, None] + sb[None, :] - 2.0 * (a @ b.T),
-                                  min=0.0))
+    return torch.sqrt(torch.clamp(sa[..., :, None] + sb[..., None, :]
+                                  - 2.0 * _mm(a, b.mT), min=0.0))
 
 
 def arun(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None,
          d: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted rigid alignment: (R, t) minimizing sum w ||q - (R p + t)||^2
     over the first ``d`` coordinates (the other axes get R=I, t=0).
-    Returns R (3, 3) and t (3,) with aligned = p @ R.T + t."""
+    Returns R ([B,] 3, 3) and t ([B,] 3) with aligned = p @ R.T + t; a
+    leading axis of ``p``, ``q`` (and ``w``) is a batch of trials."""
     dtype, dev = p.dtype, p.device
-    m = p.shape[0]
+    lead = p.shape[:-2]
     if w is None:
-        w = torch.ones((m,), dtype=dtype, device=dev)
+        w = torch.ones(p.shape[:-1], dtype=dtype, device=dev)
     w = w.to(dtype)
-    wsum = torch.clamp(torch.sum(w), min=1e-12)
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)[..., None]
 
-    ps, qs = p[:, :d], q[:, :d]
-    mu_p = torch.sum(w[:, None] * ps, dim=0) / wsum
-    mu_q = torch.sum(w[:, None] * qs, dim=0) / wsum
-    pc, qc = ps - mu_p, qs - mu_q
-    sigma = (qc * w[:, None]).T @ pc / wsum          # (d, d) cross-covariance
+    ps, qs = p[..., :d], q[..., :d]
+    mu_p = torch.sum(w[..., None] * ps, dim=-2) / wsum
+    mu_q = torch.sum(w[..., None] * qs, dim=-2) / wsum
+    pc, qc = ps - mu_p[..., None, :], qs - mu_q[..., None, :]
+    # (d, d) cross-covariance
+    sigma = _mm((qc * w[..., None]).mT, pc) / wsum[..., None]
 
     U, _, Vt = torch.linalg.svd(sigma)
     # determinant sign correction (reflection guard), as Eigen::umeyama
     sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
     sign = torch.where(sign == 0, torch.ones_like(sign), sign)
-    S = torch.ones((d,), dtype=dtype, device=dev)
-    S = torch.cat([S[:d - 1], sign.reshape(1)])
-    Rd = (U * S[None, :]) @ Vt
-    td = mu_q - Rd @ mu_p
+    S = torch.cat([torch.ones(lead + (d - 1,), dtype=dtype, device=dev),
+                   sign[..., None]], dim=-1)
+    Rd = _mm(U * S[..., None, :], Vt)
+    td = mu_q - _mm(Rd, mu_p)
 
-    R = torch.eye(3, dtype=dtype, device=dev)
-    R[:d, :d] = Rd
-    t = torch.zeros((3,), dtype=dtype, device=dev)
-    t[:d] = td
+    R = torch.eye(3, dtype=dtype, device=dev).expand(lead + (3, 3)).clone()
+    R[..., :d, :d] = Rd
+    t = torch.zeros(lead + (3,), dtype=dtype, device=dev)
+    t[..., :d] = td
     return R, t
 
 
 def align(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None,
           d: int = 2) -> torch.Tensor:
-    """Align formation points ``p`` to swarm positions ``q``; returns (n, 3).
-    d=2 (rotation about z only) is the swarm-wide convention."""
+    """Align formation points ``p`` to swarm positions ``q``; returns
+    ([B,] n, 3). d=2 (rotation about z only) is the swarm-wide
+    convention."""
     R, t = arun(p, q, w=w, d=d)
-    return p @ R.T + t
+    return _mm(p, R.mT) + t[..., None, :]
 
 
 def align_formation_local(q_veh: torch.Tensor, p: torch.Tensor,

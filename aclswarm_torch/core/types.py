@@ -9,10 +9,15 @@ Conventions are the reference's:
 Every constructor takes ``device=`` and ``dtype=``: ``device=None`` means
 the card (`resolve_device`), ``dtype`` defaults to float32 (the main path)
 and accepts float64 (the CPU parity tests).
+
+A batch of B trials carries a leading ``(B,)`` axis on every tensor of a
+container (`tree_map`, `stack`, `take_rows`); `make_formations` builds a
+batched `Formation` from stacked rows and `set_row` rewrites one trial's
+row in place at a dispatch.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, is_dataclass
 
 import torch
 
@@ -135,3 +140,55 @@ def make_formation(points, adjmat, gains=None, device=None,
     return Formation(points=points, adjmat=adjmat, gains=gains,
                      dstar_xy=geometry.pdistmat(points[:, :2]),
                      dstar_z=geometry.pdistmat(points[:, 2:3]))
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over every tensor of a container tree (dataclasses, named
+    tuples, None) and the same-shaped ``rest``; other leaves (host ints and
+    arrays, such as a state's tick) are taken from ``tree`` unchanged."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if is_dataclass(tree):
+        return type(tree)(**{f.name: tree_map(fn, getattr(tree, f.name),
+                                              *(getattr(r, f.name)
+                                                for r in rest))
+                             for f in fields(tree)})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return tree
+
+
+def stack(trees: list):
+    """B same-shaped containers -> one with a leading (B,) trial axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def take_rows(tree, idx: torch.Tensor):
+    """The trials ``idx`` ((k,) int64 on the tensors' device) of a batched
+    container, in that order: one `index_select` per tensor."""
+    return tree_map(lambda x: x.index_select(0, idx), tree)
+
+
+def row(tree, b: int):
+    """Trial ``b`` of a batched container, unbatched (views)."""
+    return tree_map(lambda x: x[b], tree)
+
+
+def set_row(tree, b: int, new) -> None:
+    """Overwrite trial ``b`` of a batched container with the unbatched
+    ``new``, in place (a dispatch's formation commit)."""
+    tree_map(lambda x, y: x[b].copy_(y), tree, new)
+
+
+def make_formations(points, adjmat, gains=None, device=None,
+                    dtype=torch.float32) -> Formation:
+    """A batched `Formation`: `make_formation` over the stacked rows
+    ``points`` (B, n, 3), ``adjmat`` (B, n, n) and ``gains`` (B, n, n, 3, 3)
+    or (B, 3n, 3n) (None = zero gains), so each row's desired distances
+    are the single formation's bit for bit."""
+    return stack([make_formation(points[b], adjmat[b],
+                                 None if gains is None else gains[b],
+                                 device=device, dtype=dtype)
+                  for b in range(len(points))])

@@ -8,6 +8,11 @@
 // bool. The result must be bit-identical to the plain masked min: it is an
 // integer min, so any order of the fold gives the same bits.
 //
+// Batched: B independent problems (the trials of a wave) in one launch,
+// problem b at grid z = b; its packed words, comm bytes and outputs sit at
+// strides n w, n n and n w. Each problem's blocks run exactly the tile of a
+// single launch, so a batched merge equals B single ones bit for bit.
+//
 // What bounds it on this card: a min/select "tropical GEMM" of n^2 w
 // (receiver, sender, target) triples (5e8 at n = 1000, w = 500) against
 // ~3 MB of inputs and outputs. There is no tensor-core instruction for
@@ -139,6 +144,9 @@ flood_merge_kernel(const int* __restrict__ packed,
   const int j0 = blockIdx.x * TJ, v0 = blockIdx.y * TV;
   const int nchunks = (n + TS - 1) / TS;
   const int iters = (nchunks + G - 1) / G;          // chunk k = it*G + grp
+  packed += (size_t)blockIdx.z * n * w;             // this block's problem
+  comm += (size_t)blockIdx.z * n * n;
+  out += (size_t)blockIdx.z * n * w;
   int* mine = tiles + grp * 2 * TILE;
 
   if (grp < nchunks) stage(mine, packed, n, w, j0, grp, lt, vec);
@@ -249,6 +257,9 @@ flood_merge_bytemask_kernel(const int* __restrict__ packed,
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * BTJ + tx;
   const int j0 = blockIdx.x * BTJ, v0 = blockIdx.y * BTV;
+  packed += (size_t)blockIdx.z * n * w;
+  comm += (size_t)blockIdx.z * n * n;
+  out += (size_t)blockIdx.z * n * w;
   int acc[BRV];
 #pragma unroll
   for (int r = 0; r < BRV; ++r) acc[r] = (int)SENTINEL;
@@ -285,21 +296,24 @@ flood_merge_bytemask_kernel(const int* __restrict__ packed,
 
 }  // namespace
 
-// packed (n, w) int32 with values in [0, 2^31 - 1], comm (n, n) bytes
-// {0, 1} -> out (n, w) int32. One launch; its shared memory grows by 128
-// bytes per 32 senders (the mask words), so n is bounded by the card's
-// shared memory per block (about 40,000 on an H100): past that the
-// attribute call fails and its error is returned.
+// packed (batch, n, w) int32 with values in [0, 2^31 - 1], comm (batch, n,
+// n) bytes {0, 1} -> out (batch, n, w) int32; batch = 1 is a single
+// problem. One launch; its shared memory grows by 128 bytes per 32 senders
+// (the mask words), so n is bounded by the card's shared memory per block
+// (about 40,000 on an H100): past that the attribute call fails and its
+// error is returned. batch is bounded by the grid's z extent (65,535).
 extern "C" int flood_merge_launch(const int* packed, const unsigned char* comm,
-                                  int* out, int n, int w, void* stream) {
+                                  int* out, int batch, int n, int w,
+                                  void* stream) {
   const int nchunks = (n + TS - 1) / TS;
   const size_t smem = STAGE_BYTES + (size_t)nchunks * TV * sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(
       flood_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  // every problem's rows start 16-byte aligned when w % 4 == 0
   const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
-  const dim3 grid((w + TJ - 1) / TJ, (n + TV - 1) / TV);
+  const dim3 grid((w + TJ - 1) / TJ, (n + TV - 1) / TV, batch);
   flood_merge_kernel<<<grid, THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(packed, comm, out,
                                                             n, w, vec);
@@ -309,9 +323,9 @@ extern "C" int flood_merge_launch(const int* packed, const unsigned char* comm,
 // The byte-mask baseline, same arguments and result.
 extern "C" int flood_merge_bytemask_launch(const int* packed,
                                            const unsigned char* comm,
-                                           int* out, int n, int w,
+                                           int* out, int batch, int n, int w,
                                            void* stream) {
-  const dim3 grid((w + BTJ - 1) / BTJ, (n + BTV - 1) / BTV);
+  const dim3 grid((w + BTJ - 1) / BTJ, (n + BTV - 1) / BTV, batch);
   flood_merge_bytemask_kernel<<<grid, dim3(BTJ, BTY), 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       packed, comm, out, n, w);

@@ -84,6 +84,16 @@
 // Shared memory holds two n-bit bitmaps, the block's own lines and two
 // lists of 1024 lines, so no size short of device memory is refused.
 //
+// Batched (round_dominant_batched_launch): B independent plans, the
+// trials of a wave, in one cooperative launch whose grid is split into B
+// groups of floor(SMs / B) blocks: block b serves problem b / bpp with its
+// own lines, words, beats and counters in its own scratch, and waits only
+// on its own group. The result is a unique function of the plan (the
+// permutation and the round count), so any split of the SMs gives bit for
+// bit what B single launches give; a group with fewer blocks owns more
+// lines per block (r = ceil(n / blocks)). Past SMs problems the plans go
+// in waves of SMs problems, one block each.
+//
 // The single-block design (round_dominant_kernel,
 // round_dominant_single_block_launch; the first port of this kernel, kept
 // for timing only): the whole loop in one block, every live line
@@ -150,6 +160,27 @@ struct State {
   unsigned* ctr;                  // barrier, rows and columns rescanned
                                   // after round 1
 };
+
+// The scratch of one problem: 6 n + 3 zeroed 8-byte words — the column
+// keys, two buffers of published row words, two of column words, the
+// beats (n 4-byte words, blocks <= n), the entry count and four 4-byte
+// counters (ops/rounding.py sizes and reads it the same way).
+__host__ __device__ size_t scratch_words(int n) { return 6 * (size_t)n + 3; }
+
+__host__ __device__ State carve(void* scratch, int n) {
+  State st;
+  auto* w = static_cast<unsigned long long*>(scratch);
+  st.colkey = w;
+  st.rowpub[0] = w + (size_t)n;
+  st.rowpub[1] = w + 2 * (size_t)n;
+  st.colpub[0] = w + 3 * (size_t)n;
+  st.colpub[1] = w + 4 * (size_t)n;
+  st.beat = reinterpret_cast<unsigned*>(w + 5 * (size_t)n);
+  st.entries = w + 6 * (size_t)n;
+  st.ctr = reinterpret_cast<unsigned*>(st.entries + 1);
+  return st;
+}
+
 
 struct Shared {
   int rows[THREADS];            // rows to scan in this window
@@ -265,8 +296,8 @@ __device__ void scan_lines(const float* __restrict__ plan, int n,
   }
 }
 
-// All blocks meet once, after round 1's column folds.
-__device__ void grid_sync(unsigned* bar) {
+// The problem's nblk blocks meet once, after round 1's column folds.
+__device__ void grid_sync(unsigned* bar, unsigned nblk) {
   __syncthreads();
   if (threadIdx.x == 0) {
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar)
@@ -275,7 +306,7 @@ __device__ void grid_sync(unsigned* bar) {
       unsigned v;
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
                    : "=r"(v) : "l"(bar) : "memory");
-      if (v >= gridDim.x) break;
+      if (v >= nblk) break;
       if (spin > (1ll << 24)) __trap();
     }
   }
@@ -289,7 +320,7 @@ __device__ void grid_sync(unsigned* bar) {
 // outputs to -1.
 __device__ void full_scan(const float* __restrict__ plan, int* out, int n,
                           int i0, int lines, const State& st, int* own_row,
-                          int* own_col, Shared& s) {
+                          int* own_col, Shared& s, int nblk) {
   for (int j = threadIdx.x; j < n; j += THREADS) {
     float best = -INFINITY;
     int bi = 0;
@@ -306,7 +337,7 @@ __device__ void full_scan(const float* __restrict__ plan, int* out, int n,
     __syncthreads();
     scan_lines(plan, n, nullptr, nullptr, i0, own_row, own_col, s, c, 0);
   }
-  grid_sync(st.ctr);
+  grid_sync(st.ctr, nblk);
   for (int a = threadIdx.x; a < lines; a += THREADS)
     own_col[a] = key_arg(__ldcg(st.colkey + i0 + a), n);
   __syncthreads();
@@ -343,7 +374,7 @@ __device__ int publish_and_commit(int* out, int n, int i0, int lines,
                                   unsigned* abits, unsigned* cbits,
                                   const State& st, const int* own_row,
                                   const int* own_col, unsigned round,
-                                  Shared& s) {
+                                  Shared& s, int bid, int nblk) {
   unsigned long long* rowpub = st.rowpub[round & 1];
   unsigned long long* colpub = st.colpub[round & 1];
   for (int a = threadIdx.x; a < lines; a += THREADS) {
@@ -354,7 +385,7 @@ __device__ int publish_and_commit(int* out, int n, int i0, int lines,
   // it by the barriers since), matched by the acquire below
   if (threadIdx.x == 0)
     asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(
-                     st.beat + blockIdx.x), "r"(round)
+                     st.beat + bid), "r"(round)
                  : "memory");
   if (threadIdx.x == 0) s.count = 0;
   __syncthreads();
@@ -372,7 +403,7 @@ __device__ int publish_and_commit(int* out, int n, int i0, int lines,
       ++mine;
     }
   }
-  for (int b = threadIdx.x; b < gridDim.x; b += THREADS)
+  for (int b = threadIdx.x; b < nblk; b += THREADS)
     for (long long spin = 0;; ++spin) {
       unsigned v;
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
@@ -418,13 +449,15 @@ __device__ int2 rescan_stale(const float* __restrict__ plan, int n, int i0,
   return count;
 }
 
-// One block per SM, launched cooperatively with ceil(n / r) blocks; block
-// b owns rows and columns [b r, (b + 1) r). Dynamic shared memory: the
+// One block per SM, launched cooperatively with bpp = ceil(n / r) blocks
+// per problem: block b serves problem b / bpp and owns its rows and
+// columns [(b % bpp) r, (b % bpp + 1) r). Dynamic shared memory: the
 // assigned and struck bitmaps (W words each), then the block's own rows'
 // and columns' argmaxes (r ints each).
 __global__ void __launch_bounds__(THREADS)
 round_persistent_kernel(const float* __restrict__ plan, int* __restrict__ out,
-                        int* __restrict__ rounds_out, State st, int n, int r,
+                        int* __restrict__ rounds_out,
+                        unsigned long long* scratch, int n, int r, int bpp,
                         int max_rounds) {
   extern __shared__ unsigned sbits[];
   __shared__ Shared s;
@@ -433,17 +466,23 @@ round_persistent_kernel(const float* __restrict__ plan, int* __restrict__ out,
   unsigned* cbits = sbits + nwords;
   int* own_row = reinterpret_cast<int*>(cbits + nwords);
   int* own_col = own_row + r;
-  const int i0 = blockIdx.x * r, lines = min(r, n - i0);
+  const int prob = blockIdx.x / bpp, bid = blockIdx.x % bpp;
+  plan += (size_t)prob * n * n;
+  out += (size_t)prob * n;
+  rounds_out += prob;
+  const State st = carve(scratch + (size_t)prob * scratch_words(n), n);
+  const int i0 = bid * r, lines = min(r, n - i0);
   long long rows = 0, cols = 0, entries = 0;
   int rounds = 0, remaining = n;
   for (int w = threadIdx.x; w < 2 * nwords; w += THREADS) sbits[w] = 0u;
   __syncthreads();
   if (max_rounds > 0) {
-    full_scan(plan, out, n, i0, lines, st, own_row, own_col, s);
+    full_scan(plan, out, n, i0, lines, st, own_row, own_col, s, bpp);
     for (;;) {
       ++rounds;
       remaining -= publish_and_commit(out, n, i0, lines, abits, cbits, st,
-                                      own_row, own_col, rounds, s);
+                                      own_row, own_col, rounds, s, bid,
+                                      bpp);
       if (remaining == 0 || rounds == max_rounds) break;
       const int2 c = rescan_stale(plan, n, i0, lines, abits, cbits, own_row,
                                   own_col, s);
@@ -458,7 +497,7 @@ round_persistent_kernel(const float* __restrict__ plan, int* __restrict__ out,
     atomicAdd(st.ctr + 1, (unsigned)rows);
     atomicAdd(st.ctr + 2, (unsigned)cols);
     atomicAdd(st.entries, (unsigned long long)entries);
-    if (blockIdx.x == 0) *rounds_out = rounds;
+    if (bid == 0) *rounds_out = rounds;
   }
 }
 
@@ -478,6 +517,9 @@ round_dominant_kernel(const float* __restrict__ plan, int* __restrict__ out,
   __shared__ int remaining;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  plan += (size_t)blockIdx.x * n * n;     // problem blockIdx.x
+  out += (size_t)blockIdx.x * n;
+  rounds_out += blockIdx.x;
   for (int i = tid; i < n; i += THREADS) {
     assign[i] = -1;
     struck[i] = 0;
@@ -541,44 +583,28 @@ round_dominant_kernel(const float* __restrict__ plan, int* __restrict__ out,
   if (tid == 0) *rounds_out = rounds;
 }
 
-// The scratch: 6 n + 3 zeroed 8-byte words — the column keys, two
-// buffers of published row words, two of column words, the beats (n
-// 4-byte words, blocks <= n), the entry count and four 4-byte counters
-// (ops/rounding.py sizes and reads it the same way).
-State carve(void* scratch, int n) {
-  State st;
-  auto* w = static_cast<unsigned long long*>(scratch);
-  st.colkey = w;
-  st.rowpub[0] = w + (size_t)n;
-  st.rowpub[1] = w + 2 * (size_t)n;
-  st.colpub[0] = w + 3 * (size_t)n;
-  st.colpub[1] = w + 4 * (size_t)n;
-  st.beat = reinterpret_cast<unsigned*>(w + 5 * (size_t)n);
-  st.entries = w + 6 * (size_t)n;
-  st.ctr = reinterpret_cast<unsigned*>(st.entries + 1);
-  return st;
-}
-
 }  // namespace
 
-// Both entry points: plan (n, n) f32 in; out (n,) int32 permutation (-1
-// where unassigned); rounds_out () int32.
+// The entry points: plan (batch, n, n) f32 in; out (batch, n) int32
+// permutations (-1 where unassigned); rounds_out (batch,) int32.
 
-// The current design: one cooperative launch on `stream`, with the zeroed
-// scratch (see carve). Counts its launch into the host int *launched and
-// returns the first CUDA error.
-extern "C" int round_dominant_launch(const float* plan, int* out,
-                                     int* rounds_out, void* scratch, int n,
-                                     int max_rounds, int* launched,
-                                     void* stream) {
+// The current design: one cooperative launch on `stream` per wave of at
+// most SMs problems (one wave up to 132 on an H100), with the zeroed
+// scratch of batch * (6 n + 3) words (see carve). Counts its launches into
+// the host int *launched and returns the first CUDA error.
+extern "C" int round_dominant_batched_launch(const float* plan, int* out,
+                                             int* rounds_out, void* scratch,
+                                             int batch, int n, int max_rounds,
+                                             int* launched, void* stream) {
   *launched = 0;
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  int r = (n + sms - 1) / sms;                // one block per SM
-  const int blocks = (n + r - 1) / r;
+  const int per_wave = batch < sms ? batch : sms;
+  int r = (n + sms / per_wave - 1) / (sms / per_wave);  // blocks per problem
+  int bpp = (n + r - 1) / r;                            // <= SMs / per_wave
   const size_t smem = (2 * (size_t)((n + 31) / 32) + 2 * (size_t)r) *
                       sizeof(unsigned);
   if (smem + sizeof(Shared) > 48 * 1024)
@@ -591,22 +617,39 @@ extern "C" int round_dominant_launch(const float* plan, int* out,
         &per_sm, round_persistent_kernel, THREADS, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  State st = carve(scratch, n);
-  void* args[] = {&plan, &out, &rounds_out, &st, &n, &r, &max_rounds};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(round_persistent_kernel), dim3(blocks),
-      dim3(THREADS), args, smem, static_cast<cudaStream_t>(stream));
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  *launched = 1;
+  auto* words = static_cast<unsigned long long*>(scratch);
+  for (int b0 = 0; b0 < batch; b0 += per_wave) {
+    const int p = batch - b0 < per_wave ? batch - b0 : per_wave;
+    const float* pl = plan + (size_t)b0 * n * n;
+    int* o = out + (size_t)b0 * n;
+    int* ro = rounds_out + b0;
+    unsigned long long* sc = words + (size_t)b0 * scratch_words(n);
+    void* args[] = {&pl, &o, &ro, &sc, &n, &r, &bpp, &max_rounds};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(round_persistent_kernel), dim3(p * bpp),
+        dim3(THREADS), args, smem, static_cast<cudaStream_t>(stream));
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
   return cudaSuccess;
 }
 
-// The single-block design; needs 17 n bytes of shared memory (n <= 13,673 on an
-// H100) and returns cudaErrorInvalidValue past that.
+// One plan: the batched entry with batch = 1 (one block per SM).
+extern "C" int round_dominant_launch(const float* plan, int* out,
+                                     int* rounds_out, void* scratch, int n,
+                                     int max_rounds, int* launched,
+                                     void* stream) {
+  return round_dominant_batched_launch(plan, out, rounds_out, scratch, 1, n,
+                                       max_rounds, launched, stream);
+}
+
+// The single-block design, one block per problem (grid = batch); needs
+// 17 n bytes of shared memory (n <= 13,673 on an H100) and returns
+// cudaErrorInvalidValue past that.
 extern "C" int round_dominant_single_block_launch(const float* plan, int* out,
-                                                  int* rounds_out, int n,
-                                                  int max_rounds,
+                                                  int* rounds_out, int batch,
+                                                  int n, int max_rounds,
                                                   void* stream) {
   const size_t smem = 17 * (size_t)n;
   if (smem + sizeof(int) > 232448) return cudaErrorInvalidValue;
@@ -616,8 +659,8 @@ extern "C" int round_dominant_single_block_launch(const float* plan, int* out,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  round_dominant_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(
-                                                stream)>>>(
+  round_dominant_kernel<<<batch, THREADS, smem, static_cast<cudaStream_t>(
+                                                    stream)>>>(
       plan, out, rounds_out, n, max_rounds);
   return cudaGetLastError();
 }

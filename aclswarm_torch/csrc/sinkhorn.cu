@@ -51,6 +51,23 @@
 // routes by its VMEM budget. Both report the launches they made: 1, or
 // 2 n_iters + 2.
 //
+// Batched (sinkhorn_log_batched_launch): B independent solves, the trials
+// of a wave. A block's work is the same whatever r is: each line runs
+// through the same four warps, the same strided partial sums and the same
+// combine, and the plan entry is (logK + f) + g as above. So a problem
+// whose blocks own more lines (larger r, fewer blocks) computes the same
+// bits as a single launch, and one cooperative launch can hold several
+// problems, block b serving problem b / bpp. What bounds it is residency:
+// every block of a launch must be resident, and a problem at r lines per
+// block needs ceil(n / r) blocks of (2 r n + n) 4 bytes. So the problems
+// go in residency waves: the most problems per launch for which some r
+// within the shared-memory limit fits them all on the card, each wave at
+// the smallest such r (n = 1000 on 132 SMs: 3 problems at r = 23, so
+// B = 5 is a wave of 3 and a wave of 2). Where even one problem's stripes
+// do not fit, every problem runs the multi-launch design below, as a
+// single solve would at that size: the batched route never changes the
+// design, and so never the bits, that a single solve of the same n gets.
+//
 // Multi-launch design (sinkhorn_log_multi_launch): one kernel per
 // half-iteration. logK is written once into the output buffer and the
 // final pass adds f and g to it in place. Row pass: one block per row,
@@ -59,6 +76,8 @@
 // over COL_ROWS thread rows and reduced in shared memory.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <vector>
 
 namespace {
 
@@ -164,20 +183,26 @@ __device__ __forceinline__ void half_step(const float* K, const float* vec,
   }
 }
 
-// One solve per launch; launched cooperatively with ceil(n / r) blocks.
-// f, g: n tagged entries each, zeroed by the caller.
+// Solves problems blockIdx.x / bpp, bpp = ceil(n / r) blocks each;
+// launched cooperatively. f, g: n tagged entries per problem, zeroed by
+// the caller.
 __global__ void __launch_bounds__(P_THREADS)
 sinkhorn_persistent_kernel(const float* __restrict__ cost,
                            float* __restrict__ plan, unsigned long long* f,
-                           unsigned long long* g, int n, int r, float tau,
-                           int n_iters, float log_mu) {
+                           unsigned long long* g, int n, int r, int bpp,
+                           float tau, int n_iters, float log_mu) {
   extern __shared__ float smem[];
   __shared__ float red[2 * P_WARPS];          // per-warp partial max, sum
   float* rowK = smem;                         // [lines][n]: logK[i0 + a, :]
   float* colK = smem + (size_t)r * n;         // [lines][n]: logK[:, i0 + a]
   float* vec = smem + 2 * (size_t)r * n;      // [n]: the staged potential
   const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * r;
+  const int prob = blockIdx.x / bpp;
+  cost += (size_t)prob * n * n;
+  plan += (size_t)prob * n * n;
+  f += (size_t)prob * n;
+  g += (size_t)prob * n;
+  const int i0 = (blockIdx.x % bpp) * r;
   const int lines = max(0, min(r, n - i0));
   const int span = lines * n;
 
@@ -347,45 +372,140 @@ extern "C" int sinkhorn_log_multi_launch(const float* cost, float* out,
   return cudaSuccess;
 }
 
-// The solve: one cooperative launch where the stripes fit in shared
-// memory, the multi-launch design where they do not.
-extern "C" int sinkhorn_log_launch(const float* cost, float* out, void* f,
-                                   void* g, int n, float tau, int n_iters,
-                                   float log_mu, int* launched,
-                                   void* stream) {
-  *launched = 0;
-  int dev, sms, smem_max;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+namespace {
+
+size_t stripe_bytes(int n, int r) {
+  // the static `red` array shares the block's shared memory
+  return (2 * (size_t)r * n + n) * sizeof(float) + 2 * P_WARPS * sizeof(float);
+}
+
+size_t dynamic_bytes(int n, int r) {
+  return (2 * (size_t)r * n + n) * sizeof(float);
+}
+
+// How a batch of B solves of size n is launched on this device: waves of
+// per_wave problems at r lines per block, the last wave (of B mod
+// per_wave problems, if any) at r_last. r = 0 means the multi-launch design.
+struct Plan {
+  int dev, n, batch, per_wave, r, r_last;
+};
+
+cudaError_t plan_for(int dev, int n, int batch, Plan* out) {
+  static Plan cache[8];
+  static int filled = 0, next = 0;
+  for (int k = 0; k < filled; ++k)
+    if (cache[k].dev == dev && cache[k].n == n && cache[k].batch == batch) {
+      *out = cache[k];
+      return cudaSuccess;
+    }
+  int sms, smem_max;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&smem_max,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  int r = (n + sms - 1) / sms;                // one block per SM
+  Plan p = {dev, n, batch, 0, 0, 0};
+  const int r_lo = (n + sms - 1) / sms;       // a single solve: one block per SM
+  if (stripe_bytes(n, r_lo) <= (size_t)smem_max) {
+    // resident blocks per SM at each r that fits
+    int r_hi = r_lo;
+    while (r_hi < n && stripe_bytes(n, r_hi + 1) <= (size_t)smem_max) ++r_hi;
+    std::vector<int> per_sm(r_hi - r_lo + 1);
+    for (int r = r_lo; r <= r_hi; ++r) {
+      err = cudaFuncSetAttribute(sinkhorn_persistent_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)dynamic_bytes(n, r));
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm[r - r_lo], sinkhorn_persistent_kernel, P_THREADS,
+            dynamic_bytes(n, r));
+      if (err != cudaSuccess) return err;
+    }
+    // the smallest r at which `problems` solves are all resident, or 0
+    auto lines_for = [&](int problems) {
+      for (int r = r_lo; r <= r_hi; ++r)
+        if ((long long)problems * ((n + r - 1) / r) <=
+            (long long)sms * per_sm[r - r_lo])
+          return r;
+      return 0;
+    };
+    for (int q = batch; q >= 1 && p.per_wave == 0; --q)
+      if ((p.r = lines_for(q)) > 0) p.per_wave = q;
+    if (p.per_wave == 0) return cudaErrorCooperativeLaunchTooLarge;
+    p.r_last = batch % p.per_wave ? lines_for(batch % p.per_wave) : p.r;
+  }
+  cache[next] = p;
+  next = (next + 1) % 8;
+  if (filled < 8) ++filled;
+  *out = p;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// B solves: cost (B, n, n) f32 in, out (B, n, n) plans, f and g scratch of
+// B n zeroed 8-byte words each. One cooperative launch per residency wave
+// where one solve's stripes fit in shared memory (see the note above), the
+// multi-launch design for every problem where they do not. Counts every
+// launch into *launched.
+extern "C" int sinkhorn_log_batched_launch(const float* cost, float* out,
+                                           void* f, void* g, int batch, int n,
+                                           float tau, int n_iters,
+                                           float log_mu, int* launched,
+                                           void* stream) {
+  *launched = 0;
+  int dev;
+  Plan plan;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = plan_for(dev, n, batch, &plan);
+  if (err != cudaSuccess) return err;
+  const size_t nn = (size_t)n * n;
   auto* ft = static_cast<unsigned long long*>(f);
   auto* gt = static_cast<unsigned long long*>(g);
-  const int blocks = (n + r - 1) / r;
-  const size_t smem = (2 * (size_t)r * n + n) * sizeof(float);
-  // the static `red` array shares the block's shared memory
-  if (smem + 2 * P_WARPS * sizeof(float) > (size_t)smem_max)
-    return sinkhorn_log_multi_launch(cost, out, f, g, n, tau, n_iters, log_mu,
-                                     launched, stream);
-  err = cudaFuncSetAttribute(sinkhorn_persistent_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sinkhorn_persistent_kernel, P_THREADS, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&cost, &out, &ft, &gt, &n, &r, &tau, &n_iters, &log_mu};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(sinkhorn_persistent_kernel), dim3(blocks),
-      dim3(P_THREADS), args, smem, static_cast<cudaStream_t>(stream));
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  *launched = 1;
+  if (plan.r == 0) {
+    for (int b = 0; b < batch; ++b) {
+      int made = 0;
+      err = static_cast<cudaError_t>(sinkhorn_log_multi_launch(
+          cost + b * nn, out + b * nn, ft + (size_t)b * n, gt + (size_t)b * n,
+          n, tau, n_iters, log_mu, &made, stream));
+      *launched += made;
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+  for (int b0 = 0; b0 < batch; b0 += plan.per_wave) {
+    const bool last = batch - b0 < plan.per_wave;
+    const int p = last ? batch - b0 : plan.per_wave;
+    int r = last ? plan.r_last : plan.r;
+    int bpp = (n + r - 1) / r;
+    const size_t smem = dynamic_bytes(n, r);
+    err = cudaFuncSetAttribute(sinkhorn_persistent_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const float* c = cost + b0 * nn;
+    float* o = out + b0 * nn;
+    unsigned long long* fw = ft + (size_t)b0 * n;
+    unsigned long long* gw = gt + (size_t)b0 * n;
+    void* args[] = {&c, &o, &fw, &gw, &n, &r, &bpp, &tau, &n_iters, &log_mu};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(sinkhorn_persistent_kernel), dim3(p * bpp),
+        dim3(P_THREADS), args, smem, static_cast<cudaStream_t>(stream));
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
   return cudaSuccess;
+}
+
+// One solve: the batched entry with B = 1 — one cooperative launch at
+// r = ceil(n / SMs) where the stripes fit in shared memory, the
+// multi-launch design where they do not.
+extern "C" int sinkhorn_log_launch(const float* cost, float* out, void* f,
+                                   void* g, int n, float tau, int n_iters,
+                                   float log_mu, int* launched,
+                                   void* stream) {
+  return sinkhorn_log_batched_launch(cost, out, f, g, 1, n, tau, n_iters,
+                                     log_mu, launched, stream);
 }

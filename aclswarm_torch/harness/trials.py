@@ -21,9 +21,24 @@ present) in ``TrialConfig.dtype``. The host reads the chunk's signals in
 two device-to-host copies per chunk, never per tick. A chunk that fails
 on the device raises: there is no CPU re-run.
 
+With ``batch`` > 1 the trials fly in waves of ``batch`` (`run_trial_batch`):
+one batched rollout per chunk advances every trial of the wave with one
+set of launches (`sim.batched_rollout`), the supervisor's per-tick
+predicates are reduced on the device (`sim.summary`), and the host reads
+(B, chunk) flags and (B, n) distances in two copies per chunk for the whole
+wave, which drive one `SummaryTrialFSM` per trial. The trials share the
+auction phase, so ``chunk_ticks`` must be a multiple of ``assign_every``
+(and, flooded, ``assign_every`` of ``flood_every``); before its first
+dispatch a trial's auctions are gated off instead of configured off. A
+formation commit rewrites its trial's row at the chunk boundary, and once
+half the rows are done the wave is compacted to the next power of two.
+
 Run:
     python -m aclswarm_torch.harness.trials -f swarm6_3d -m 1 \\
         --set device=cpu --set dtype=float64
+    python -m aclswarm_torch.harness.trials -f simform8 -m 2 \\
+        --set batch=2 --set chunk_ticks=120 --set device=cpu \\
+        --set dtype=float64
     python -m aclswarm_torch.harness.trials --analyze trials.csv -n 6 -m 1
 
 Fields of the reference's config that the port does not run yet raise
@@ -47,14 +62,18 @@ from aclswarm_torch import gains as gainslib
 from aclswarm_torch import sim
 from aclswarm_torch.core import config as configlib
 from aclswarm_torch.core import perm as permutil
+from aclswarm_torch.core import types as typeslib
 from aclswarm_torch.core.types import (ControlGains, SafetyParams,
                                        make_formation, resolve_device)
 from aclswarm_torch.harness import formations as formlib
 from aclswarm_torch.harness import formgen
 from aclswarm_torch.harness.formations import FormationSpec
-from aclswarm_torch.harness.supervisor import NAMES, TRIAL_TIMEOUT, TrialFSM
+from aclswarm_torch.harness.supervisor import (BUFFER_SECONDS, NAMES,
+                                               TRIAL_TIMEOUT,
+                                               SummaryTrialFSM, TrialFSM)
 from aclswarm_torch.resilience import checkpoint as ckptlib
 from aclswarm_torch.resilience.crash import maybe_crash
+from aclswarm_torch.sim import summary as sumlib
 from aclswarm_torch.sim.vehicle import CMD_GO, ExternalInputs
 
 
@@ -69,7 +88,7 @@ class TrialConfig:
     trials: int = 1                 # Monte-Carlo trial count (trials.sh -m)
     seed: int = 1                   # trial t runs with seed+t
     out: str = "trials.csv"         # CSV results path (append)
-    batch: int = 1                  # > 1: the batched driver (not ported)
+    batch: int = 1                  # > 1: waves of `batch` trials
     # engine knobs (SimConfig mirror)
     assignment: str = "auction"     # auction | sinkhorn | cbaa
     dynamics: str = "doubleint"     # doubleint | tracking | firstorder
@@ -157,8 +176,6 @@ def _not_ported(field: str, item: str) -> NotImplementedError:
 
 def _check_ported(cfg: TrialConfig) -> None:
     """Raise for the reference's fields that the port does not run."""
-    if cfg.batch > 1:
-        raise _not_ported("batch > 1", "10 (batched trials)")
     if cfg.scenario is not None:
         raise _not_ported("scenario", "13 (scenarios)")
     if cfg.check_mode == "on":
@@ -505,6 +522,271 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
     return fsm
 
 
+def _batch_inputs(chunk: int, batch: int, n: int, go: list, device,
+                  dtype) -> ExternalInputs:
+    """A wave's chunk inputs, (chunk, B, ...): no joystick, CMD_GO on the
+    first tick of each trial in ``go``."""
+    cmd = torch.zeros((chunk, batch), dtype=torch.int32, device=device)
+    for b in go:
+        cmd[0, b] = CMD_GO
+    return ExternalInputs(
+        cmd=cmd,
+        joy_vel=torch.zeros((chunk, batch, n, 3), dtype=dtype,
+                            device=device),
+        joy_yawrate=torch.zeros((chunk, batch, n), dtype=dtype,
+                                device=device),
+        joy_active=torch.zeros((chunk, batch, n), dtype=torch.bool,
+                               device=device))
+
+
+def _formation_payload(f) -> dict:
+    return {k: _host(v) for k, v in vars(f).items()}
+
+
+def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
+                    ) -> list[SummaryTrialFSM]:
+    """B seeded trials in one batched rollout per chunk: per chunk the
+    device runs every trial's next `chunk_ticks` ticks with one set of
+    launches and reduces the supervisor's observables on the device
+    (`sim.summary.batched_rollout_summary`); the host reads (B, chunk)
+    flags and (B, n) distances in two copies for the whole wave.
+
+    Lifecycle actions (CMD_GO, formation commits) stay at chunk
+    boundaries, as in `run_trial`; a commit designs that trial's gains
+    (one formation at a time, warm from its own `AdmmCarry` with
+    ``warm_gains``) and rewrites its row of the batched formation and
+    state. ``chunk_ticks % assign_every == 0`` keeps the auction phase
+    shared across the wave. Once at least half the rows are done the wave
+    is compacted: the live trials are gathered into the next power-of-two
+    batch. Returns the trials' `SummaryTrialFSM`s in ``trial_indices``
+    order."""
+    if cfg.record_dir is not None:
+        raise ValueError("record_dir needs the per-tick metric stack; run "
+                         "with batch=1 to record rollouts")
+    _check_ported(cfg)
+    chunk = cfg.chunk_ticks
+    if chunk % cfg.assign_every:
+        raise ValueError(
+            f"batched trials require chunk_ticks ({chunk}) to be a "
+            f"multiple of assign_every ({cfg.assign_every}) so all trials "
+            "share the auction phase")
+    dev = resolve_device(cfg.device)
+    dtype = _DTYPES[cfg.dtype]
+    B = len(trial_indices)
+    flooded = cfg.localization == "flooded"
+
+    specs_per, q0s = [], []
+    for t in trial_indices:
+        seed = cfg.seed + t
+        rng = np.random.default_rng(seed)
+        specs = _formations_for_trial(cfg, seed)
+        specs_per.append(specs)
+        q0s.append(formgen.sample_cylinder_points(
+            rng, specs[0].n, cfg.init_area_w, cfg.init_area_h, 0.0,
+            min_dist=2 * cfg.init_radius))
+    n = specs_per[0][0].n
+    n_forms = len(specs_per[0])
+    if any(sp[0].n != n or len(sp) != n_forms for sp in specs_per):
+        raise ValueError("batched trials need a uniform formation shape "
+                         "across the batch")
+
+    sparams = _trial_sparams(cfg)
+    trial_timeout = (TRIAL_TIMEOUT if cfg.trial_timeout is None
+                     else cfg.trial_timeout)
+    for specs in specs_per:
+        for spec in specs:
+            formlib.check_feasible(spec, float(sparams.r_keep_out))
+
+    fly_cfg = sim.SimConfig(assignment=cfg.assignment, **_engine_kw(cfg))
+    if flooded and cfg.assign_every % fly_cfg.flood_every:
+        raise ValueError("batched flooded trials require assign_every to "
+                         "be a multiple of flood_every (a shared flood "
+                         "phase)")
+
+    bstate = sim.stack_states([
+        sim.init_state(q0, flying=False, localization=flooded, device=dev,
+                       dtype=dtype) for q0 in q0s])
+    # before its first dispatch a trial's auctions are gated off: the wave
+    # shares one configuration, so the serial driver's hover
+    # assignment='none' becomes this per-trial gate
+    bstate.assign_enabled.zero_()
+    # pre-dispatch rows: the first formation's points, no graph, no gains
+    bform = typeslib.make_formations(
+        np.stack([np.asarray(sp[0].points) for sp in specs_per]),
+        np.zeros((B, n, n)), None, device=dev, dtype=dtype)
+
+    cgains = _trial_cgains(cfg)
+    dt = cfg.control_dt
+    window = max(1, int(round(BUFFER_SECONDS / dt)))
+    fsms = [SummaryTrialFSM(n, n_forms,
+                            takeoff_alt=float(sparams.takeoff_alt), dt=dt,
+                            trial_timeout=trial_timeout)
+            for _ in range(B)]
+    all_fsms = list(fsms)         # trial_indices order, for the return
+    torig = list(trial_indices)   # the trial of each current row
+    scarry = sumlib.init_carry(n, window, dtype=dtype, device=dev, batch=B)
+    gains_cache: list[dict] = [dict() for _ in range(B)]
+    # per-row warm-start seeds (`run_trial`'s `admm_carry`)
+    admm_carries: list = [None] * B
+    pending_go = [False] * B
+    pending_dispatch: list[Optional[int]] = [None] * B
+    max_ticks = int(trial_timeout / dt) + 10 * chunk
+    ticks_done = 0
+    chunk_idx = 0
+    specs_per_orig = list(specs_per)
+
+    ckpt_dir = cfg.checkpoint_dir
+    stem = f"wave{trial_indices[0]:05d}_b{B}"
+    if ckpt_dir is not None:
+        cfg_hash, fingerprint = _ckpt_cfg_hash(cfg), _fingerprint(cfg)
+        trials_key = list(map(int, trial_indices))
+    if ckpt_dir is not None and cfg.resume:
+        path = ckptlib.latest_checkpoint(ckpt_dir, stem)
+        if path is not None:
+            payload, man = ckptlib.load_checkpoint(
+                path, expected=ckptlib.expected_manifest(
+                    "trial_batch", cfg_hash, fingerprint,
+                    trials=trials_key))
+            # a compaction may have shrunk the trial axis: restore against
+            # the full-B templates with a flexible leading axis
+            bstate = ckptlib.restore_state(bstate, payload["state"],
+                                           batch_flex=True, path=path)
+            ckptlib.check_leaves(_formation_payload(bform), payload["bform"],
+                                 batch_flex=True, path=path,
+                                 what="Formation")
+            bform = convert.formation_from_numpy(payload["bform"], dev,
+                                                 dtype)
+            ckptlib.check_leaves(convert.summary_carry_to_numpy(scarry),
+                                 payload["scarry"], batch_flex=True,
+                                 path=path, what="SummaryCarry")
+            scarry = convert.summary_carry_from_numpy(payload["scarry"], dev,
+                                                      dtype)
+            for f, snap in zip(all_fsms, payload["fsms"]):
+                f.restore(snap)
+            live_rows = [int(i) for i in payload["live_rows"]]
+            fsms = [all_fsms[i] for i in live_rows]
+            torig = [trial_indices[i] for i in live_rows]
+            specs_per = [specs_per_orig[i] for i in live_rows]
+            # copies: the codec's arrays are read-only views of the file
+            gains_cache = [{int(k): np.array(v) for k, v in g.items()}
+                           for g in payload["gains_cache"]]
+            admm_carries = [_carry_restore(d, dev, dtype)
+                            for d in payload["admm_carries"]]
+            pending_go = list(payload["pending_go"])
+            pending_dispatch = list(payload["pending_dispatch"])
+            ticks_done = payload["ticks_done"]
+            chunk_idx = int(man["chunk"])
+
+    while chunk_idx < max_ticks // chunk + 1:
+        if all(f.done for f in fsms):
+            break
+        # compact: once half the rows are dead weight, gather the live
+        # trials into the next power-of-two batch
+        live = [i for i, f in enumerate(fsms) if not f.done]
+        if len(fsms) > 1 and len(live) <= len(fsms) // 2:
+            new_b = 1
+            while new_b < len(live):
+                new_b *= 2
+            fillers = [i for i, f in enumerate(fsms) if f.done]
+            keep = sorted(live + fillers[:new_b - len(live)])
+            rows = torch.as_tensor(keep, dtype=torch.int64).to(dev)
+            bstate = sim.take_trials(bstate, keep)
+            bform = typeslib.take_rows(bform, rows)
+            scarry = typeslib.take_rows(scarry, rows)
+            fsms = [fsms[k] for k in keep]
+            torig = [torig[k] for k in keep]
+            specs_per = [specs_per[k] for k in keep]
+            gains_cache = [gains_cache[k] for k in keep]
+            admm_carries = [admm_carries[k] for k in keep]
+            pending_go = [pending_go[k] for k in keep]
+            pending_dispatch = [pending_dispatch[k] for k in keep]
+        bc = len(fsms)
+        inputs = _batch_inputs(chunk, bc, n,
+                               [b for b in range(bc) if pending_go[b]], dev,
+                               dtype)
+        pending_go = [False] * bc
+        bstate, scarry, summ = sumlib.batched_rollout_summary(
+            bstate, scarry, bform, cgains, sparams, fly_cfg, chunk, inputs,
+            0, window=window, takeoff_alt=float(sparams.takeoff_alt))
+        # the chunk's host reads: two copies for the whole wave
+        host = sumlib.to_host(summ)
+        ticks_done += chunk
+        auc_ok = host["auctioned"] & host["assign_valid"]
+
+        for b, fsm in enumerate(fsms):
+            if fsm.done:
+                continue
+            acts = fsm.process_chunk(host["conv_all"][b], host["grid_any"][b],
+                                     host["taken_off"][b], auc_ok[b],
+                                     host["reassigned"][b])
+            fsm.observe_cumdist(host["cumdist"][b])
+            for act in acts:
+                if act == "takeoff":
+                    pending_go[b] = True
+                elif act == "dispatch":
+                    pending_dispatch[b] = fsm.curr_formation_idx
+
+        # formation commits take effect at the chunk boundary (the serial
+        # driver's dispatch latency), rewriting one row each
+        for b, fsm in enumerate(fsms):
+            idx = pending_dispatch[b]
+            pending_dispatch[b] = None
+            if idx is None or fsm.done:
+                continue
+            spec = specs_per[b][idx]
+            if idx not in gains_cache[b]:
+                if cfg.warm_gains:
+                    g, admm_carries[b] = _dispatch_gains(
+                        cfg, spec, n, carry=admm_carries[b], device=dev,
+                        dtype=dtype)
+                else:
+                    g = _dispatch_gains(cfg, spec, n, device=dev,
+                                        dtype=dtype)
+                gains_cache[b][idx] = g
+            typeslib.set_row(bform, b, make_formation(
+                spec.points, spec.adjmat, gains_cache[b][idx], device=dev,
+                dtype=dtype))
+            # the auctioneer's identity reset and an auction on the
+            # formation's first tick, as `run_trial` re-phases
+            bstate.v2f[b] = permutil.identity(n, dev)
+            bstate.first_auction[b] = True
+            bstate.assign_enabled[b] = True
+            bstate.tick[b] = 0
+            fsm.formation_dispatched()
+
+        # chunk boundary: checkpoint first, then the scripted-preemption
+        # hook, so a crash at boundary k resumes from k
+        chunk_idx += 1
+        if ckpt_dir is not None and not all(f.done for f in fsms) \
+                and chunk_idx % max(1, cfg.checkpoint_every) == 0:
+            row_of = {t: i for i, t in enumerate(trial_indices)}
+            payload = {
+                "state": convert.sim_state_to_numpy(bstate),
+                "bform": _formation_payload(bform),
+                "scarry": convert.summary_carry_to_numpy(scarry),
+                "fsms": [f.snapshot() for f in all_fsms],
+                "live_rows": [row_of[t] for t in torig],
+                "gains_cache": [{str(k): _host(v) for k, v in g.items()}
+                                for g in gains_cache],
+                "admm_carries": [_carry_payload(c) for c in admm_carries],
+                "pending_go": list(pending_go),
+                "pending_dispatch": list(pending_dispatch),
+                "ticks_done": ticks_done,
+            }
+            ckptlib.write_checkpoint(
+                ckpt_dir, stem, payload,
+                ckptlib.make_manifest("trial_batch", cfg_hash, chunk_idx,
+                                      fingerprint, trials=trials_key,
+                                      ticks_done=ticks_done))
+        maybe_crash("batch", chunk_idx)
+
+    if ckpt_dir is not None and all(f.done for f in all_fsms):
+        ckptlib.clear_checkpoints(ckpt_dir, stem)
+    for f in all_fsms:
+        f.execution = {}
+    return all_fsms
+
+
 def analyze(data: np.ndarray, n: int, m: int) -> dict:
     """CSV reduction (`analyze_simtrials.m`): completion %, totals across
     the formation cycle, mean/std statistics."""
@@ -571,12 +853,15 @@ def _csv_trial_ids(path: str) -> set[int]:
     return ids
 
 
+_FSM_CLASSES = {"TrialFSM": TrialFSM, "SummaryTrialFSM": SummaryTrialFSM}
+
+
 def _write_done_marker(cfg: TrialConfig, key: str, pairs: list) -> None:
     """Persist finished trials (``pairs`` = [(trial_idx, fsm), ...]) so a
     resumed `run_trials` replays their results instead of recomputing
     them."""
     payload = {"trials": [
-        {"trial": int(t), "snap": f.snapshot(),
+        {"trial": int(t), "cls": type(f).__name__, "snap": f.snapshot(),
          "ctor": {"n_vehicles": f.n, "n_formations": f.n_formations,
                   "takeoff_alt": float(f.takeoff_alt), "dt": f.dt,
                   "trial_timeout": f.trial_timeout}}
@@ -599,7 +884,7 @@ def _load_done_marker(cfg: TrialConfig, key: str):
             "trials_done", _ckpt_cfg_hash(cfg), _fingerprint(cfg), key=key))
     out = []
     for rec in payload["trials"]:
-        fsm = TrialFSM(**rec["ctor"])
+        fsm = _FSM_CLASSES[rec.get("cls", "TrialFSM")](**rec["ctor"])
         fsm.restore(rec["snap"])
         out.append((int(rec["trial"]), fsm))
     return out
@@ -610,11 +895,15 @@ def run_trials(cfg: TrialConfig) -> dict:
     the CSV as each trial finishes, the `analyze_simtrials` summary
     returned (and printed when verbose).
 
-    With ``cfg.checkpoint_dir`` every finished trial leaves a done-marker
-    and the trial in flight checkpoints at chunk boundaries: a killed run
-    resumed with the same config replays finished results and continues
-    the interrupted trial bit for bit; CSV appends are idempotent by trial
-    id."""
+    With ``cfg.batch`` > 1 the trials fly in waves of ``batch``
+    (`run_trial_batch`); rows are appended as each trial (serial) or wave
+    (batched) finishes, in trial order either way.
+
+    With ``cfg.checkpoint_dir`` every finished trial or wave leaves a
+    done-marker and the trial or wave in flight checkpoints at chunk
+    boundaries: a killed run resumed with the same config replays finished
+    results and continues the interrupted one bit for bit; CSV appends are
+    idempotent by trial id."""
     _check_ported(cfg)
     rows = []
     n = None
@@ -637,16 +926,26 @@ def run_trials(cfg: TrialConfig) -> dict:
                     csv.writer(f).writerow(row)
                 appended_ids.add(t)
 
-    for t in range(cfg.trials):
-        key = f"trial{t:05d}"
+    if cfg.batch > 1:
+        waves = [list(range(start, min(start + cfg.batch, cfg.trials)))
+                 for start in range(0, cfg.trials, cfg.batch)]
+    else:
+        waves = [[t] for t in range(cfg.trials)]
+    for idxs in waves:
+        key = f"wave{idxs[0]:05d}" if cfg.batch > 1 else f"trial{idxs[0]:05d}"
         done = _load_done_marker(cfg, key) if ckpt and cfg.resume else None
         if done is not None:
-            _log_and_append(*done[0], replayed=True)
+            for t, fsm in done:
+                _log_and_append(t, fsm, replayed=True)
             continue
-        fsm = run_trial(cfg, t)
-        _log_and_append(t, fsm)
+        if cfg.batch > 1:
+            pairs = list(zip(idxs, run_trial_batch(cfg, idxs)))
+        else:
+            pairs = [(idxs[0], run_trial(cfg, idxs[0]))]
+        for t, fsm in pairs:
+            _log_and_append(t, fsm)
         if ckpt:
-            _write_done_marker(cfg, key, [(t, fsm)])
+            _write_done_marker(cfg, key, pairs)
     if rows:
         stats = analyze(np.asarray(rows, dtype=np.float64), n, cfg.trials)
     else:

@@ -38,14 +38,19 @@ _ENTRY = {
                             ctypes.POINTER(_I), _P),
     "round_dominant_launch": (_P, _P, _P, _P, _I, _I, ctypes.POINTER(_I),
                               _P),
-    "flood_merge_launch": (_P, _P, _P, _I, _I, _P),
+    # a trial axis: B problems, the batch count before the size
+    "sinkhorn_log_batched_launch": (_P, _P, _P, _P, _I, _I, _F, _I, _F,
+                                    ctypes.POINTER(_I), _P),
+    "round_dominant_batched_launch": (_P, _P, _P, _P, _I, _I, _I,
+                                      ctypes.POINTER(_I), _P),
+    "flood_merge_launch": (_P, _P, _P, _I, _I, _I, _P),
     # earlier designs, which chip_smoke.py times the current ones against;
     # sinkhorn_log_launch also runs the multi-launch design past its
     # shared-memory limit
     "sinkhorn_log_multi_launch": (_P, _P, _P, _P, _I, _F, _I, _F,
                                   ctypes.POINTER(_I), _P),
-    "round_dominant_single_block_launch": (_P, _P, _P, _I, _I, _P),
-    "flood_merge_bytemask_launch": (_P, _P, _P, _I, _I, _P),
+    "round_dominant_single_block_launch": (_P, _P, _P, _I, _I, _I, _P),
+    "flood_merge_bytemask_launch": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 # kernel launches per wrapper since the last `reset_launches`

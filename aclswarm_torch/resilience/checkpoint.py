@@ -29,7 +29,8 @@ corrupted files raise `CheckpointCorrupt`. Writes are atomic (tmp +
 
 `SimState` crosses as `convert.sim_state_to_numpy`'s nested dict and
 comes back through `restore_state`, every leaf checked against the
-resuming run's own state.
+resuming run's own state (`check_leaves`; ``batch_flex`` lets a batched
+wave resume across a compaction of its trial axis).
 """
 from __future__ import annotations
 
@@ -261,26 +262,40 @@ def _leaves(tree, prefix: str = "") -> dict:
     return {prefix: tree}
 
 
-def restore_state(template, arrays: dict, *, path="<arrays>"):
-    """A `SimState` on ``template``'s device and in its dtype, from
-    checkpointed leaves (`convert.sim_state_to_numpy`'s nested dict). Every leaf must match the template's in presence,
-    dtype and shape: a leaf that no longer lines up means the checkpoint
-    predates a structural change (`CheckpointMismatch`)."""
-    from aclswarm_torch import convert
-
-    want = _leaves(convert.sim_state_to_numpy(template))
-    got = _leaves(arrays)
-    bad = [(f"SimState.{k}", "present" if k in want else "absent",
+def check_leaves(want: dict, got: dict, *, batch_flex: bool = False,
+                 path="<arrays>", what: str = "SimState") -> None:
+    """Raise `CheckpointMismatch` unless the checkpointed leaves ``got``
+    match the template's ``want`` (both nested dicts of arrays) in
+    presence, dtype and shape. ``batch_flex`` relaxes axis 0 only: the
+    batched trial driver's compaction shrinks the trial axis."""
+    want, got = _leaves(want), _leaves(got)
+    bad = [(f"{what}.{k}", "present" if k in want else "absent",
             "present" if k in got else "absent")
            for k in sorted(set(want) ^ set(got))]
     for k in sorted(set(want) & set(got)):
         t, a = np.asarray(want[k]), np.asarray(got[k])
         if t.dtype != a.dtype:
-            bad.append((f"SimState.{k}.dtype", str(t.dtype), str(a.dtype)))
-        elif t.shape != a.shape:
-            bad.append((f"SimState.{k}.shape", t.shape, a.shape))
+            bad.append((f"{what}.{k}.dtype", str(t.dtype), str(a.dtype)))
+        elif t.shape != a.shape and not (
+                batch_flex and t.ndim == a.ndim >= 1
+                and t.shape[1:] == a.shape[1:]):
+            bad.append((f"{what}.{k}.shape", t.shape, a.shape))
     if bad:
         raise CheckpointMismatch(path, bad)
+
+
+def restore_state(template, arrays: dict, *, batch_flex: bool = False,
+                  path="<arrays>"):
+    """A `SimState` on ``template``'s device and in its dtype, from
+    checkpointed leaves (`convert.sim_state_to_numpy`'s nested dict). Every
+    leaf must match the template's in presence, dtype and shape: a leaf
+    that no longer lines up means the checkpoint predates a structural
+    change (`CheckpointMismatch`). ``batch_flex``: a batched state whose
+    trial axis may have shrunk (a compacted wave)."""
+    from aclswarm_torch import convert
+
+    check_leaves(convert.sim_state_to_numpy(template), arrays,
+                 batch_flex=batch_flex, path=path)
     return convert.sim_state_from_numpy(arrays, device=template.swarm.q.device,
                                         dtype=template.swarm.q.dtype)
 

@@ -11,13 +11,24 @@ decimation and the flood stripe schedule cost no device read. Data-valued
 gates (the airborne gate, `assign_enabled`, `first_auction`) stay tensors
 and act through `torch.where`, exactly as the reference selects on them.
 
+`batched_rollout` rolls B independent trials at once: every tensor of the
+state and the formation carries a leading ``(B,)`` axis (`stack_states`,
+`core.types.make_formations`), and one `step` advances them all with one
+set of launches — K1, K2 and K3 each take the whole batch. The trials
+share the decimation phase, a host int (``tick0`` + the tick of the
+rollout, the reference's ``shared_tick``); each trial's own tick is host
+data too, a (B,) int64 array that a dispatch resets. The auction LAP and
+CBAA, whose loops are polled from the host, run trial by trial inside a
+batched auction tick, bit-identical to serial solves by construction.
+
 Not ported yet (raise `NotImplementedError`): faults, scenarios,
-``check_mode='on'`` and ``telemetry='on'``; `batched_rollout` is absent.
+``check_mode='on'`` and ``telemetry='on'``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
+import numpy as np
 import torch
 
 from aclswarm_torch import control
@@ -25,6 +36,7 @@ from aclswarm_torch.assignment import auction, cbaa, sinkhorn
 from aclswarm_torch.assignment.cbaa import CbaaTables
 from aclswarm_torch.core import geometry
 from aclswarm_torch.core import perm as permutil
+from aclswarm_torch.core import types as typeslib
 from aclswarm_torch.core.types import (ControlGains, Formation, SafetyParams,
                                        SwarmState, as_float)
 from aclswarm_torch.faults import masking as faultmask
@@ -33,11 +45,13 @@ from aclswarm_torch.sim import vehicle
 from aclswarm_torch.sim.localization import EstimateTable
 from aclswarm_torch.sim.vehicle import ExternalInputs, FlightState
 
+# what is not ported yet, by ROADMAP.md queue 1 item (the trial axis,
+# item 10, is: `batched_rollout`)
 _LATER = {
-    "faults": "the engine-extensions slice (faults)",
-    "scenario": "the engine-extensions slice (scenarios)",
-    "check_mode": "the engine-extensions slice (invariants)",
-    "telemetry": "the engine-extensions slice (telemetry)",
+    "faults": "ROADMAP.md queue 1 item 11 (faults)",
+    "scenario": "ROADMAP.md queue 1 item 13 (scenarios)",
+    "check_mode": "ROADMAP.md queue 1 item 12 (invariants)",
+    "telemetry": "ROADMAP.md queue 1 item 12 (telemetry)",
 }
 
 
@@ -78,22 +92,25 @@ class SimState:
     are () bool tensors, as in the reference. ``cbaa_warm`` (None = the
     stateless-auction engine) re-seeds each CBAA auction from the last
     valid one's fixed point. The reference's other optional carries
-    (faults, scenario, inv, tel) are not ported yet."""
+    (faults, scenario, inv, tel) are not ported yet. A batch of B trials
+    (`stack_states`) has a (B,) int64 numpy ``tick`` and a leading (B,)
+    axis on every tensor."""
 
     swarm: SwarmState
     goal: control.TrajGoal
-    v2f: torch.Tensor           # (n,) int32 current assignment
-    tick: int
+    v2f: torch.Tensor           # ([B,] n) int32 current assignment
+    tick: int | np.ndarray
     flight: FlightState
-    first_auction: torch.Tensor   # () bool
-    assign_enabled: torch.Tensor  # () bool
+    first_auction: torch.Tensor   # ([B,]) bool
+    assign_enabled: torch.Tensor  # ([B,]) bool
     loc: EstimateTable | None = None
     cbaa_warm: CbaaTables | None = None
 
 
 @dataclass
 class StepMetrics:
-    """Per-tick observables (stacked over time by `rollout`)."""
+    """Per-tick observables (stacked over time by `rollout`; a batched
+    step adds a (B,) axis after the time axis)."""
 
     distcmd_norm: torch.Tensor   # (n,) |distcmd| per vehicle (pre-safety)
     ca_active: torch.Tensor      # (n,) collision avoidance modified the cmd
@@ -187,20 +204,25 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
     if warm is not None and cfg.assignment != "cbaa":
         raise ValueError("warm CbaaTables only apply to the 'cbaa' "
                          f"assignment mode, not {cfg.assignment!r}")
-    true_ = torch.ones((), dtype=torch.bool, device=v2f.device)
+    if v2f.ndim > 1 and cfg.assignment in ("auction", "cbaa"):
+        return _assign_by_trial(swarm, formation, v2f, cfg, est, first,
+                                alive, link_mask, warm)
+    true_ = torch.ones(v2f.shape[:-1], dtype=torch.bool, device=v2f.device)
 
     def hysteresis(cand, cost):
         """Keep the current assignment unless the candidate improves the
         total of the (n, n) vehicle->aligned-point distances ``cost`` by
-        the relative margin."""
+        the relative margin (per trial)."""
         if cfg.assign_eps <= 0.0:
             return cand
-        cost_new = torch.sum(cost.gather(1, cand.long()[:, None]))
-        cost_cur = torch.sum(cost.gather(1, v2f.long()[:, None]))
+        cost_new = torch.sum(cost.gather(-1, cand.long()[..., None]),
+                             dim=(-2, -1))
+        cost_cur = torch.sum(cost.gather(-1, v2f.long()[..., None]),
+                             dim=(-2, -1))
         take = cost_new < (1.0 - cfg.assign_eps) * cost_cur
         if first is not None:
             take = take | first
-        return torch.where(take, cand, v2f)
+        return torch.where(take[..., None], cand, v2f)
 
     if cfg.assignment == "none":
         return v2f, true_
@@ -243,18 +265,47 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
     return hysteresis(res.row_to_col, c), true_
 
 
+def _assign_by_trial(swarm, formation, v2f, cfg, est, first, alive,
+                     link_mask, warm):
+    """`assign` for a batch of trials in the host-polled modes (the auction
+    LAP, CBAA): one serial solve per trial, the results stacked — the
+    serial outputs bit for bit."""
+    def pick(x, b):
+        return None if x is None else typeslib.row(x, b)
+
+    outs = [assign(typeslib.row(swarm, b), typeslib.row(formation, b),
+                   v2f[b], cfg, est=pick(est, b), first=pick(first, b),
+                   alive=pick(alive, b), link_mask=pick(link_mask, b),
+                   warm=pick(warm, b))
+            for b in range(v2f.shape[0])]
+    return tuple(typeslib.stack(list(xs)) for xs in zip(*outs))
+
+
 def step(state: SimState, formation: Formation, gains: ControlGains,
          sparams: SafetyParams, cfg: SimConfig,
-         inputs: ExternalInputs | None = None
+         inputs: ExternalInputs | None = None,
+         shared_tick: int | None = None
          ) -> tuple[SimState, StepMetrics]:
-    """One 100 Hz control tick for the whole swarm."""
+    """One 100 Hz control tick for the whole swarm, or for a batch of
+    trials. ``shared_tick`` (host int) replaces ``state.tick`` as the
+    decimation phase (auction period, flood cadence); a batch needs it,
+    and every trial's tick must agree with it modulo `assign_every` and
+    `flood_every` (the batched trial driver aligns dispatches to chunk
+    boundaries so they do)."""
     _check_cfg(cfg)
     swarm, goal, v2f, fs = state.swarm, state.goal, state.v2f, state.flight
-    n = swarm.q.shape[0]
+    n = swarm.q.shape[-2]
+    lead = swarm.q.shape[:-2]           # () or (B,) trials
     dev = swarm.q.device
+    if shared_tick is None:
+        if lead:
+            raise ValueError("a batched step needs shared_tick, the "
+                             "trials' common decimation phase")
+        shared_tick = state.tick
     if inputs is None:
-        inputs = ExternalInputs.none(n, dev, swarm.q.dtype)
-    true_ = torch.ones((), dtype=torch.bool, device=dev)
+        inputs = ExternalInputs.none(n, dev, swarm.q.dtype,
+                                     batch=lead[0] if lead else None)
+    true_ = torch.ones(lead, dtype=torch.bool, device=dev)
 
     # --- operator flight-mode broadcast ---
     if cfg.flight_fsm:
@@ -269,11 +320,11 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                              "init_state(..., localization=True)")
         if cfg.flood_phases == 1:
             loc = loclib.tick(loc, swarm.q, formation.adjmat, v2f,
-                              state.tick % cfg.flood_every == 0,
+                              shared_tick % cfg.flood_every == 0,
                               target_block=cfg.flood_block)
         else:
             loc = loclib.tick_phased(loc, swarm.q, formation.adjmat, v2f,
-                                     state.tick, cfg.flood_every,
+                                     shared_tick, cfg.flood_every,
                                      cfg.flood_phases,
                                      target_block=cfg.flood_block)
 
@@ -283,23 +334,25 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     est = loc.est if cfg.localization == "flooded" else None
     warm = state.cbaa_warm if cfg.assignment == "cbaa" else None
     new_warm = state.cbaa_warm
-    if cfg.assignment != "none" and state.tick % cfg.assign_every == 0:
+    if cfg.assignment != "none" and shared_tick % cfg.assign_every == 0:
         outs = assign(swarm, formation, v2f, cfg, est=est,
                       first=state.first_auction, warm=warm)
         take = state.assign_enabled
         if cfg.flight_fsm:
-            take = take & torch.all(flying)
-        new_v2f = torch.where(take, outs[0], v2f)
+            take = take & torch.all(flying, dim=-1)
+        new_v2f = torch.where(take[..., None], outs[0], v2f)
         valid = torch.where(take, outs[1], true_)
         if warm is not None:
             # a gated-off auction's tables are discarded like its v2f
             new_warm = CbaaTables(
-                price=torch.where(take, outs[2].price, warm.price),
-                who=torch.where(take, outs[2].who, warm.who))
+                price=torch.where(take[..., None, None], outs[2].price,
+                                  warm.price),
+                who=torch.where(take[..., None, None], outs[2].who,
+                                warm.who))
     else:
         new_v2f, valid = v2f, true_
-        take = torch.zeros((), dtype=torch.bool, device=dev)
-    reassigned = take & torch.any(new_v2f != v2f)
+        take = torch.zeros(lead, dtype=torch.bool, device=dev)
+    reassigned = take & torch.any(new_v2f != v2f, dim=-1)
     first_auction = state.first_auction & ~(take & valid)
     v2f = new_v2f
 
@@ -308,7 +361,7 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         else None
     u = control.compute(swarm, formation, v2f, gains, rel=rel)
     if cfg.flight_fsm:
-        u = torch.where(flying[:, None], u, torch.zeros_like(u))
+        u = torch.where(flying[..., None], u, torch.zeros_like(u))
     distcmd_norm = torch.linalg.vector_norm(u, dim=-1)
 
     # --- safety shim: saturate -> mux -> avoid -> safe trajectory ---
@@ -318,7 +371,7 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         u, ca = control.collision_avoidance(
             swarm.q, u, sparams, max_neighbors=cfg.colavoid_neighbors)
     else:
-        ca = torch.zeros((n,), dtype=torch.bool, device=dev)
+        ca = torch.zeros(lead + (n,), dtype=torch.bool, device=dev)
     safe_goal = control.make_safe_traj(cfg.control_dt, u, yawrate, goal,
                                        sparams)
 
@@ -354,6 +407,14 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                                   v2f=v2f)
 
 
+def _stack_metrics(per_tick: list) -> StepMetrics | None:
+    if not per_tick:
+        return None
+    return StepMetrics(**{f.name: torch.stack([getattr(m, f.name)
+                                               for m in per_tick])
+                          for f in fields(StepMetrics)})
+
+
 def rollout(state: SimState, formation: Formation, gains: ControlGains,
             sparams: SafetyParams, cfg: SimConfig, n_ticks: int,
             inputs: ExternalInputs | None = None
@@ -367,6 +428,50 @@ def rollout(state: SimState, formation: Formation, gains: ControlGains,
         state, m = step(state, formation, gains, sparams, cfg,
                         None if inputs is None else inputs.at(t))
         per_tick.append(m)
-    stacked = {f.name: torch.stack([getattr(m, f.name) for m in per_tick])
-               for f in fields(StepMetrics)} if per_tick else None
-    return state, (StepMetrics(**stacked) if stacked else None)
+    return state, _stack_metrics(per_tick)
+
+
+def batched_rollout(state: SimState, formation: Formation,
+                    gains: ControlGains, sparams: SafetyParams,
+                    cfg: SimConfig, n_ticks: int,
+                    inputs: ExternalInputs | None = None, tick0: int = 0
+                    ) -> tuple[SimState, StepMetrics]:
+    """Roll B independent trials forward ``n_ticks`` ticks at once.
+
+    ``state`` and ``formation`` carry a leading (B,) axis (`stack_states`,
+    `core.types.make_formations`; trials may fly different formations of
+    one size n); ``gains``, ``sparams`` and ``cfg`` are shared. ``inputs``
+    (optional) is stacked over time then trials, leaves (n_ticks, B, ...).
+    ``tick0`` is the shared decimation phase of the first tick (the
+    reference's ``shared_tick``): tick t of the rollout auctions when
+    ``(tick0 + t) % assign_every == 0``. Returns the final batched state
+    and `StepMetrics` with leaves (n_ticks, B, ...) — per trial, the
+    serial `rollout` of the same start bit for bit."""
+    per_tick = []
+    for t in range(n_ticks):
+        state, m = step(state, formation, gains, sparams, cfg,
+                        None if inputs is None else inputs.at(t),
+                        shared_tick=tick0 + t)
+        per_tick.append(m)
+    return state, _stack_metrics(per_tick)
+
+
+def stack_states(states: list[SimState]) -> SimState:
+    """B serial states (same n, same optional carries) -> one batched
+    state: a leading (B,) axis on every tensor and a (B,) int64 tick."""
+    out = typeslib.stack(states)
+    return replace(out, tick=np.asarray([s.tick for s in states], np.int64))
+
+
+def take_trials(state: SimState, idx) -> SimState:
+    """Trials ``idx`` (a host sequence of ints) of a batched state, in that
+    order — the compaction's row gather."""
+    keep = list(idx)
+    rows = torch.as_tensor(keep, dtype=torch.int64).to(state.v2f.device)
+    return replace(typeslib.take_rows(state, rows),
+                   tick=np.asarray(state.tick)[keep])
+
+
+def trial(state: SimState, b: int) -> SimState:
+    """Trial ``b`` of a batched state as a serial state (views)."""
+    return replace(typeslib.row(state, b), tick=int(state.tick[b]))

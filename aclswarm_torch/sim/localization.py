@@ -10,6 +10,9 @@ semantics. The merge is kernel K3 on the card (`ops.flood`).
 
 Decimation is host control flow: the engine passes the tick as a Python
 int, so deciding whether (and which stripe) to flood never reads the card.
+A batch of trials adds a leading ``(B,)`` axis to the tables, the
+positions, the graphs and the assignments; the trials share the host tick,
+and one K3 launch merges the whole batch.
 """
 from __future__ import annotations
 
@@ -50,12 +53,12 @@ def comm_mask(adjmat: torch.Tensor, v2f: torch.Tensor) -> torch.Tensor:
 
 def observe_self(table: EstimateTable, q_true: torch.Tensor) -> EstimateTable:
     """Each vehicle's own entry is ground truth with a fresh stamp."""
-    n = q_true.shape[0]
+    n = q_true.shape[-2]
     d = torch.arange(n, device=q_true.device)
     est = table.est.clone()
-    est[d, d] = q_true
+    est[..., d, d, :] = q_true
     age = table.age.clone()
-    age[d, d] = 0
+    age[..., d, d] = 0
     return EstimateTable(est=est, age=age)
 
 
@@ -74,7 +77,7 @@ def flood(table: EstimateTable, comm: torch.Tensor,
     if merge_impl != "auto":
         raise ValueError(f"unknown merge impl {merge_impl!r}")
     age, est = table.age, table.est
-    n = age.shape[0]
+    n = age.shape[-1]
     if n >= 1 << 16:
         raise ValueError("flood merge packs sender ids into 16 bits "
                          f"(n={n} >= 65536)")
@@ -84,8 +87,8 @@ def flood(table: EstimateTable, comm: torch.Tensor,
         start, width = int(stripe[0]), int(stripe[1])
     # a stripe of `age` is a strided column slice; the packing below
     # materializes it as the contiguous (n, width) block K3 takes
-    age_t = age[:, start:start + width]
-    est_t = est[:, start:start + width]
+    age_t = age[..., start:start + width]
+    est_t = est[..., start:start + width, :]
     ids = torch.arange(n, dtype=torch.int32, device=age.device)
     packed = (torch.clamp(age_t, max=AGE_CAP) << 16) | ids[:, None]
     best_packed = ops.flood_merge(packed, comm, target_block)
@@ -95,14 +98,14 @@ def flood(table: EstimateTable, comm: torch.Tensor,
     # past the table: the reference's gather clamps it and the `take`
     # select discards it; torch.gather would fault, so mask it to row 0
     src = torch.where(take, best_packed & 0xFFFF, 0).long()
-    est_new = torch.gather(est_t, 0, src[:, :, None].expand(-1, -1, 3))
-    new_est_t = torch.where(take[:, :, None], est_new, est_t)
+    est_new = torch.gather(est_t, -3, src[..., None].expand(*src.shape, 3))
+    new_est_t = torch.where(take[..., None], est_new, est_t)
     new_age_t = torch.where(take, best, age_t)
     if stripe is None:
         return EstimateTable(est=new_est_t, age=new_age_t)
     est, age = est.clone(), age.clone()
-    est[:, start:start + width] = new_est_t
-    age[:, start:start + width] = new_age_t
+    est[..., start:start + width, :] = new_est_t
+    age[..., start:start + width] = new_age_t
     return EstimateTable(est=est, age=age)
 
 
@@ -147,7 +150,7 @@ def tick_phased(table: EstimateTable, q_true: torch.Tensor,
     if flood_every % phases:
         raise ValueError(f"flood_phases={phases} must divide "
                          f"flood_every={flood_every}")
-    n = q_true.shape[0]
+    n = q_true.shape[-2]
     width = -(-n // phases)                 # ceil: stripes cover [0, n)
     table, comm = _advance(table, q_true, adjmat, v2f, link_mask)
     gap = flood_every // phases
@@ -160,11 +163,12 @@ def tick_phased(table: EstimateTable, q_true: torch.Tensor,
 
 def relative_views(table: EstimateTable) -> torch.Tensor:
     """(n, n, 3) rel[v, w] = v's estimate of (w's position − its own)."""
-    n = table.est.shape[0]
+    n = table.est.shape[-2]
     d = torch.arange(n, device=table.est.device)
-    return table.est - table.est[d, d][:, None, :]
+    return table.est - table.est[..., d, d, :][..., :, None, :]
 
 
 def staleness(table: EstimateTable, q_true: torch.Tensor) -> torch.Tensor:
     """(n, n) estimate error vs ground truth."""
-    return torch.linalg.vector_norm(table.est - q_true[None, :, :], dim=-1)
+    return torch.linalg.vector_norm(table.est - q_true[..., None, :, :],
+                                    dim=-1)

@@ -1,0 +1,195 @@
+"""On-device supervisor observables of a rollout chunk (port of
+`aclswarm_tpu/sim/summary.py`).
+
+Everything the trial FSM branches on is a per-tick scalar of a trial:
+
+- convergence: every vehicle's trailing 1 s mean ``|distcmd| <`` 1 m/s
+  (`ChunkSummary.conv_all`);
+- gridlock: any vehicle's trailing 1 s CA duty ``> 0.95`` (`grid_any`);
+- takeoff: all ``|z - takeoff_alt| <`` 0.05 m (`taken_off`);
+- the assignment events, passed through.
+
+The windowed means are reduced on the device, and the window's history
+crosses chunk boundaries in `SummaryCarry` (the last W-1 samples), which
+never visits the host. The CSV's one per-vehicle metric, the EWMA-smoothed
+planar distance, is integrated on the device in the same carry and read
+back as a trial-cumulative (n,) total per chunk.
+
+`summarize_chunk` reduces batch-major metrics ([B,] T, ...);
+`batched_rollout_summary` runs `engine.batched_rollout` and reduces its
+(T, B, ...) metrics, so per chunk the host receives (B, T) bools and
+(B, n) distances, which `to_host` fetches in two device-to-host copies
+for the whole batch. The fault-recovery clock and the telemetry snapshot
+ride the reference's summary only with faults, scenarios or telemetry,
+none of which is ported: their carry fields pass through and ``tel``
+stays None.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from aclswarm_torch.sim import engine, vehicle
+from aclswarm_torch.sim.engine import StepMetrics
+
+# the supervisor's thresholds (`harness.supervisor`), duplicated so the
+# device code does not import the host-side harness
+ZERO_POS_THR = 0.05
+ORIG_ZERO_VEL_THR = 1.00
+AVG_ACTIVE_CA_THR = 0.95
+EWMA_ALPHA = 0.98
+
+
+@dataclass
+class SummaryCarry:
+    """Cross-chunk reduction state (on the device; never read back)."""
+
+    dn_hist: torch.Tensor      # ([B,] W-1, n) trailing |distcmd|
+    ca_hist: torch.Tensor      # ([B,] W-1, n) trailing CA-active (float)
+    fx: torch.Tensor           # ([B,] n) EWMA-filtered x
+    fy: torch.Tensor           # ([B,] n) EWMA-filtered y
+    cumdist: torch.Tensor      # ([B,] n) accumulated filtered distance
+    inited: torch.Tensor       # ([B,]) bool: EWMA filter seeded?
+    # the reference's fault-recovery clock (zeros: faults are not ported)
+    rec_pending: torch.Tensor  # ([B,]) bool
+    rec_since: torch.Tensor    # ([B,]) int32
+    rec_churn: torch.Tensor    # ([B,]) int32
+
+
+@dataclass
+class ChunkSummary:
+    """Per-chunk supervisor observables, batch-major."""
+
+    conv_all: torch.Tensor      # ([B,] T) trailing-W mean |distcmd| < thr
+    grid_any: torch.Tensor      # ([B,] T) any trailing-W CA duty > thr
+    taken_off: torch.Tensor     # ([B,] T) all |z - takeoff_alt| < thr
+    all_flying: torch.Tensor    # ([B,] T) every vehicle FLYING
+    auctioned: torch.Tensor     # ([B,] T) pass-through from StepMetrics
+    assign_valid: torch.Tensor  # ([B,] T)
+    reassigned: torch.Tensor    # ([B,] T)
+    cumdist: torch.Tensor       # ([B,] n) EWMA distance, trial-cumulative
+    q_dec: torch.Tensor | None  # ([B,] ceil(T/pose_every), n, 3) or None
+    tel: None = None            # device telemetry is not ported
+
+
+def init_carry(n: int, window: int, dtype=torch.float32, device=None,
+               batch: int | None = None) -> SummaryCarry:
+    """Fresh reduction state for a trial (or ``batch`` trials) on
+    ``device`` (None = the card)."""
+    from aclswarm_torch.core.types import resolve_device
+
+    dev = resolve_device(device)
+    lead = () if batch is None else (batch,)
+
+    def zeros(shape, dt):
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
+
+    return SummaryCarry(
+        dn_hist=zeros((window - 1, n), dtype),
+        ca_hist=zeros((window - 1, n), dtype),
+        fx=zeros((n,), dtype), fy=zeros((n,), dtype),
+        cumdist=zeros((n,), dtype), inited=zeros((), torch.bool),
+        rec_pending=zeros((), torch.bool),
+        rec_since=zeros((), torch.int32), rec_churn=zeros((), torch.int32))
+
+
+def _trailing_window_mean(x: torch.Tensor, hist: torch.Tensor, window: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean over the trailing ``window`` ticks for each tick of the chunk:
+    ``x`` ([B,] T, n), ``hist`` the ([B,] W-1, n) samples before it.
+    Returns (([B,] T, n) means, the new history). Ticks whose window
+    reaches before the trial's start average in the zero history; the host
+    FSM never reads those (its push counters gate them)."""
+    ext = torch.cat([hist, x], dim=-2)                 # ([B,] W-1+T, n)
+    csum = torch.cumsum(ext, dim=-2)
+    csum = torch.cat([torch.zeros_like(csum[..., :1, :]), csum], dim=-2)
+    means = (csum[..., window:, :] - csum[..., :-window, :]) / window
+    new_hist = ext[..., ext.shape[-2] - (window - 1):, :]
+    return means, new_hist
+
+
+def _ewma_distance(q: torch.Tensor, carry: SummaryCarry):
+    """The EWMA position filter and its planar path length, advanced over
+    the chunk's ([B,] T, n, 3) positions one tick at a time on the device.
+    Runs from the trial's first tick; the host reads cumulative totals at
+    chunk boundaries."""
+    f = torch.stack([carry.fx, carry.fy], dim=-1)      # ([B,] n, 2)
+    dist, inited = carry.cumdist, carry.inited
+    init = inited[..., None, None]
+    zero = torch.zeros((), dtype=dist.dtype, device=dist.device)
+    for t in range(q.shape[-3]):
+        xy = q[..., t, :, :2]
+        nf = torch.where(init, EWMA_ALPHA * f + (1 - EWMA_ALPHA) * xy, xy)
+        d = nf - f
+        dist = dist + torch.where(init[..., 0],
+                                  torch.hypot(d[..., 0], d[..., 1]), zero)
+        f = nf
+        init = torch.ones_like(init)
+    if q.shape[-3]:
+        inited = torch.ones_like(inited)
+    return f[..., 0], f[..., 1], dist, inited
+
+
+def summarize_chunk(metrics: StepMetrics, carry: SummaryCarry, window: int,
+                    takeoff_alt: float, pose_every: int = 0
+                    ) -> tuple[ChunkSummary, SummaryCarry]:
+    """Reduce batch-major `StepMetrics` (leaves ([B,] T, ...): one trial's
+    time-major metrics, or a batch's with the trial axis first) to the
+    per-tick supervisor scalars and the cumulative distance. Every tensor
+    stays on its device."""
+    dn = metrics.distcmd_norm
+    ca = metrics.ca_active.to(dn.dtype)
+    dn_mean, dn_hist = _trailing_window_mean(dn, carry.dn_hist, window)
+    ca_mean, ca_hist = _trailing_window_mean(ca, carry.ca_hist, window)
+    fx, fy, cumdist, inited = _ewma_distance(metrics.q, carry)
+    summary = ChunkSummary(
+        conv_all=torch.all(dn_mean < ORIG_ZERO_VEL_THR, dim=-1),
+        grid_any=torch.any(ca_mean > AVG_ACTIVE_CA_THR, dim=-1),
+        taken_off=torch.all(
+            torch.abs(metrics.q[..., 2] - takeoff_alt) < ZERO_POS_THR,
+            dim=-1),
+        all_flying=torch.all(metrics.mode == vehicle.FLYING, dim=-1),
+        auctioned=metrics.auctioned, assign_valid=metrics.assign_valid,
+        reassigned=metrics.reassigned, cumdist=cumdist,
+        q_dec=metrics.q[..., ::pose_every, :, :] if pose_every else None)
+    new_carry = SummaryCarry(dn_hist=dn_hist, ca_hist=ca_hist, fx=fx, fy=fy,
+                             cumdist=cumdist, inited=inited,
+                             rec_pending=carry.rec_pending,
+                             rec_since=carry.rec_since,
+                             rec_churn=carry.rec_churn)
+    return summary, new_carry
+
+
+def batched_rollout_summary(state, carry: SummaryCarry, formation, gains,
+                            sparams, cfg, n_ticks: int, inputs=None,
+                            tick0: int = 0, *, window: int,
+                            takeoff_alt: float, pose_every: int = 0):
+    """B trials x ``n_ticks`` ticks (`engine.batched_rollout`) reduced per
+    trial on the device. Returns ``(state, carry, summary)`` with the
+    summary's per-tick leaves (B, T) and ``cumdist`` (B, n): all a trials
+    driver reads per chunk (`to_host`)."""
+    state, metrics = engine.batched_rollout(state, formation, gains, sparams,
+                                            cfg, n_ticks, inputs, tick0)
+    # (T, B, ...) -> (B, T, ...)
+    batch_major = StepMetrics(**{k: v.movedim(0, 1)
+                                 for k, v in vars(metrics).items()})
+    summary, carry = summarize_chunk(batch_major, carry, window, takeoff_alt,
+                                     pose_every)
+    return state, carry, summary
+
+
+# the per-tick flags `to_host` packs into one bool copy, in this order
+FLAGS = ("conv_all", "grid_any", "taken_off", "all_flying", "auctioned",
+         "assign_valid", "reassigned")
+
+
+def to_host(summary: ChunkSummary) -> dict:
+    """The summary on the host in two device-to-host copies: the seven
+    ([B,] T) flags packed into one bool tensor, and ``cumdist`` ([B,] n).
+    Returns numpy arrays keyed by field name."""
+    flags = torch.stack([getattr(summary, k) for k in FLAGS]).cpu().numpy()
+    out = {k: flags[i] for i, k in enumerate(FLAGS)}
+    out["cumdist"] = summary.cumdist.cpu().numpy().astype(np.float64)
+    return out

@@ -7,7 +7,8 @@ NOT_FLYING --GO--> TAKEOFF; TAKEOFF/FLYING --LAND--> LANDING; any --KILL-->
 NOT_FLYING. TAKEOFF snaps the goal to the pose, waits ``spinup_time`` and
 ramps z by ``takeoff_inc`` per tick; LANDING ramps down fast then slow;
 FLYING takes the safe-trajectory pipeline's goal; NOT_FLYING pins the
-goal to the ground pose.
+goal to the ground pose. A batch of trials adds a leading ``(B,)`` axis to
+every field (and to an input's ``cmd``).
 """
 from __future__ import annotations
 
@@ -49,13 +50,19 @@ class ExternalInputs:
     joy_active: torch.Tensor   # (n,) bool
 
     @classmethod
-    def none(cls, n: int, device=None,
-             dtype=torch.float32) -> "ExternalInputs":
+    def none(cls, n: int, device=None, dtype=torch.float32,
+             batch: int | None = None) -> "ExternalInputs":
+        """No command and no joystick, for one trial or ``batch`` trials."""
         dev = resolve_device(device)
-        return cls(cmd=torch.full((), CMD_NONE, dtype=torch.int32, device=dev),
-                   joy_vel=torch.zeros((n, 3), dtype=dtype, device=dev),
-                   joy_yawrate=torch.zeros((n,), dtype=dtype, device=dev),
-                   joy_active=torch.zeros((n,), dtype=torch.bool, device=dev))
+        lead = () if batch is None else (batch,)
+        return cls(cmd=torch.full(lead, CMD_NONE, dtype=torch.int32,
+                                  device=dev),
+                   joy_vel=torch.zeros(lead + (n, 3), dtype=dtype,
+                                       device=dev),
+                   joy_yawrate=torch.zeros(lead + (n,), dtype=dtype,
+                                           device=dev),
+                   joy_active=torch.zeros(lead + (n,), dtype=torch.bool,
+                                          device=dev))
 
     def at(self, t: int) -> "ExternalInputs":
         """Tick ``t`` of a time-stacked schedule."""
@@ -83,6 +90,7 @@ def _i32(like: torch.Tensor, v: int) -> torch.Tensor:
 def apply_command(fs: FlightState, cmd: torch.Tensor) -> FlightState:
     """Operator-command transitions, batched."""
     m = fs.mode
+    cmd = cmd[..., None]                 # one command per trial
     new = torch.where((m == NOT_FLYING) & (cmd == CMD_GO),
                       _i32(m, TAKEOFF), m)
     new = torch.where(((m == TAKEOFF) | (m == FLYING)) & (cmd == CMD_LAND),
@@ -97,7 +105,8 @@ def apply_command(fs: FlightState, cmd: torch.Tensor) -> FlightState:
 def mux_goals(dist_vel: torch.Tensor, inputs: ExternalInputs
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """JOY (priority 1) beats DIST (priority 0). Returns (vel, yawrate)."""
-    vel = torch.where(inputs.joy_active[:, None], inputs.joy_vel, dist_vel)
+    vel = torch.where(inputs.joy_active[..., None], inputs.joy_vel,
+                      dist_vel)
     yawrate = torch.where(inputs.joy_active, inputs.joy_yawrate,
                           torch.zeros_like(inputs.joy_yawrate))
     return vel, yawrate
@@ -117,7 +126,7 @@ def flight_step(fs: FlightState, goal_prev: TrajGoal, safe_goal: TrajGoal,
     Returns (new flight state, new goal)."""
     m = fs.mode
     ticks = fs.ticks_in_mode
-    qz = q[:, 2]
+    qz = q[..., 2]
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
 
     # --- TAKEOFF init: snap goal to pose, capture altitudes ---
@@ -127,8 +136,8 @@ def flight_step(fs: FlightState, goal_prev: TrajGoal, safe_goal: TrajGoal,
               else torch.full_like(initial_alt, params.takeoff_alt))
     takeoff_alt = torch.where(entering, tk_alt, fs.takeoff_alt)
 
-    pos = torch.where(entering[:, None], q, goal_prev.pos)
-    vel = torch.where(entering[:, None], zero, goal_prev.vel)
+    pos = torch.where(entering[..., None], q, goal_prev.pos)
+    vel = torch.where(entering[..., None], zero, goal_prev.vel)
     yaw = goal_prev.yaw
     dyaw = torch.where(entering, zero, goal_prev.dyaw)
 
@@ -136,15 +145,16 @@ def flight_step(fs: FlightState, goal_prev: TrajGoal, safe_goal: TrajGoal,
     # takeoff_alt and tracking has caught up ---
     spun_up = (ticks.to(q.dtype) * dt) >= params.spinup_time
     tk = (m == TAKEOFF) & spun_up
-    tk_done = tk & (torch.abs(pos[:, 2] - qz) < TAKEOFF_THRESHOLD) \
-        & (pos[:, 2] >= takeoff_alt - 1e-6)
+    tk_done = tk & (torch.abs(pos[..., 2] - qz) < TAKEOFF_THRESHOLD) \
+        & (pos[..., 2] >= takeoff_alt - 1e-6)
     ramping = tk & ~tk_done
-    ramp_z = torch.minimum(torch.clamp(pos[:, 2] + params.takeoff_inc,
+    ramp_z = torch.minimum(torch.clamp(pos[..., 2] + params.takeoff_inc,
                                        min=0.0), takeoff_alt)
-    ramp_vz = torch.where(ramping, (ramp_z - pos[:, 2]) / dt, zero)
-    pos = torch.cat([pos[:, :2],
-                     torch.where(ramping, ramp_z, pos[:, 2])[:, None]], 1)
-    vel = torch.where((m == TAKEOFF)[:, None], _z_only(ramp_vz), vel)
+    ramp_vz = torch.where(ramping, (ramp_z - pos[..., 2]) / dt, zero)
+    pos = torch.cat([pos[..., :2],
+                     torch.where(ramping, ramp_z, pos[..., 2])[..., None]],
+                    -1)
+    vel = torch.where((m == TAKEOFF)[..., None], _z_only(ramp_vz), vel)
 
     # --- LANDING decrement ---
     landing = m == LANDING
@@ -155,24 +165,25 @@ def flight_step(fs: FlightState, goal_prev: TrajGoal, safe_goal: TrajGoal,
                       torch.full_like(qz, params.landing_fast_dec),
                       torch.full_like(qz, params.landing_slow_dec))
     descending = landing & ~land_done
-    land_z = torch.clamp(pos[:, 2] - dec, 0.0, params.bounds_max[2])
-    land_vz = torch.where(descending, (land_z - pos[:, 2]) / dt, zero)
-    pos = torch.cat([pos[:, :2],
-                     torch.where(descending, land_z, pos[:, 2])[:, None]], 1)
-    vel = torch.where(landing[:, None], _z_only(land_vz), vel)
+    land_z = torch.clamp(pos[..., 2] - dec, 0.0, params.bounds_max[2])
+    land_vz = torch.where(descending, (land_z - pos[..., 2]) / dt, zero)
+    pos = torch.cat([pos[..., :2],
+                     torch.where(descending, land_z, pos[..., 2])[..., None]],
+                    -1)
+    vel = torch.where(landing[..., None], _z_only(land_vz), vel)
     dyaw = torch.where(landing, zero, dyaw)
 
     # --- FLYING: take the safe-trajectory pipeline's output ---
     flying = m == FLYING
-    pos = torch.where(flying[:, None], safe_goal.pos, pos)
-    vel = torch.where(flying[:, None], safe_goal.vel, vel)
+    pos = torch.where(flying[..., None], safe_goal.pos, pos)
+    vel = torch.where(flying[..., None], safe_goal.vel, vel)
     yaw = torch.where(flying, safe_goal.yaw, yaw)
     dyaw = torch.where(flying, safe_goal.dyaw, dyaw)
 
     # --- NOT_FLYING: power cut, goal pinned to the ground pose ---
     grounded = m == NOT_FLYING
-    pos = torch.where(grounded[:, None], q, pos)
-    vel = torch.where(grounded[:, None], zero, vel)
+    pos = torch.where(grounded[..., None], q, pos)
+    vel = torch.where(grounded[..., None], zero, vel)
     dyaw = torch.where(grounded, zero, dyaw)
 
     # --- automatic transitions ---

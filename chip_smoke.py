@@ -72,14 +72,42 @@ and prints no result line:
              per tick of hover and flying chunks, the FSM's host ms per
              chunk, wall against simulated seconds; then `swarm6_3d` (seed
              1, library gains) on the card against the CPU;
-13. the `kernels` line, then the result line. Each kernel row carries the
+13. batch_kernels — each kernel's batched launch (B=5 problems at n=1000,
+             the main path's inputs of seeds S..S+4) against B single
+             launches, bit for bit (K1 too: a batch keeps each line's
+             reduction order), and against its plain batched version (K1
+             atol 5e-5, marginals 1e-4); launches, ms per batched call
+             against the B single calls' ms, the bound for B problems;
+             K2's batched design against one single-block launch per
+             plan; edge cases B=1 and B=3 at n=1001;
+14. slice_batch — `sim.batched_rollout` of five `simform1000_flooded`
+             airborne starts (seeds S..S+4, designed gains x 0.15), 240
+             ticks, beside five serial `rollout`s of the same starts:
+             `v2f` and `auctioned` equal, K3 once per tick for the whole
+             wave, K1 in its residency waves and K2 once per auction tick;
+             max |dq| against the serial runs, ms and launches per batched
+             tick, device busy and idle share from the profiler, peak
+             memory;
+15. trial_batch — `run_trials` with batch=5, trials=5: the
+             `simform1000_flooded` row at chunk_ticks 120 (as the suite
+             flies batched rows), float32, `trial_timeout` cut to 14 s as
+             in `trial`: every trial's FSM path and dispatch ticks, the
+             first dispatch's design validated, launch counts, the
+             device-to-host copies of profiled chunks, compactions, peak
+             memory and the wave's simulated trial-seconds per wall
+             second; trial 0 beside the same trial flown alone at the same
+             chunking;
+16. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
-   design, timed in this run) and `launches_by_path`; K2's row also its
-   rounds and the dense bound that earlier runs reported.
+   design, timed in this run), `launches_by_path` and `batched` (the
+   batch_kernels figures); K2's row also its rounds and the dense bound
+   that earlier runs reported.
 
 Each phase is followed by a line with its seconds. The `gains` phase's
 cuSOLVER-basis finding and the `cbaa` phase's cold card-against-CPU
-auction run at seeds S, S+1 and S+2.
+auction run at seeds S, S+1 and S+2. ``--phases a,b`` runs the device and
+build phases and then only the named ones, for debugging: it prints no
+kernels line and no result line.
 
 Needs a CUDA card and the repository (it imports `aclswarm_torch`).
 """
@@ -156,6 +184,14 @@ TRIAL_TIMEOUT_CUT = 14.0
 # (`trials._host_signals`), and per auction tick the global alignment's
 # (`geometry.align` makes two on the card: a (2, 2) SVD, two determinants)
 CHUNK_READS, AUCTION_READS = 2, 2
+# a wave of batched trials: the simform1000_flooded row's five trials
+BATCH = 5
+# K1's residency waves for a batch of n=1000 solves on a 132-SM H100:
+# three solves share a cooperative launch (csrc/sinkhorn.cu)
+K1_WAVES = {1: 1, 2: 1, 3: 1, 4: 2, 5: 2}
+# the suite runs batched rows at chunk_ticks 120, a multiple of
+# assign_every (benchmarks/trials_suite.py, --batch)
+BATCH_CHUNK = 120
 
 
 def emit(obj) -> None:
@@ -234,24 +270,36 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernels: tuple) -> float:
+def device_ms(fn, reps: int, kernels: tuple, per_call: int = 1) -> float:
     """Mean device milliseconds per call of ``fn`` spent in the named
     kernels, from `torch.profiler`'s kernel events over ``reps`` calls
-    after one warm-up. For a kernel shorter than its wrapper's host work:
-    CUDA events around back-to-back calls would time the host there."""
+    after one warm-up: the mean event times ``per_call``, the events one
+    call launches. For a kernel shorter than its wrapper's host work:
+    CUDA events around back-to-back calls would time the host there.
+    CUPTI can lose a window's records (PERF.md, PR 5 and PR 7), so a
+    window short of ``reps * per_call`` events is traced again, up to
+    three times in all, and the mean per event does not count a lost
+    record as zero time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if any(k + "(" in e.name for k in kernels)]
-    if not us:
-        raise AssertionError(f"the profiler saw no kernel of {kernels}")
-    return sum(us) / reps / 1e3
+    best: list = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if any(k + "(" in e.name for k in kernels)]
+        if len(us) > len(best):
+            best = us
+        if len(best) >= reps * per_call:
+            break
+    if not best:
+        raise AssertionError(f"the profiler saw no kernel of {kernels} in "
+                             "three traced windows")
+    return sum(best) / len(best) * per_call / 1e3
 
 
 def _ab_device_ms(new, prev, reps: int) -> tuple[float, float]:
@@ -350,25 +398,29 @@ def _sinkhorn_multi(cost, tau, iters):
 
 
 def _flood_bytemask(packed, comm):
-    """K3's byte-mask design (the `prev_ms` baseline), not counted."""
+    """K3's byte-mask design (the `prev_ms` baseline), not counted; one
+    problem (n, w) or a batch (B, n, w)."""
     from aclswarm_torch.ops import _build
 
-    n, w = packed.shape
+    *lead, n, w = packed.shape
     out = torch.empty_like(packed)
     _build.launch("flood_merge_bytemask_launch", packed.device,
-                  packed.data_ptr(), comm.data_ptr(), out.data_ptr(), n, w)
+                  packed.data_ptr(), comm.data_ptr(), out.data_ptr(),
+                  lead[0] if lead else 1, n, w)
     return out
 
 
 def _round_single_block(plan):
-    """K2's single-block design (the `prev_ms` baseline), not counted."""
+    """K2's single-block design (the `prev_ms` baseline), not counted; one
+    plan (n, n) or a batch (B, n, n), one block per plan."""
     from aclswarm_torch.ops import _build
 
-    n = plan.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=plan.device)
-    rounds = torch.empty((), dtype=torch.int32, device=plan.device)
+    *lead, n = plan.shape[:-1]
+    out = torch.empty((*lead, n), dtype=torch.int32, device=plan.device)
+    rounds = torch.empty(tuple(lead), dtype=torch.int32, device=plan.device)
     _build.launch("round_dominant_single_block_launch", plan.device,
-                  plan.data_ptr(), out.data_ptr(), rounds.data_ptr(), n, n)
+                  plan.data_ptr(), out.data_ptr(), rounds.data_ptr(),
+                  lead[0] if lead else 1, n, n)
     return out, rounds
 
 
@@ -1781,9 +1833,491 @@ def _check_trial(cfg, profile_chunks=(6, 12)) -> dict:
     return info
 
 
+def _auction_inputs(seed: int, dev):
+    """The main path's first-auction cost (the normalized `cdist_fast` of
+    the aligned formation) and the flood's comm graph, for one seed."""
+    from aclswarm_torch.core import geometry
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.sim import localization as loclib
+
+    formation, _, _, state = problem(N, seed, dev, torch.float32,
+                                     2 * SUITE["init_radius"])
+    q = state.swarm.q
+    p_al = geometry.align(formation.points,
+                          permutil.veh_to_formation_order(q, state.v2f))
+    raw = geometry.cdist_fast(q, p_al)
+    return ((raw / (torch.mean(raw) + 1e-12)).contiguous(),
+            loclib.comm_mask(formation.adjmat, state.v2f).contiguous())
+
+
+def _batch_masses_err(plans):
+    return max((torch.exp(torch.logsumexp(plans, dim=d)) - 1.0
+                / plans.shape[-1]).abs().max().item() for d in (-1, -2))
+
+
+def _check_batch(label, batched, singles, plain=None, atol=0.0):
+    """A batched launch against its single launches (bit for bit) and its
+    plain batched version (``atol``; 0 = bit for bit)."""
+    same = all(torch.equal(x, y) for x, y in zip(batched, singles))
+    err = 0.0 if plain is None else max(
+        (x.double() - y.double()).abs().max().item()
+        for x, y in zip(batched, plain))
+    if not (same and err <= atol):
+        raise AssertionError(f"batch_kernels {label}: batched launch equal "
+                             f"to single launches {same}, max |batched - "
+                             f"plain| {err} (limit {atol})")
+    return err
+
+
+def phase_batch_kernels(seed: int) -> dict:
+    """Each kernel's batched launch at B=5, n=1000 on the main path's
+    inputs of five seeds, against the five single launches (bit for bit)
+    and its plain batched version; launches, ms for the batch against the
+    singles' ms, and the bound for five problems. Then B=1 and B=3 at
+    n=1001."""
+    from aclswarm_torch import ops
+    from aclswarm_torch.ops import rounding
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    inputs = [_auction_inputs(s, dev) for s in range(seed, seed + BATCH)]
+    cost = torch.stack([c for c, _ in inputs])
+    comm = torch.stack([m for _, m in inputs])
+    tau, iters = 0.03, SINKHORN_ITERS
+    out = {}
+
+    # K1: residency waves of cooperative launches
+    singles = [ops.sinkhorn_log(c, tau, iters) for c in cost]
+    plans, launches = _counted("sinkhorn_log",
+                               lambda: ops.sinkhorn_log(cost, tau, iters))
+    plain = ops.sinkhorn_log_plain(cost, tau, iters)
+    err = _check_batch("K1 B=5", plans, singles, plain, 5e-5)
+    marg = _batch_masses_err(plans)
+    waves = K1_WAVES[BATCH] if sms == 132 else None
+    if marg > 1e-4 or (waves is not None and launches != waves):
+        raise AssertionError(f"batch_kernels K1: marginal error {marg}, "
+                             f"launches {launches} (expected {waves})")
+    b, by = bound_ms(BATCH * (10 * N * N * iters + 2 * N * N),
+                     BATCH * 8 * N * N)
+    ms = time_ms(lambda: ops.sinkhorn_log(cost, tau, iters), 10)
+    singles_ms = time_ms(lambda: [ops.sinkhorn_log(c, tau, iters)
+                                  for c in cost], 10)
+    out["sinkhorn_log"] = dict(batch=BATCH, launches=launches,
+                               max_abs_err=err, marginal_err=marg, ms=ms,
+                               singles_ms=singles_ms, bound_ms=b, bound_by=by,
+                               sms=sms)
+
+    # K2: the SMs split among the plans, one launch
+    singles = [ops.round_dominant(p) for p in plans]
+    (perm, rnds), launches = _counted("round_dominant",
+                                      lambda: ops.round_dominant(plans))
+    perm_ref, rnds_ref = ops.round_dominant_plain(plans)
+    perm_prev, rnds_prev = _round_single_block(plans)
+    _check_batch("K2 B=5 permutations", perm, [s[0] for s in singles],
+                 perm_ref)
+    _check_batch("K2 B=5 rounds", rnds, [s[1] for s in singles], rnds_ref)
+    _check_batch("K2 B=5 single-block design", perm_prev, perm_ref)
+    if launches != 1 or not torch.equal(rnds_prev, rnds_ref):
+        raise AssertionError(f"batch_kernels K2: launches {launches}, "
+                             "single-block rounds differ")
+    scratch = rounding.launch(plans, None)[2]
+    entries = sum(2 * N * N + rounding.rescans(scratch[k], N)["entries"]
+                  for k in range(BATCH))
+    b, by = bound_ms(2 * entries, BATCH * (4 * N * N + 4 * N))
+    ms = device_ms(lambda: ops.round_dominant(plans), 20, K2_KERNELS)
+    singles_ms = device_ms(lambda: [ops.round_dominant(p) for p in plans],
+                           20, K2_KERNELS, per_call=BATCH)
+    out["round_dominant"] = dict(
+        batch=BATCH, launches=launches, rounds=rnds.tolist(), ms=ms,
+        singles_ms=singles_ms, bound_ms=b, bound_by=by,
+        # ~1.6 ms of device work a call: CUDA events time it well
+        single_block_grid_ms=time_ms(lambda: _round_single_block(plans),
+                                     5),
+        call_ms=time_ms(lambda: ops.round_dominant(plans), 20),
+        timing="device time (profiler)")
+
+    # K3: the trial axis on grid z, full width and the phased stripe
+    rng = np.random.default_rng(seed)
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    age = torch.tensor(rng.integers(0, 200, (BATCH, N, N)), dtype=torch.int32,
+                       device=dev)
+    nnz = int(comm.sum())
+    for w in (N, N // 2):
+        packed = ((age[:, :, :w] << 16) | ids[:, None]).contiguous()
+        singles = [ops.flood_merge(pk, cm) for pk, cm in zip(packed, comm)]
+        merged, launches = _counted("flood_merge",
+                                    lambda: ops.flood_merge(packed, comm))
+        _check_batch(f"K3 B=5 w={w}", merged, singles,
+                     ops.flood_merge_plain(packed, comm, block=100))
+        _check_batch(f"K3 B=5 w={w} byte-mask design",
+                     _flood_bytemask(packed, comm), singles)
+        if launches != 1:
+            raise AssertionError(f"batch_kernels K3: {launches} launches")
+        b, by = bound_ms(2 * nnz * w, BATCH * (4 * N * w * 2 + N * N))
+        out[f"flood_merge_w{w}"] = dict(
+            batch=BATCH, launches=launches, comm_nnz=nnz, bound_ms=b,
+            bound_by=by, ms=time_ms(lambda: ops.flood_merge(packed, comm),
+                                    50),
+            singles_ms=time_ms(lambda: [ops.flood_merge(pk, cm) for pk, cm
+                                        in zip(packed, comm)], 50))
+    for name, v in out.items():
+        emit({"phase": "batch_kernel", "name": name, **v})
+
+    # edges: one problem through the batched entry, three at n=1001
+    edges = []
+    for B, n in ((1, N), (3, N + 1)):
+        c = torch.stack([_uniform_cost(n, seed + k, dev) for k in range(B)])
+        p1, l1 = _counted("sinkhorn_log", lambda: ops.sinkhorn_log(c))
+        e1 = _check_batch(f"K1 B={B} n={n}", p1, [ops.sinkhorn_log(x)
+                                                  for x in c],
+                          ops.sinkhorn_log_plain(c), 5e-5)
+        (pp, rr), l2 = _counted("round_dominant",
+                                lambda: ops.round_dominant(p1))
+        pr, rr_ref = ops.round_dominant_plain(p1)
+        _check_batch(f"K2 B={B} n={n}", pp, [ops.round_dominant(x)[0]
+                                             for x in p1], pr)
+        _check_batch(f"K2 B={B} n={n} rounds", rr, rr_ref)
+        pk = torch.randint(0, 2**30, (B, n, 37), device=dev,
+                           dtype=torch.int32)
+        cm = torch.rand(B, n, n, device=dev) < 0.3
+        m3, l3 = _counted("flood_merge", lambda: ops.flood_merge(pk, cm))
+        _check_batch(f"K3 B={B} n={n} w=37", m3, [ops.flood_merge(x, y) for
+                                                  x, y in zip(pk, cm)],
+                     ops.flood_merge_plain(pk, cm))
+        if (l1, l2, l3) != (1, 1, 1):
+            raise AssertionError(f"batch_kernels B={B} n={n}: launches "
+                                 f"{(l1, l2, l3)}, expected one each")
+        edges.append({"phase": "batch_edge", "batch": B, "n": n,
+                      "launches": [l1, l2, l3], "k1_max_abs_err": e1,
+                      "k2_rounds": rr.tolist()})
+    for e in edges:
+        emit(e)
+    return out
+
+
+def phase_slice_batch(seed: int) -> dict:
+    """Five `simform1000_flooded` airborne starts (seeds S..S+4, designed
+    gains x 0.15) rolled 240 ticks by `sim.batched_rollout`, beside five
+    serial `rollout`s of the same starts on the card."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.core import types
+
+    dev = torch.device("cuda")
+    probs = [problem(N, s, dev, torch.float32, 2 * SUITE["init_radius"])
+             for s in range(seed, seed + BATCH)]
+    gains, sparams = probs[0][1], probs[0][2]
+    bform = types.stack([p[0] for p in probs])
+    bstate = sim.stack_states([p[3] for p in probs])
+    cfg = _slice_cfg()
+    sim.batched_rollout(bstate, bform, gains, sparams, cfg, 2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    final, metrics = sim.batched_rollout(bstate, bform, gains, sparams, cfg,
+                                         TICKS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    serial = [sim.rollout(p[3], p[0], gains, sparams, cfg, TICKS)
+              for p in probs]
+    torch.cuda.synchronize()
+    serial_seconds = time.perf_counter() - t0
+    dq = max((m.q - metrics.q[:, b]).abs().max().item()
+             for b, (_, m) in enumerate(serial))
+    same_v2f = all(torch.equal(m.v2f, metrics.v2f[:, b])
+                   for b, (_, m) in enumerate(serial))
+    same_auc = all(torch.equal(m.auctioned, metrics.auctioned[:, b])
+                   for b, (_, m) in enumerate(serial))
+
+    def run(k):
+        sim.batched_rollout(bstate, bform, gains, sparams, cfg, k)
+
+    counted, by_name, lost = _traced_window(run, cfg.assign_every)
+    busy = sum(v[1] for v in by_name.values())
+    ms_per_tick = seconds / TICKS * 1e3
+    auctions = TICKS // cfg.assign_every + (TICKS % cfg.assign_every > 0)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        final.swarm.q, final.swarm.vel, final.loc.est, metrics.q))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    info = {"phase": "slice_batch", "batch": BATCH, "n": N, "ticks": TICKS,
+            "dtype": "float32", "ms_per_batched_tick": ms_per_tick,
+            "serial_ms_per_tick": serial_seconds / (BATCH * TICKS) * 1e3,
+            "max_abs_dq_vs_serial": dq, "v2f_equal_serial": same_v2f,
+            "auctioned_equal_serial": same_auc, "launches": launches,
+            "auctions": auctions,
+            "traced_window_ticks": cfg.assign_every,
+            "launches_traced": {k: by_name.get(k, [0])[0] for k in counted},
+            "kernel_launches_per_batched_tick":
+                sum(v[0] for v in by_name.values()) / cfg.assign_every,
+            "device_busy_ms_per_batched_tick": busy / cfg.assign_every,
+            "idle_share": 1.0 - busy / cfg.assign_every / ms_per_tick,
+            "k3_missing_in_trace": lost["k3_missing"],
+            "top": [{"name": k, "launches": v[0], "device_ms": v[1]}
+                    for k, v in top],
+            "max_memory_allocated_bytes": peak, "finite": finite,
+            "v2f_valid": bool(permutil.is_valid(final.v2f).all())}
+    emit(info)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k1 = auctions * K1_WAVES[BATCH] if sms == 132 else launches[
+        "sinkhorn_log"]
+    if not (same_v2f and same_auc and finite and info["v2f_valid"]
+            and launches["flood_merge"] == TICKS
+            and launches["round_dominant"] == auctions
+            and launches["sinkhorn_log"] == k1
+            and launches["sinkhorn_log"] < BATCH * auctions):
+        raise AssertionError(f"slice_batch check failed: {info}")
+    return info
+
+
+class _WaveProbe:
+    """Wraps the harness's `summary.batched_rollout_summary` and
+    `summary.to_host`, `gains.solve_gains`, `SummaryTrialFSM._to` and
+    `formation_dispatched`, and `trials.run_trial_batch` for one
+    `run_trials` call (the harness itself is not touched): per chunk the
+    batch size, the synchronized rollout ms and its launch counts; each
+    trial's transitions and dispatch ticks; each design; and, over the
+    chunks in ``profile_chunks``, the profiler's device-to-host copies,
+    kernel launches and device busy time from the rollout's start to the
+    end of its two host copies."""
+
+    def __init__(self, profile_chunks=()):
+        self.chunks, self.designs, self.waves = [], [], []
+        self.transitions: dict = {}
+        self.dispatches: dict = {}
+        self.profile_chunks = set(profile_chunks)
+        self.windows: dict = {}
+        self.final_state = self._prof = None
+        self.profiler_seconds = 0.0
+
+    def _stop_profile(self):
+        if self._prof is None:
+            return
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self._prof.stop()
+        events = [e for e in self._prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        kernels = [e for e in events
+                   if "Memcpy" not in e.name and "Memset" not in e.name]
+        self.windows[len(self.chunks) - 1] = {
+            "host_reads": sum("Memcpy DtoH" in e.name for e in events),
+            "kernel_launches": len(kernels),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in kernels) / 1e3}
+        self._prof = None
+        self.profiler_seconds += time.perf_counter() - t0
+
+    def install(self, stack):
+        from torch.profiler import ProfilerActivity, profile
+
+        from aclswarm_torch import gains, ops
+        from aclswarm_torch.harness import supervisor, trials
+        from aclswarm_torch.sim import summary
+
+        run, to_host = summary.batched_rollout_summary, summary.to_host
+        solve, batch = gains.solve_gains, trials.run_trial_batch
+        to, dispatched = (supervisor.SummaryTrialFSM._to,
+                          supervisor.SummaryTrialFSM.formation_dispatched)
+        probe = self
+
+        def _run(state, carry, formation, cgains, sparams, cfg, n_ticks,
+                 *args, **kw):
+            i = len(probe.chunks)
+            torch.cuda.synchronize()
+            if i in probe.profile_chunks:
+                t0 = time.perf_counter()
+                probe._prof = profile(activities=[ProfilerActivity.CUDA])
+                probe._prof.start()
+                probe.profiler_seconds += time.perf_counter() - t0
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            out = run(state, carry, formation, cgains, sparams, cfg,
+                      n_ticks, *args, **kw)
+            torch.cuda.synchronize()
+            probe.chunks.append({
+                "chunk": i, "batch": len(state.v2f), "ticks": n_ticks,
+                "auctions": -(-n_ticks // cfg.assign_every),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "profiled": probe._prof is not None,
+                "launches": {k: ops.LAUNCHES[k] - before[k]
+                             for k in before}})
+            probe.final_state = out[0]
+            return out
+
+        def _to_host(summ):
+            out = to_host(summ)
+            probe._stop_profile()
+            return out
+
+        def _solve(points, adj, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve(points, adj, *args, **dict(kw, telemetry=True))
+            torch.cuda.synchronize()
+            probe.designs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                  "iters": out[-1].iters, "gains": out[0],
+                                  "points": points, "adj": np.asarray(adj)})
+            return out[:-1] if len(out) > 2 else out[0]
+
+        def _to(fsm, state, reset=True):
+            probe.transitions.setdefault(id(fsm), []).append(
+                (supervisor.NAMES[state], fsm.tick_count))
+            return to(fsm, state, reset)
+
+        def _dispatched(fsm):
+            probe.dispatches.setdefault(id(fsm), []).append(fsm.tick_count)
+            return dispatched(fsm)
+
+        def _batch(cfg, idx):
+            fsms = batch(cfg, idx)
+            probe.waves.append((list(idx), fsms))
+            return fsms
+
+        for mod, name, fn in ((summary, "batched_rollout_summary", _run),
+                              (summary, "to_host", _to_host),
+                              (gains, "solve_gains", _solve),
+                              (supervisor.SummaryTrialFSM, "_to", _to),
+                              (supervisor.SummaryTrialFSM,
+                               "formation_dispatched", _dispatched),
+                              (trials, "run_trial_batch", _batch)):
+            original = getattr(mod, name)
+            setattr(mod, name, fn)
+            stack.callback(setattr, mod, name, original)
+        stack.callback(self._stop_profile)
+
+
+def phase_trial_batch(seed: int, serial: dict | None,
+                      slice_batch: dict | None) -> dict:
+    """`run_trials` with batch=5, trials=5 on the card: the
+    `simform1000_flooded` row at chunk_ticks 120, float32, seed S,
+    `trial_timeout` cut to `TRIAL_TIMEOUT_CUT`. Then trial 0 flown alone
+    through `run_trial` at the same chunking, beside the wave's trial 0
+    and the `trial` phase's path."""
+    import tempfile
+
+    from aclswarm_torch import gains, ops
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.harness import trials
+
+    row = dict(TRIAL_ROW, chunk_ticks=BATCH_CHUNK,
+               trial_timeout=TRIAL_TIMEOUT_CUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = trials.TrialConfig(**row, seed=seed, trials=BATCH, batch=BATCH,
+                                 verbose=False, device="cuda",
+                                 dtype="float32", out=f"{tmp}/wave.csv")
+        probe = _WaveProbe(profile_chunks=(4, 11))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with contextlib.ExitStack() as stack:
+            probe.install(stack)
+            t0 = time.perf_counter()
+            stats = trials.run_trials(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        ((idx, fsms),) = probe.waves
+        alone_fsm, alone_probe, alone_wall = _fly_trial(dataclasses.replace(
+            cfg, trials=1, batch=1, out=f"{tmp}/alone.csv"))
+
+    chunks = probe.chunks
+    ticks = sum(c["ticks"] for c in chunks)
+    trial_ticks = sum(c["ticks"] * c["batch"] for c in chunks)
+    auction_ticks = sum(c["auctions"] for c in chunks)
+    k1_expected = sum(c["auctions"] * K1_WAVES[c["batch"]] for c in chunks)
+    compactions = [[a["chunk"], a["batch"], b["batch"]] for a, b in
+                   zip(chunks, chunks[1:]) if b["batch"] != a["batch"]]
+    paths = [probe.transitions.get(id(f), []) for f in fsms]
+    dispatch_ticks = [probe.dispatches.get(id(f), []) for f in fsms]
+    timed = [c for c in chunks[1:] if not c["profiled"]]
+    design = probe.designs[0] if probe.designs else None
+    if design is None:
+        raise AssertionError("trial_batch: no gain design at a dispatch")
+    A, pts, adj = design["gains"], design["points"], design["adj"]
+    v = gains.validate_gains(A.double(), np.asarray(pts, np.float64),
+                             tol=2e-4)
+    zero_exact = bool((_nonedge_blocks(A, adj) == 0).all())
+    final = probe.final_state
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        final.swarm.q, final.swarm.vel, final.goal.pos, final.loc.est))
+    less_prof = wall - probe.profiler_seconds
+    alone_path = alone_probe.transitions
+    serial_path = None if serial is None else [
+        tuple(t) for t in serial["transitions"]]
+    info = {
+        "phase": "trial_batch", "formation": cfg.formation, "n": N,
+        "batch": BATCH, "trials": idx, "seed": seed, "dtype": cfg.dtype,
+        "chunk_ticks": cfg.chunk_ticks, "trial_timeout": cfg.trial_timeout,
+        "verdicts": [trials.NAMES[f.state] for f in fsms],
+        "paths": paths, "dispatch_ticks": dispatch_ticks,
+        "completed": stats["trials_completed"],
+        "chunks": len(chunks), "ticks": ticks, "trial_ticks": trial_ticks,
+        "compactions": compactions,
+        "wall_seconds": wall, "profiler_seconds": probe.profiler_seconds,
+        "wall_seconds_less_profiler": less_prof,
+        "trial_seconds_per_wall_second":
+            trial_ticks * cfg.control_dt / less_prof,
+        "ms_per_batched_tick": _mean([c["ms"] / c["ticks"] for c in timed]),
+        "chunk_ms": [round(c["ms"], 3) for c in chunks],
+        "designs": len(probe.designs),
+        "design_ms": [round(d["ms"], 1) for d in probe.designs],
+        "design_admm_iters": [int(d["iters"]) for d in probe.designs],
+        "validate_first": {k: v[k] for k in ("no_positive", "kernel_ok",
+                                             "strictly_negative_rest")},
+        "zero_blocks_exact": zero_exact,
+        "profiled": [dict(w, chunk=k, batch=chunks[k]["batch"],
+                          auctions=chunks[k]["auctions"],
+                          kernel_launches_per_tick=w["kernel_launches"]
+                          / chunks[k]["ticks"],
+                          device_busy_ms_per_tick=w["device_busy_ms"]
+                          / chunks[k]["ticks"])
+                     for k, w in probe.windows.items()],
+        "launches": launches, "auction_ticks": auction_ticks,
+        "sinkhorn_log_expected": k1_expected,
+        "peak_memory_bytes": peak, "finite": finite,
+        "v2f_valid": bool(permutil.is_valid(final.v2f).all()),
+        "trial0_path": paths[0], "alone_path": alone_path,
+        "alone_chunk_ticks": cfg.chunk_ticks,
+        "trial0_equals_alone": paths[0] == alone_path,
+        "alone_wall_seconds": alone_wall,
+        "serial_phase_path": serial_path,
+        "trial0_equals_serial_phase": paths[0] == serial_path,
+        "serial_phase_chunk_ticks": TRIAL_ROW["chunk_ticks"]}
+    emit(info)
+    reads_ok = [w["host_reads"] <= CHUNK_READS + AUCTION_READS
+                * chunks[k]["auctions"] for k, w in probe.windows.items()]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok = (all(f.done for f in fsms) and len(fsms) == BATCH
+          and v["no_positive"] and v["kernel_ok"]
+          and v["strictly_negative_rest"] and zero_exact
+          and launches["flood_merge"] == ticks
+          and launches["round_dominant"] == auction_ticks
+          and (sms != 132 or launches["sinkhorn_log"] == k1_expected)
+          and len(reads_ok) == len(probe.profile_chunks) and all(reads_ok)
+          and finite and info["v2f_valid"])
+    # trial 0 equals the same trial flown alone only if a batch reproduces
+    # serial bits on the card
+    if slice_batch is not None and slice_batch["max_abs_dq_vs_serial"] == 0:
+        ok = ok and info["trial0_equals_alone"]
+    if not ok:
+        raise AssertionError(f"trial_batch check failed: {info}")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after device and "
+                    "build (debugging; no kernels or result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1798,6 +2332,25 @@ def main(argv=None) -> int:
 
     timed("device", phase_device)
     timed("build", phase_build)
+    if args.phases:
+        table = {"gains": phase_gains, "kernels": phase_kernels,
+                 "reference": phase_reference, "slice": phase_slice,
+                 "auction": phase_auction, "cbaa": phase_cbaa,
+                 "slice_cbaa": phase_slice_cbaa,
+                 "slice_auction": phase_slice_auction,
+                 "trial": phase_trial, "batch_kernels": phase_batch_kernels,
+                 "slice_batch": phase_slice_batch}
+        done = {}
+        for name in args.phases.split(","):
+            if name == "trial_batch":
+                done[name] = timed(name, phase_trial_batch, args.seed,
+                                   done.get("trial"),
+                                   done.get("slice_batch"))
+            else:
+                done[name] = timed(name, table[name], args.seed)
+        print("chip_smoke: partial run (--phases), no result line",
+              flush=True)
+        return 0
     gn = timed("gains", phase_gains, args.seed)
     kern = timed("kernels", phase_kernels, args.seed)
     timed("reference", phase_reference, args.seed)
@@ -1811,6 +2364,9 @@ def main(argv=None) -> int:
     sl_cbaa = timed("slice_cbaa", phase_slice_cbaa, args.seed)
     sl_auction = timed("slice_auction", phase_slice_auction, args.seed)
     tr = timed("trial", phase_trial, args.seed)
+    bk = timed("batch_kernels", phase_batch_kernels, args.seed)
+    sb = timed("slice_batch", phase_slice_batch, args.seed)
+    tb = timed("trial_batch", phase_trial_batch, args.seed, tr, sb)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -1846,12 +2402,15 @@ def main(argv=None) -> int:
                    "slice": sl["launches"][name],
                    "slice_cbaa": sl_cbaa["launches"][name],
                    "slice_auction": sl_auction["launches"][name],
-                   "trial": tr["launches"][name]},
+                   "trial": tr["launches"][name],
+                   "slice_batch": sb["launches"][name],
+                   "trial_batch": tb["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,
                "design": designs[name][0]}
-        row.update(prev_design=designs[name][1], prev_ms=k["prev_ms"])
+        row.update(prev_design=designs[name][1], prev_ms=k["prev_ms"],
+                   batched=bk[key])
         if name == "round_dominant":
             row.update(dense_bound_ms=k["dense_bound_ms"],
                        rounds=k["rounds"])

@@ -37,7 +37,7 @@ def test_scan_covers_the_package():
             "convert.py", "_build.py", "auction.py", "cbaa.py",
             "masking.py", "admm.py", "params.py", "trials.py",
             "supervisor.py", "formations.py", "checkpoint.py", "crash.py",
-            "config.py"} <= names
+            "config.py", "summary.py"} <= names
 
 
 def test_init_state_without_device_needs_the_card(monkeypatch):
@@ -58,5 +58,19 @@ def test_run_trial_without_device_needs_the_card(monkeypatch):
     assert cfg.device is None
     with pytest.raises(RuntimeError, match="CUDA"):
         trials.run_trial(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trials.run_trials(cfg)
+
+
+def test_run_trial_batch_without_device_needs_the_card(monkeypatch):
+    """The batched driver, like the serial one, raises with ``device=None``
+    and no card instead of flying the wave on the CPU."""
+    from aclswarm_torch.harness import trials
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = trials.TrialConfig(formation="simform6", batch=2, trials=2,
+                             chunk_ticks=120, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trials.run_trial_batch(cfg, [0, 1])
     with pytest.raises(RuntimeError, match="CUDA"):
         trials.run_trials(cfg)

@@ -199,7 +199,7 @@ def test_rounding_kernel_previous_design(card):
     out = torch.empty(N, dtype=torch.int32, device=card)
     rounds = torch.empty((), dtype=torch.int32, device=card)
     _build.launch("round_dominant_single_block_launch", card, plan.data_ptr(),
-                  out.data_ptr(), rounds.data_ptr(), N, N)
+                  out.data_ptr(), rounds.data_ptr(), 1, N, N)
     assert torch.equal(out, ref) and int(rounds) == int(ref_rounds)
 
 
@@ -392,3 +392,111 @@ def test_swarm4_trial_on_the_card(card):
         formation="swarm4", seed=3, verbose=False, device="cuda"), 0)
     assert fsm.completed, trials.NAMES[fsm.state]
     assert len(fsm.times) == 2 and fsm.execution == {}
+
+
+# ------------------------------------------------ batched launches (trials)
+
+def _costs(card, B, n, seed=0):
+    return torch.stack([_cost(card, seed + b, n) for b in range(B)])
+
+
+@pytest.mark.parametrize("B,n,launches", [(5, N, 2), (1, N, 1),
+                                          (3, N + 1, 1)])
+def test_sinkhorn_batched_equals_single_launches(card, B, n, launches):
+    """B solves of one call equal B single launches bit for bit, in one
+    cooperative launch per residency wave (n = 1000 on 132 SMs: three
+    solves a wave), and the plain version at atol 5e-5."""
+    cost = _costs(card, B, n)
+    single = torch.stack([ops.sinkhorn_log(c) for c in cost])
+    before = ops.LAUNCHES["sinkhorn_log"]
+    plan = ops.sinkhorn_log(cost)
+    made = ops.LAUNCHES["sinkhorn_log"] - before
+    assert torch.equal(plan, single)
+    assert made == launches or torch.cuda.get_device_properties(
+        card).multi_processor_count != 132
+    assert made < B or B == 1
+    ref = ops.sinkhorn_log_plain(cost)
+    assert (plan - ref).abs().max().item() <= 5e-5
+
+
+@pytest.mark.parametrize("B,n", [(5, N), (1, N), (3, N + 1)])
+def test_rounding_batched_equals_single_launches(card, B, n):
+    """One launch rounds B plans, split over the SMs: the permutations and
+    the round counts of B single launches, and of the plain version."""
+    plans = ops.sinkhorn_log(_costs(card, B, n, seed=10))
+    single = [ops.round_dominant(p) for p in plans]
+    before = ops.LAUNCHES["round_dominant"]
+    perm, rounds = ops.round_dominant(plans)
+    assert ops.LAUNCHES["round_dominant"] - before == 1
+    assert torch.equal(perm, torch.stack([s[0] for s in single]))
+    assert torch.equal(rounds, torch.stack([s[1] for s in single]))
+    ref, ref_rounds = ops.round_dominant_plain(plans)
+    assert torch.equal(perm, ref) and torch.equal(rounds, ref_rounds)
+
+
+def test_rounding_batched_previous_design(card):
+    """The single-block kernel with one block per plan agrees too."""
+    from aclswarm_torch.ops import _build
+
+    plans = ops.sinkhorn_log(_costs(card, 3, N, seed=20))
+    ref, ref_rounds = ops.round_dominant_plain(plans)
+    out = torch.empty((3, N), dtype=torch.int32, device=card)
+    rounds = torch.empty(3, dtype=torch.int32, device=card)
+    _build.launch("round_dominant_single_block_launch", card,
+                  plans.data_ptr(), out.data_ptr(), rounds.data_ptr(), 3, N,
+                  N)
+    assert torch.equal(out, ref) and torch.equal(rounds, ref_rounds)
+
+
+@pytest.mark.parametrize("B,n,w", [(5, N, N), (5, N, N // 2), (1, N, N // 2),
+                                   (3, N + 1, 37)])
+def test_flood_batched_equals_single_launches(card, B, n, w):
+    """One launch merges B problems (grid z = B), bit-identical to B single
+    launches and to the plain version."""
+    g = torch.Generator(device=card).manual_seed(B * w)
+    packed = torch.randint(0, 2**30, (B, n, w), generator=g, device=card,
+                           dtype=torch.int32)
+    comm = torch.rand(B, n, n, generator=g, device=card) < 0.3
+    comm[0, 0] = False
+    before = ops.LAUNCHES["flood_merge"]
+    out = ops.flood_merge(packed, comm)
+    assert ops.LAUNCHES["flood_merge"] - before == 1
+    assert torch.equal(out, torch.stack([ops.flood_merge(p, c)
+                                         for p, c in zip(packed, comm)]))
+    assert torch.equal(out, ops.flood_merge_plain(packed, comm, block=100))
+
+
+def test_batched_rollout_on_the_card_equals_serial_assignments(card):
+    """A small flooded Sinkhorn wave on the card: the batched rollout's
+    assignments and auction flags equal the serial rollouts', and K3 runs
+    once per tick for the whole wave."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.core import types
+
+    rng = np.random.default_rng(3)
+    n, B, T = 64, 3, 60
+    forms, states = [], []
+    for _ in range(B):
+        pts = rng.uniform(-20, 20, (n, 3))
+        forms.append(types.make_formation(
+            pts, np.ones((n, n)) - np.eye(n), rng.normal(size=(n, n, 3, 3))
+            * 0.001, device=card))
+        q0 = rng.uniform(-20, 20, (n, 3))
+        q0[:, 2] = 1.0
+        states.append(sim.init_state(q0, localization=True, device=card))
+    sp = types.SafetyParams(bounds_min=(-50.0, -50.0, 0.0),
+                            bounds_max=(50.0, 50.0, 10.0))
+    cfg = sim.SimConfig(assignment="sinkhorn", localization="flooded",
+                        flood_phases=2, assign_every=30, assign_eps=0.01,
+                        colavoid_neighbors=8, dynamics="doubleint")
+    ops.reset_launches()
+    bf, bm = sim.batched_rollout(sim.stack_states(states),
+                                 types.stack(forms), types.ControlGains(),
+                                 sp, cfg, T)
+    assert ops.LAUNCHES == {"sinkhorn_log": 2, "round_dominant": 2,
+                            "flood_merge": T}
+    for b in range(B):
+        _, sm = sim.rollout(states[b], forms[b], types.ControlGains(), sp,
+                            cfg, T)
+        assert torch.equal(sm.v2f, bm.v2f[:, b])
+        assert torch.equal(sm.auctioned, bm.auctioned[:, b])

@@ -326,7 +326,6 @@ def test_config_layers_match_the_reference(tmp_path):
 # ------------------------------------------------ fields that still raise
 
 @pytest.mark.parametrize("field,value,item", [
-    ("batch", 2, "item 10"),
     ("scenario", "wind", "item 13"),
     ("check_mode", "on", "item 12"),
     ("telemetry", "on", "item 12"),
