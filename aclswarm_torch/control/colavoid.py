@@ -8,7 +8,9 @@ edge within ±90°, else zeroed. All angle tests are circular, so sectors
 straddling ±pi need no special case. The reference vmaps `_one_agent`
 over agents; here the agent axis is written out as the leading tensor
 dimension. A batch of trials ((B, n, 3) positions) folds into that axis:
-every agent's avoidance is a row of its own.
+every agent's avoidance is a row of its own. Scenario obstacles are
+columns appended after the (possibly pruned) vehicle columns, each with
+its own keep-out radius.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ def wrap_to_pi(a: torch.Tensor) -> torch.Tensor:
 
 
 def _agents(qij_xy: torch.Tensor, active: torch.Tensor, vel: torch.Tensor,
-            params: SafetyParams) -> tuple[torch.Tensor, torch.Tensor]:
+            params: SafetyParams, r_keep: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Avoidance for every agent at once (the reference's `_one_agent`
     with the agent axis written out).
 
@@ -49,14 +52,19 @@ def _agents(qij_xy: torch.Tensor, active: torch.Tensor, vel: torch.Tensor,
       qij_xy: (n, m, 2) planar relative positions of each agent's columns.
       active: (n, m) bool neighbor-within-threshold mask (self excluded).
       vel: (n, 3) desired velocity goals.
+      r_keep: optional (n, m) per-column keep-out radii (scenario obstacles
+        carry their own); None = the uniform ``params.r_keep_out``.
 
     Returns ((n, 3) safe velocities, (n,) modified flags).
     """
-    rk = params.r_keep_out
+    rk = params.r_keep_out if r_keep is None else r_keep
     inf = math.inf
     d = torch.linalg.vector_norm(qij_xy, dim=-1)                     # (n, m)
     theta = torch.atan2(qij_xy[..., 1], qij_xy[..., 0])
-    ratio = torch.clamp(rk / torch.clamp(d, min=1e-12), max=1.0)
+    # reciprocal times rk: what `rk / tensor` computes for a Python float,
+    # spelled out so a tensor of radii rounds the vehicle columns the same
+    ratio = torch.clamp(torch.reciprocal(torch.clamp(d, min=1e-12)) * rk,
+                        max=1.0)
     alpha = torch.abs(torch.asin(ratio))
     psi = torch.atan2(vel[:, 1], vel[:, 0])                          # (n,)
 
@@ -120,16 +128,16 @@ def collision_avoidance(q: torch.Tensor, vel_des: torch.Tensor,
     ``max_neighbors`` = k keeps the k nearest ACTIVE vehicles per agent
     (exact whenever an agent has <= k vehicles in range); None = dense.
     ``neighbor_mask`` (n,) bool: vehicles with a False bit cast no sector.
-    Scenario ``obstacles`` arrive with the scenarios slice.
+    ``obstacles`` ``((K, 3) positions, (K,) radii, (K,) active)``
+    (scenario cylinders, a leading trial axis with ``q``'s): each active
+    obstacle casts a sector with its own radius as the keep-out, inside
+    the vehicles' warning shell ``radius + (d_avoid_thresh -
+    r_keep_out)``; never pruned. All inactive is bit-identical to None.
 
     Returns ((n, 3) safe velocities, (n,) bool avoidance-active flags); a
     leading trial axis of ``q``, ``vel_des`` (and ``neighbor_mask``) comes
     back on both.
     """
-    if obstacles is not None:
-        raise NotImplementedError(
-            "collision_avoidance obstacles belong to the scenarios slice, "
-            "not yet ported")
     n = q.shape[-2]
     # (..., i, j, 3): j relative to i
     qij = q[..., None, :, :] - q[..., :, None, :]
@@ -153,5 +161,23 @@ def collision_avoidance(q: torch.Tensor, vel_des: torch.Tensor,
         cols_act = torch.gather(rows_act, 1, idx)
     else:
         cols_xy, cols_act = rows_xy, rows_act
-    v, flags = _agents(cols_xy, cols_act, vel_des.reshape(-1, 3), params)
+    r_keep = None
+    if obstacles is not None:
+        obs_pos, obs_r, obs_mask = obstacles
+        obs_r = obs_r.to(q.dtype)
+        k = obs_r.shape[-1]
+        # (..., n, K, 2): each obstacle relative to each agent
+        oij = obs_pos[..., None, :, :2].to(q.dtype) - q[..., :, None, :2]
+        shell = params.d_avoid_thresh - params.r_keep_out
+        oact = (torch.linalg.vector_norm(oij, dim=-1)
+                <= obs_r[..., None, :] + shell) & obs_mask[..., None, :]
+        m = cols_xy.shape[1]
+        r_keep = torch.cat(
+            [torch.full((cols_xy.shape[0], m), params.r_keep_out,
+                        dtype=q.dtype, device=q.device),
+             obs_r[..., None, :].expand(oact.shape).reshape(-1, k)], dim=1)
+        cols_xy = torch.cat([cols_xy, oij.reshape(-1, k, 2)], dim=1)
+        cols_act = torch.cat([cols_act, oact.reshape(-1, k)], dim=1)
+    v, flags = _agents(cols_xy, cols_act, vel_des.reshape(-1, 3), params,
+                       r_keep)
     return v.reshape(vel_des.shape), flags.reshape(vel_des.shape[:-1])

@@ -8,8 +8,9 @@ on ``device`` in ``dtype``. `sim_state_to_numpy` goes the other way, to a
 nested dict of numpy arrays with the reference's field names. A batch of
 trials crosses the same way, every leaf with a leading (B,) axis (the
 reference's batched `SimState`, `Formation` and `SummaryCarry`); a
-batched state's tick is then a (B,) array. This module imports neither JAX
-nor the reference package.
+batched state's tick is then a (B,) array. Fault schedules and scenarios
+cross with their leaves (the reference's uint32 key words become int64).
+This module imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ from aclswarm_torch.assignment.cbaa import CbaaTables
 from aclswarm_torch.control.safety import TrajGoal
 from aclswarm_torch.core.types import (ControlGains, Formation, SafetyParams,
                                        SwarmState, as_float, resolve_device)
+from aclswarm_torch.faults import schedule as faultlib
+from aclswarm_torch.faults.schedule import FaultSchedule
+from aclswarm_torch.scenarios import timeline as scenlib
+from aclswarm_torch.scenarios.timeline import Scenario
 from aclswarm_torch.gains.admm import AdmmCarry
 from aclswarm_torch.gains.params import AdmmParams
 from aclswarm_torch.sim.engine import SimState
@@ -102,17 +107,34 @@ def _optional(obj, name):
     return getattr(obj, name, None)
 
 
+def fault_schedule_from_numpy(f, device=None, dtype=torch.float32
+                              ) -> FaultSchedule:
+    """The reference's `FaultSchedule` (one trial or a batch): drop_tick,
+    rejoin_tick, link_loss in ``dtype``, the key words."""
+    return faultlib.from_numpy(*(np.asarray(_get(f, k)) for k in (
+        "drop_tick", "rejoin_tick", "link_loss", "key")), device=device,
+        dtype=dtype)
+
+
+def scenario_from_numpy(sc, device=None, dtype=torch.float32) -> Scenario:
+    """The reference's `Scenario` (one trial or a batch), every leaf."""
+    return scenlib.from_numpy(
+        {f.name: np.asarray(_get(sc, f.name)) for f in fields(Scenario)},
+        device=device, dtype=dtype)
+
+
 def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
     """swarm, goal, v2f, tick, flight, loc, first_auction, assign_enabled,
-    cbaa_warm. The reference's other optional carries (faults, scenario,
-    inv, tel) are not ported yet and must be absent."""
-    for extra in ("faults", "scenario", "inv", "tel"):
+    cbaa_warm, faults, scenario. The reference's other optional carries
+    (inv, tel) are not ported yet and must be absent."""
+    for extra in ("inv", "tel"):
         if _optional(s, extra) is not None:
             raise NotImplementedError(
                 f"SimState.{extra} is not ported yet")
     dev = resolve_device(device)
     swarm, goal, flight = _get(s, "swarm"), _get(s, "goal"), _get(s, "flight")
     loc, warm = _get(s, "loc"), _optional(s, "cbaa_warm")
+    faults, scen = _optional(s, "faults"), _optional(s, "scenario")
     tick = np.asarray(_get(s, "tick"))
     return SimState(
         swarm=SwarmState(**_floats(swarm, ("q", "vel"), dev, dtype)),
@@ -131,11 +153,24 @@ def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
         assign_enabled=torch.as_tensor(
             np.array(_get(s, "assign_enabled"), bool), device=dev),
         cbaa_warm=None if warm is None else cbaa_tables_from_numpy(
-            warm, dev, dtype))
+            warm, dev, dtype),
+        faults=None if faults is None else fault_schedule_from_numpy(
+            faults, dev, dtype),
+        scenario=None if scen is None else scenario_from_numpy(
+            scen, dev, dtype))
 
 
 def _np(obj) -> dict:
     return {f.name: getattr(obj, f.name).cpu().numpy() for f in fields(obj)}
+
+
+def _np_keyed(obj) -> dict | None:
+    """`_np` with the key words as the reference's uint32."""
+    if obj is None:
+        return None
+    out = _np(obj)
+    out["key"] = out["key"].astype(np.uint32)
+    return out
 
 
 def sim_state_to_numpy(state: SimState) -> dict:
@@ -151,6 +186,8 @@ def sim_state_to_numpy(state: SimState) -> dict:
         "cbaa_warm": None if state.cbaa_warm is None
         else {k: v.cpu().numpy()
               for k, v in state.cbaa_warm._asdict().items()},
+        "faults": _np_keyed(state.faults),
+        "scenario": _np_keyed(state.scenario),
     }
 
 

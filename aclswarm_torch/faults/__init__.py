@@ -1,7 +1,13 @@
-"""Fault masks (port of `aclswarm_tpu.faults`): the masked-assignment
-helpers. The fault schedule (scripted dropout and lossy links) is not
-ported yet; its masks reach the solvers through `sim.engine.assign`."""
+"""Fault injection (port of `aclswarm_tpu.faults`): scripted dropout and
+rejoin and lossy links as data riding `SimState.faults`
+(`faults.schedule`), and the masked-assignment helpers that re-auction the
+alive sub-fleet (`faults.masking`)."""
 from aclswarm_torch.faults.masking import (alive_points, apply_pin_forbid,
                                            mask_cost, pin_forbid)
+from aclswarm_torch.faults.schedule import (NEVER, FaultSchedule, alive_at,
+                                            fault_event_at, link_up_at,
+                                            no_faults, sample_schedule)
 
-__all__ = ["alive_points", "pin_forbid", "mask_cost", "apply_pin_forbid"]
+__all__ = ["FaultSchedule", "NEVER", "no_faults", "sample_schedule",
+           "alive_at", "link_up_at", "fault_event_at", "alive_points",
+           "pin_forbid", "mask_cost", "apply_pin_forbid"]

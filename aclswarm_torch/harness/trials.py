@@ -41,6 +41,10 @@ Run:
         --set dtype=float64
     python -m aclswarm_torch.harness.trials --analyze trials.csv -n 6 -m 1
 
+``scenario`` names a registry family (`aclswarm_torch.scenarios`): each
+trial flies its own seeded draw, whose clock restarts with every dispatch
+(the tick is re-phased), over ``scenario_horizon`` ticks.
+
 Fields of the reference's config that the port does not run yet raise
 `NotImplementedError` naming their queue item in ROADMAP.md.
 """
@@ -176,8 +180,6 @@ def _not_ported(field: str, item: str) -> NotImplementedError:
 
 def _check_ported(cfg: TrialConfig) -> None:
     """Raise for the reference's fields that the port does not run."""
-    if cfg.scenario is not None:
-        raise _not_ported("scenario", "13 (scenarios)")
     if cfg.check_mode == "on":
         raise _not_ported("check_mode='on'", "12 (invariants)")
     if cfg.telemetry == "on" or cfg.telemetry_dump is not None:
@@ -260,6 +262,33 @@ def _trial_sparams(cfg: TrialConfig) -> SafetyParams:
 def _trial_cgains(cfg: TrialConfig) -> ControlGains:
     return ControlGains(**_trial_overrides(
         cfg, "e_xy_thr", "e_z_thr", "kd", "K1_xy", "K2_xy", "K1_z", "K2_z"))
+
+
+# the default per-formation scenario horizon in ticks (24 s at 100 Hz):
+# the driver re-phases the engine tick at every dispatch, so a family's
+# event fractions must land inside a formation phase
+_SCENARIO_HORIZON = 2400
+
+
+def _trial_scenario(cfg: TrialConfig, trial_seed: int, trial_idx: int,
+                    n: int, trial_timeout: float, device, dtype):
+    """The trial's scenario draw (None = the scenario-free engine): the
+    registry family ``cfg.scenario``, seeded per trial (``scenario_seed +
+    trial_idx``, else the trial's own seed), over ``scenario_horizon``
+    ticks, else the trial budget capped at `_SCENARIO_HORIZON`."""
+    if cfg.scenario is None:
+        return None
+    from aclswarm_torch.scenarios import registry as scenreg
+
+    seed = (trial_seed if cfg.scenario_seed is None
+            else cfg.scenario_seed + trial_idx)
+    if cfg.scenario_horizon is not None:
+        horizon = int(cfg.scenario_horizon)
+    else:
+        budget = max(1, int(trial_timeout / cfg.control_dt))
+        horizon = min(budget, _SCENARIO_HORIZON)
+    return scenreg.sample(cfg.scenario, seed, n, horizon=horizon,
+                          device=device, dtype=dtype)
 
 
 def _engine_kw(cfg: TrialConfig) -> dict:
@@ -385,6 +414,9 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
 
     state = sim.init_state(q0, flying=False,
                            localization=cfg.localization == "flooded",
+                           scenario=_trial_scenario(cfg, seed, trial_idx, n,
+                                                    trial_timeout, dev,
+                                                    dtype),
                            device=dev, dtype=dtype)
     fsm = TrialFSM(n, len(specs), takeoff_alt=sparams.takeoff_alt,
                    dt=cfg.control_dt, trial_timeout=trial_timeout)
@@ -604,8 +636,11 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
                          "phase)")
 
     bstate = sim.stack_states([
-        sim.init_state(q0, flying=False, localization=flooded, device=dev,
-                       dtype=dtype) for q0 in q0s])
+        sim.init_state(q0, flying=False, localization=flooded,
+                       scenario=_trial_scenario(cfg, cfg.seed + t, t, n,
+                                                trial_timeout, dev, dtype),
+                       device=dev, dtype=dtype)
+        for t, q0 in zip(trial_indices, q0s)])
     # before its first dispatch a trial's auctions are gated off: the wave
     # shares one configuration, so the serial driver's hover
     # assignment='none' becomes this per-trial gate

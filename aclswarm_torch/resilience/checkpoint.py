@@ -30,7 +30,10 @@ corrupted files raise `CheckpointCorrupt`. Writes are atomic (tmp +
 `SimState` crosses as `convert.sim_state_to_numpy`'s nested dict and
 comes back through `restore_state`, every leaf checked against the
 resuming run's own state (`check_leaves`; ``batch_flex`` lets a batched
-wave resume across a compaction of its trial axis).
+wave resume across a compaction of its trial axis). A fault schedule and
+a scenario ride the state as leaves, so a resumed faulted or scenario run
+redraws each tick's links, lies, gusts and noise from the same keys and
+ticks, bit for bit.
 """
 from __future__ import annotations
 

@@ -21,8 +21,14 @@ data too, a (B,) int64 array that a dispatch resets. The auction LAP and
 CBAA, whose loops are polled from the host, run trial by trial inside a
 batched auction tick, bit-identical to serial solves by construction.
 
-Not ported yet (raise `NotImplementedError`): faults, scenarios,
-``check_mode='on'`` and ``telemetry='on'``.
+A `FaultSchedule` (`aclswarm_torch.faults`) and a `Scenario`
+(`aclswarm_torch.scenarios`) ride the state as data, one script per trial
+of a batch: masks and `where`s of each trial's own tick, which the step
+holds as a device tensor (`batched_rollout` builds it once per call, not
+per tick). `no_faults` and `no_scenario` are bit-identical to None.
+
+Not ported yet (raise `NotImplementedError`): ``check_mode='on'`` and
+``telemetry='on'``.
 """
 from __future__ import annotations
 
@@ -40,16 +46,17 @@ from aclswarm_torch.core import types as typeslib
 from aclswarm_torch.core.types import (ControlGains, Formation, SafetyParams,
                                        SwarmState, as_float)
 from aclswarm_torch.faults import masking as faultmask
+from aclswarm_torch.faults import schedule as faultlib
+from aclswarm_torch.faults.schedule import FaultSchedule
+from aclswarm_torch.scenarios import timeline as scenlib
+from aclswarm_torch.scenarios.timeline import Scenario
 from aclswarm_torch.sim import localization as loclib
 from aclswarm_torch.sim import vehicle
 from aclswarm_torch.sim.localization import EstimateTable
 from aclswarm_torch.sim.vehicle import ExternalInputs, FlightState
 
-# what is not ported yet, by ROADMAP.md queue 1 item (the trial axis,
-# item 10, is: `batched_rollout`)
+# what is not ported yet, by ROADMAP.md queue 1 item
 _LATER = {
-    "faults": "ROADMAP.md queue 1 item 11 (faults)",
-    "scenario": "ROADMAP.md queue 1 item 13 (scenarios)",
     "check_mode": "ROADMAP.md queue 1 item 12 (invariants)",
     "telemetry": "ROADMAP.md queue 1 item 12 (telemetry)",
 }
@@ -91,10 +98,11 @@ class SimState:
     int (the decimation phase); ``first_auction`` and ``assign_enabled``
     are () bool tensors, as in the reference. ``cbaa_warm`` (None = the
     stateless-auction engine) re-seeds each CBAA auction from the last
-    valid one's fixed point. The reference's other optional carries
-    (faults, scenario, inv, tel) are not ported yet. A batch of B trials
-    (`stack_states`) has a (B,) int64 numpy ``tick`` and a leading (B,)
-    axis on every tensor."""
+    valid one's fixed point. ``faults`` and ``scenario`` (None = the
+    fault-free, scenario-free engine) are the trial's scripts. The
+    reference's other optional carries (inv, tel) are not ported yet. A
+    batch of B trials (`stack_states`) has a (B,) int64 numpy ``tick`` and
+    a leading (B,) axis on every tensor."""
 
     swarm: SwarmState
     goal: control.TrajGoal
@@ -105,6 +113,8 @@ class SimState:
     assign_enabled: torch.Tensor  # ([B,]) bool
     loc: EstimateTable | None = None
     cbaa_warm: CbaaTables | None = None
+    faults: FaultSchedule | None = None
+    scenario: Scenario | None = None
 
 
 @dataclass
@@ -120,6 +130,11 @@ class StepMetrics:
     q: torch.Tensor              # (n, 3) positions after the tick
     mode: torch.Tensor           # (n,) int32 flight mode after the tick
     v2f: torch.Tensor            # (n,) assignment after the tick
+    # None unless the state carries a FaultSchedule / a Scenario
+    alive: torch.Tensor | None = None        # (n,) bool alive this tick
+    fault_event: torch.Tensor | None = None  # () bool: an alive bit flipped
+    scen_event: torch.Tensor | None = None   # () bool: a scenario axis
+    #                                          flipped state this tick
 
 
 def init_state(q0, v2f0=None, flying: bool = True,
@@ -131,16 +146,19 @@ def init_state(q0, v2f0=None, flying: bool = True,
     (send CMD_GO with ``cfg.flight_fsm``). ``localization=True``
     allocates the estimate tables ('flooded' mode). ``cbaa_warm=True``
     allocates the CBAA warm-start tables (cold, `cbaa.init_tables`).
+    ``faults`` (a `FaultSchedule`) and ``scenario`` (a `Scenario`) attach
+    the trial's scripts; None keeps the fault-free, scenario-free engine.
     ``device=None`` is the card; the state lives on ``device`` in
     ``dtype``."""
-    for what, on in (("faults", faults is not None), ("check_mode", checks),
-                     ("telemetry", telemetry),
-                     ("scenario", scenario is not None)):
+    for what, on in (("check_mode", checks), ("telemetry", telemetry)):
         if on:
             raise _not_ported(what)
     q0 = as_float(q0, device, dtype)
     dev = q0.device
     n = q0.shape[0]
+    if scenario is not None and scenario.n != n:
+        raise ValueError(f"scenario scripts n={scenario.n} agents but "
+                         f"the state carries n={n}")
     v2f0 = (permutil.identity(n, dev) if v2f0 is None
             else torch.as_tensor(v2f0, dtype=torch.int32, device=dev))
     return SimState(
@@ -151,7 +169,8 @@ def init_state(q0, v2f0=None, flying: bool = True,
         loc=loclib.init_table(q0, dev, dtype) if localization else None,
         first_auction=torch.ones((), dtype=torch.bool, device=dev),
         assign_enabled=torch.ones((), dtype=torch.bool, device=dev),
-        cbaa_warm=cbaa.init_tables(n, dev, dtype) if cbaa_warm else None)
+        cbaa_warm=cbaa.init_tables(n, dev, dtype) if cbaa_warm else None,
+        faults=faults, scenario=scenario)
 
 
 def _check_cfg(cfg: SimConfig) -> None:
@@ -281,17 +300,37 @@ def _assign_by_trial(swarm, formation, v2f, cfg, est, first, alive,
     return tuple(typeslib.stack(list(xs)) for xs in zip(*outs))
 
 
+def _pdistmat(points: torch.Tensor) -> torch.Tensor:
+    """`geometry.pdistmat` of ([B,] n, d) points, trial by trial (a
+    product over the batch would round otherwise than the lone ones)."""
+    if points.ndim == 2:
+        return geometry.pdistmat(points)
+    return torch.stack([geometry.pdistmat(p) for p in points])
+
+
+def _trial_ticks(state: SimState, dev) -> torch.Tensor:
+    """Each trial's own tick as an int32 tensor on the device: a fill for
+    one trial, a host-to-device copy for a batch (`batched_rollout` passes
+    its own instead, built once per call)."""
+    if isinstance(state.tick, np.ndarray):
+        return torch.as_tensor(state.tick.astype(np.int32)).to(dev)
+    return torch.full((), int(state.tick), dtype=torch.int32, device=dev)
+
+
 def step(state: SimState, formation: Formation, gains: ControlGains,
          sparams: SafetyParams, cfg: SimConfig,
          inputs: ExternalInputs | None = None,
-         shared_tick: int | None = None
+         shared_tick: int | None = None,
+         trial_ticks: torch.Tensor | None = None
          ) -> tuple[SimState, StepMetrics]:
     """One 100 Hz control tick for the whole swarm, or for a batch of
     trials. ``shared_tick`` (host int) replaces ``state.tick`` as the
     decimation phase (auction period, flood cadence); a batch needs it,
     and every trial's tick must agree with it modulo `assign_every` and
     `flood_every` (the batched trial driver aligns dispatches to chunk
-    boundaries so they do)."""
+    boundaries so they do). The fault and scenario masks key on each
+    trial's own tick: ``trial_ticks`` (optional, ([B,]) int32 on the
+    device) is ``state.tick`` already there."""
     _check_cfg(cfg)
     swarm, goal, v2f, fs = state.swarm, state.goal, state.v2f, state.flight
     n = swarm.q.shape[-2]
@@ -306,6 +345,38 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         inputs = ExternalInputs.none(n, dev, swarm.q.dtype,
                                      batch=lead[0] if lead else None)
     true_ = torch.ones(lead, dtype=torch.bool, device=dev)
+    faults, scen = state.faults, state.scenario
+    if (faults is not None or scen is not None) and trial_ticks is None:
+        trial_ticks = _trial_ticks(state, dev)
+
+    # --- fault model: masks of each trial's own tick ---
+    if faults is not None:
+        alive = faultlib.alive_at(faults, trial_ticks)
+        # delivered iff both ends live and the loss draw spares it
+        link_mask = faultlib.link_up_at(faults, trial_ticks) \
+            & alive[..., :, None] & alive[..., None, :]
+        fault_event = faultlib.fault_event_at(faults, trial_ticks)
+    else:
+        alive = link_mask = fault_event = None
+
+    # --- scenario timeline: an axis off for every trial (host onsets) is
+    # skipped, which equals its `where` against the baseline ---
+    if scen is not None:
+        on = scenlib.axes_on(scen, state.tick)
+        if on["formation"]:
+            # (c)+(e): the effective formation and its desired distances
+            pts, changed = scenlib.formation_points_at(
+                scen, formation.points, trial_ticks, cfg.control_dt)
+            changed = changed[..., None, None]
+            formation = replace(
+                formation, points=pts,
+                dstar_xy=torch.where(changed, _pdistmat(pts[..., :2]),
+                                     formation.dstar_xy),
+                dstar_z=torch.where(changed, _pdistmat(pts[..., 2:3]),
+                                    formation.dstar_z))
+        scen_event = scenlib.scenario_event_at(scen, trial_ticks)
+    else:
+        scen_event = None
 
     # --- operator flight-mode broadcast ---
     if cfg.flight_fsm:
@@ -314,32 +385,57 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
 
     # --- mutual localization: flood at its own 50 Hz rate ---
     loc = state.loc
+    loc_view = None
     if cfg.localization == "flooded":
         if loc is None:
+            if faults is not None:
+                raise ValueError(
+                    "cfg.localization='flooded' combined with a "
+                    "FaultSchedule needs init_state(..., "
+                    "localization=True, faults=...): the fault model "
+                    "drops flood links, which requires the estimate "
+                    "tables to exist")
             raise ValueError("cfg.localization='flooded' needs "
                              "init_state(..., localization=True)")
         if cfg.flood_phases == 1:
             loc = loclib.tick(loc, swarm.q, formation.adjmat, v2f,
                               shared_tick % cfg.flood_every == 0,
-                              target_block=cfg.flood_block)
+                              target_block=cfg.flood_block,
+                              link_mask=link_mask)
         else:
             loc = loclib.tick_phased(loc, swarm.q, formation.adjmat, v2f,
                                      shared_tick, cfg.flood_every,
                                      cfg.flood_phases,
-                                     target_block=cfg.flood_block)
+                                     target_block=cfg.flood_block,
+                                     link_mask=link_mask)
+        # (b) sensor noise on the consumed view only; the carry stays clean
+        loc_view = loc
+        if scen is not None and on["noise"]:
+            loc_view = loclib.noised_view(loc, scenlib.est_noise_at(
+                scen, trial_ticks, n, swarm.q.dtype))
 
-    # --- auto-auction, decimated on the host tick; the airborne and
-    # enabled gates select on the candidate as in the reference ---
+    # --- auto-auction, decimated on the host tick; the airborne, enabled
+    # and (e) re-matching gates select on the candidate as in the
+    # reference ---
     # CBAA alone consumes the flooded estimates and the warm tables
-    est = loc.est if cfg.localization == "flooded" else None
+    est = loc_view.est if loc_view is not None else None
     warm = state.cbaa_warm if cfg.assignment == "cbaa" else None
     new_warm = state.cbaa_warm
     if cfg.assignment != "none" and shared_tick % cfg.assign_every == 0:
-        outs = assign(swarm, formation, v2f, cfg, est=est,
-                      first=state.first_auction, warm=warm)
+        bidders = swarm
+        if scen is not None and on["byz"]:
+            # (d) the solvers see the reported positions, byzantine rows
+            # lying; control and dynamics keep the true state
+            bidders = SwarmState(q=scenlib.reported_positions(
+                scen, swarm.q, trial_ticks), vel=swarm.vel)
+        outs = assign(bidders, formation, v2f, cfg, est=est,
+                      first=state.first_auction, alive=alive,
+                      link_mask=link_mask, warm=warm)
         take = state.assign_enabled
         if cfg.flight_fsm:
             take = take & torch.all(flying, dim=-1)
+        if scen is not None:
+            take = take & scenlib.rematch_ok_at(scen, trial_ticks)
         new_v2f = torch.where(take[..., None], outs[0], v2f)
         valid = torch.where(take, outs[1], true_)
         if warm is not None:
@@ -357,19 +453,37 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     v2f = new_v2f
 
     # --- distributed control law -> distcmd ---
-    rel = loclib.relative_views(loc) if cfg.localization == "flooded" \
-        else None
-    u = control.compute(swarm, formation, v2f, gains, rel=rel)
+    rel = None if loc_view is None else loclib.relative_views(loc_view)
+    ctrl_formation = formation
+    if faults is not None:
+        # dead vehicles leave the formation graph: their points cast no
+        # edges (masked in formation space through the assignment)
+        alive_form = faultmask.alive_points(alive, v2f)
+        pair_alive = alive_form[..., :, None] & alive_form[..., None, :]
+        ctrl_formation = replace(formation, adjmat=torch.where(
+            pair_alive, formation.adjmat,
+            torch.zeros((), dtype=formation.adjmat.dtype, device=dev)))
+    u = control.compute(swarm, ctrl_formation, v2f, gains, rel=rel)
     if cfg.flight_fsm:
         u = torch.where(flying[..., None], u, torch.zeros_like(u))
+    if faults is not None:
+        # dead vehicles publish no distcmd
+        u = torch.where(alive[..., None], u, torch.zeros_like(u))
     distcmd_norm = torch.linalg.vector_norm(u, dim=-1)
 
     # --- safety shim: saturate -> mux -> avoid -> safe trajectory ---
     u = control.saturate_velocity(u, sparams)
     u, yawrate = vehicle.mux_goals(u, inputs)
     if cfg.use_colavoid:
+        # (a) active scenario obstacles cast sectors beside the vehicles
+        obstacles = None
+        if scen is not None and on["obstacles"]:
+            obs_pos, obs_act = scenlib.obstacles_at(scen, trial_ticks,
+                                                    cfg.control_dt)
+            obstacles = (obs_pos, scen.obs_radius, obs_act)
         u, ca = control.collision_avoidance(
-            swarm.q, u, sparams, max_neighbors=cfg.colavoid_neighbors)
+            swarm.q, u, sparams, max_neighbors=cfg.colavoid_neighbors,
+            neighbor_mask=alive, obstacles=obstacles)
     else:
         ca = torch.zeros(lead + (n,), dtype=torch.bool, device=dev)
     safe_goal = control.make_safe_traj(cfg.control_dt, u, yawrate, goal,
@@ -385,33 +499,58 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
 
     # --- vehicle dynamics ---
     if cfg.dynamics == "tracking":
-        swarm = SwarmState(q=goal.pos, vel=goal.vel)
+        new_swarm = SwarmState(q=goal.pos, vel=goal.vel)
     elif cfg.dynamics == "firstorder":
         a = min(max(cfg.control_dt / cfg.tau, 0.0), 1.0)
         vel = swarm.vel + a * (goal.vel - swarm.vel)
-        swarm = SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
+        new_swarm = SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
     else:  # doubleint: PD tracking law, semi-implicit Euler
         acc = cfg.kp_track * (goal.pos - swarm.q) \
             + cfg.kd_track * (goal.vel - swarm.vel)
         vel = swarm.vel + acc * cfg.control_dt
-        swarm = SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
+        new_swarm = SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
 
-    new_state = SimState(swarm=swarm, goal=goal, v2f=v2f,
+    # --- (b) wind displaces the integrated positions, before the fault
+    # freeze: a dead vehicle stays frozen in wind ---
+    if scen is not None and on["wind"]:
+        dq, wind_on = scenlib.wind_at(scen, trial_ticks, cfg.control_dt, n,
+                                      swarm.q.dtype)
+        new_swarm = SwarmState(
+            q=torch.where(wind_on[..., None, None], new_swarm.q + dq,
+                          new_swarm.q), vel=new_swarm.vel)
+
+    # --- fault freeze: dead vehicles hold pose, goal and flight mode ---
+    if faults is not None:
+        row = alive[..., None]
+
+        def hold(new, old):
+            return torch.where(row if new.ndim > alive.ndim else alive,
+                               new, old)
+
+        new_swarm = typeslib.tree_map(hold, new_swarm, swarm)
+        goal = typeslib.tree_map(hold, goal, state.goal)
+        fs = typeslib.tree_map(hold, fs, state.flight)
+        ca = ca & alive
+
+    new_state = SimState(swarm=new_swarm, goal=goal, v2f=v2f,
                          tick=state.tick + 1, flight=fs, loc=loc,
                          first_auction=first_auction,
                          assign_enabled=state.assign_enabled,
-                         cbaa_warm=new_warm)
+                         cbaa_warm=new_warm, faults=faults, scenario=scen)
     return new_state, StepMetrics(distcmd_norm=distcmd_norm, ca_active=ca,
                                   assign_valid=valid, reassigned=reassigned,
-                                  auctioned=take, q=swarm.q, mode=fs.mode,
-                                  v2f=v2f)
+                                  auctioned=take, q=new_swarm.q,
+                                  mode=fs.mode, v2f=v2f, alive=alive,
+                                  fault_event=fault_event,
+                                  scen_event=scen_event)
 
 
 def _stack_metrics(per_tick: list) -> StepMetrics | None:
     if not per_tick:
         return None
-    return StepMetrics(**{f.name: torch.stack([getattr(m, f.name)
-                                               for m in per_tick])
+    return StepMetrics(**{f.name: None if getattr(per_tick[0], f.name)
+                          is None else torch.stack([getattr(m, f.name)
+                                                    for m in per_tick])
                           for f in fields(StepMetrics)})
 
 
@@ -446,12 +585,21 @@ def batched_rollout(state: SimState, formation: Formation,
     reference's ``shared_tick``): tick t of the rollout auctions when
     ``(tick0 + t) % assign_every == 0``. Returns the final batched state
     and `StepMetrics` with leaves (n_ticks, B, ...) — per trial, the
-    serial `rollout` of the same start bit for bit."""
+    serial `rollout` of the same start bit for bit. With faults or
+    scenarios the trials' own ticks cross to the device once, as offsets
+    from the shared phase."""
+    offset = None
+    if state.faults is not None or state.scenario is not None:
+        offset = torch.as_tensor(
+            (np.asarray(state.tick) - tick0).astype(np.int32)).to(
+                state.v2f.device)
     per_tick = []
     for t in range(n_ticks):
         state, m = step(state, formation, gains, sparams, cfg,
                         None if inputs is None else inputs.at(t),
-                        shared_tick=tick0 + t)
+                        shared_tick=tick0 + t,
+                        trial_ticks=None if offset is None
+                        else offset + (tick0 + t))
         per_tick.append(m)
     return state, _stack_metrics(per_tick)
 
@@ -460,6 +608,8 @@ def stack_states(states: list[SimState]) -> SimState:
     """B serial states (same n, same optional carries) -> one batched
     state: a leading (B,) axis on every tensor and a (B,) int64 tick."""
     out = typeslib.stack(states)
+    if out.scenario is not None:
+        scenlib.stack_host([s.scenario for s in states], out.scenario)
     return replace(out, tick=np.asarray([s.tick for s in states], np.int64))
 
 
@@ -468,10 +618,15 @@ def take_trials(state: SimState, idx) -> SimState:
     order — the compaction's row gather."""
     keep = list(idx)
     rows = torch.as_tensor(keep, dtype=torch.int64).to(state.v2f.device)
-    return replace(typeslib.take_rows(state, rows),
-                   tick=np.asarray(state.tick)[keep])
+    out = typeslib.take_rows(state, rows)
+    if out.scenario is not None:
+        scenlib.take_host(state.scenario, keep, out.scenario)
+    return replace(out, tick=np.asarray(state.tick)[keep])
 
 
 def trial(state: SimState, b: int) -> SimState:
     """Trial ``b`` of a batched state as a serial state (views)."""
-    return replace(typeslib.row(state, b), tick=int(state.tick[b]))
+    out = typeslib.row(state, b)
+    if out.scenario is not None:
+        scenlib.take_host(state.scenario, b, out.scenario)
+    return replace(out, tick=int(state.tick[b]))

@@ -110,11 +110,16 @@ def flood(table: EstimateTable, comm: torch.Tensor,
 
 
 def noised_view(table: EstimateTable, noise) -> EstimateTable:
-    """Scenario sensor noise on the consumed view: ``noise`` is an
-    ``((n, n, 3) draw, () active)`` pair; the carried table stays clean."""
+    """Scenario sensor noise on the table as consumed this tick (a
+    measurement-noise model): ``noise`` is an ``(([B,] n, n, 3) draw,
+    ([B,]) active)`` pair. The engine hands this view to the control law
+    and CBAA and keeps the carried table clean, so each consumed estimate
+    holds one draw of error however long the trial; an inactive trial's
+    table passes through bitwise."""
     draw, on = noise
-    return EstimateTable(est=torch.where(on, table.est + draw, table.est),
-                         age=table.age)
+    return EstimateTable(
+        est=torch.where(on[..., None, None, None], table.est + draw,
+                        table.est), age=table.age)
 
 
 def _advance(table: EstimateTable, q_true: torch.Tensor, adjmat, v2f,

@@ -19,10 +19,15 @@ back as a trial-cumulative (n,) total per chunk.
 `batched_rollout_summary` runs `engine.batched_rollout` and reduces its
 (T, B, ...) metrics, so per chunk the host receives (B, T) bools and
 (B, n) distances, which `to_host` fetches in two device-to-host copies
-for the whole batch. The fault-recovery clock and the telemetry snapshot
-ride the reference's summary only with faults, scenarios or telemetry,
-none of which is ported: their carry fields pass through and ``tel``
-stays None.
+for the whole batch.
+
+Metrics of a rollout carrying a fault schedule or a scenario also yield
+the recovery clock (`_recovery_clock`): ticks from the last fault or
+scenario event to reconvergence, and the accepted reassignments in
+between. The reference advances it tick by tick in a scan; here it is a
+few whole-chunk operations (the last event's index by a cumulative max,
+the first reconvergence after it by a cumulative count), the same
+numbers. The device telemetry snapshot is not ported: ``tel`` stays None.
 """
 from __future__ import annotations
 
@@ -52,10 +57,10 @@ class SummaryCarry:
     fy: torch.Tensor           # ([B,] n) EWMA-filtered y
     cumdist: torch.Tensor      # ([B,] n) accumulated filtered distance
     inited: torch.Tensor       # ([B,]) bool: EWMA filter seeded?
-    # the reference's fault-recovery clock (zeros: faults are not ported)
-    rec_pending: torch.Tensor  # ([B,]) bool
-    rec_since: torch.Tensor    # ([B,]) int32
-    rec_churn: torch.Tensor    # ([B,]) int32
+    # the fault-recovery clock (zeros when no events ride the rollout)
+    rec_pending: torch.Tensor  # ([B,]) bool: an event awaits reconvergence
+    rec_since: torch.Tensor    # ([B,]) int32 ticks since the last event
+    rec_churn: torch.Tensor    # ([B,]) int32 reassignments since then
 
 
 @dataclass
@@ -71,6 +76,13 @@ class ChunkSummary:
     reassigned: torch.Tensor    # ([B,] T)
     cumdist: torch.Tensor       # ([B,] n) EWMA distance, trial-cumulative
     q_dec: torch.Tensor | None  # ([B,] ceil(T/pose_every), n, 3) or None
+    # None unless the rollout carried a FaultSchedule / a Scenario
+    fault_event: torch.Tensor | None = None     # ([B,] T) pass-through
+    n_alive: torch.Tensor | None = None         # ([B,] T) int32
+    scen_event: torch.Tensor | None = None      # ([B,] T) pass-through
+    # recovery clock outputs, -1 except at the tick recovery completes
+    recovery_ticks: torch.Tensor | None = None  # ([B,] T) int32
+    fault_churn: torch.Tensor | None = None     # ([B,] T) int32
     tel: None = None            # device telemetry is not ported
 
 
@@ -132,6 +144,49 @@ def _ewma_distance(q: torch.Tensor, carry: SummaryCarry):
     return f[..., 0], f[..., 1], dist, inited
 
 
+def _recovery_clock(event: torch.Tensor, conv_all: torch.Tensor,
+                    reassigned: torch.Tensor, carry: SummaryCarry,
+                    min_ticks: int):
+    """Time to reconvergence and assignment churn after each event, over
+    the chunk's ([B,] T) flags: (recovery_ticks, fault_churn, pending,
+    since, churn).
+
+    An event (a dropout or rejoin, a scenario axis flipping) restarts the
+    clock and zeroes the churn; events coalesce into one window from the
+    LAST one. Recovery completes at the first tick at least ``min_ticks``
+    (the supervisor window W) after the event whose windowed convergence
+    predicate holds; that tick emits the ticks since the event and the
+    accepted reassignments in between, every other tick -1. The
+    reference's tick-by-tick scan, as whole-chunk operations."""
+    T = event.shape[-1]
+    dev = event.device
+    t = torch.arange(T, dtype=torch.int64, device=dev)
+    # the last event at or before each tick (-1: none in this chunk)
+    last = torch.cummax(torch.where(event, t, torch.full_like(t, -1)),
+                        dim=-1).values
+    seen = last >= 0
+    at_last = torch.clamp(last, min=0)
+    since = torch.where(seen, t - last,
+                        carry.rec_since[..., None].long() + t + 1)
+    re = torch.cumsum(reassigned.long(), dim=-1)
+    churn = torch.where(seen, re - torch.gather(re, -1, at_last),
+                        carry.rec_churn[..., None].long() + re)
+    cand = conv_all & ~event & (since >= min_ticks)
+    # recovery is the first candidate of its window, if the window is
+    # pending (it opened with an event, or the carry was pending)
+    nc = torch.cumsum(cand.long(), dim=-1)
+    nc_window = nc - torch.where(seen, torch.gather(nc, -1, at_last),
+                                 torch.zeros_like(nc))
+    pending = seen | carry.rec_pending[..., None]
+    done = cand & pending & (nc_window == 1)
+    minus1 = torch.full_like(since, -1)
+    rec = torch.where(done, since, minus1).to(torch.int32)
+    chn = torch.where(done, churn, minus1).to(torch.int32)
+    end_pending = pending[..., -1] & (nc_window[..., -1] == 0)
+    return (rec, chn, end_pending, since[..., -1].to(torch.int32),
+            churn[..., -1].to(torch.int32))
+
+
 def summarize_chunk(metrics: StepMetrics, carry: SummaryCarry, window: int,
                     takeoff_alt: float, pose_every: int = 0
                     ) -> tuple[ChunkSummary, SummaryCarry]:
@@ -144,8 +199,29 @@ def summarize_chunk(metrics: StepMetrics, carry: SummaryCarry, window: int,
     dn_mean, dn_hist = _trailing_window_mean(dn, carry.dn_hist, window)
     ca_mean, ca_hist = _trailing_window_mean(ca, carry.ca_hist, window)
     fx, fy, cumdist, inited = _ewma_distance(metrics.q, carry)
+    conv_all = torch.all(dn_mean < ORIG_ZERO_VEL_THR, dim=-1)
+    # the recovery clock keys on the union of the events riding this
+    # rollout: fault drops and rejoins, scenario axis flips
+    event = metrics.fault_event if metrics.alive is not None else None
+    if metrics.scen_event is not None:
+        event = metrics.scen_event if event is None \
+            else event | metrics.scen_event
+    extra = {}
+    if event is not None:
+        rec, chn, pending, since, churn = _recovery_clock(
+            event, conv_all, metrics.reassigned, carry, window)
+        extra.update(recovery_ticks=rec, fault_churn=chn)
+        if metrics.alive is not None:
+            extra.update(fault_event=metrics.fault_event,
+                         n_alive=torch.sum(metrics.alive, dim=-1,
+                                           dtype=torch.int32))
+        if metrics.scen_event is not None:
+            extra["scen_event"] = metrics.scen_event
+    else:
+        pending, since, churn = (carry.rec_pending, carry.rec_since,
+                                 carry.rec_churn)
     summary = ChunkSummary(
-        conv_all=torch.all(dn_mean < ORIG_ZERO_VEL_THR, dim=-1),
+        conv_all=conv_all,
         grid_any=torch.any(ca_mean > AVG_ACTIVE_CA_THR, dim=-1),
         taken_off=torch.all(
             torch.abs(metrics.q[..., 2] - takeoff_alt) < ZERO_POS_THR,
@@ -153,12 +229,12 @@ def summarize_chunk(metrics: StepMetrics, carry: SummaryCarry, window: int,
         all_flying=torch.all(metrics.mode == vehicle.FLYING, dim=-1),
         auctioned=metrics.auctioned, assign_valid=metrics.assign_valid,
         reassigned=metrics.reassigned, cumdist=cumdist,
-        q_dec=metrics.q[..., ::pose_every, :, :] if pose_every else None)
+        q_dec=metrics.q[..., ::pose_every, :, :] if pose_every else None,
+        **extra)
     new_carry = SummaryCarry(dn_hist=dn_hist, ca_hist=ca_hist, fx=fx, fy=fy,
                              cumdist=cumdist, inited=inited,
-                             rec_pending=carry.rec_pending,
-                             rec_since=carry.rec_since,
-                             rec_churn=carry.rec_churn)
+                             rec_pending=pending, rec_since=since,
+                             rec_churn=churn)
     return summary, new_carry
 
 
@@ -173,7 +249,7 @@ def batched_rollout_summary(state, carry: SummaryCarry, formation, gains,
     state, metrics = engine.batched_rollout(state, formation, gains, sparams,
                                             cfg, n_ticks, inputs, tick0)
     # (T, B, ...) -> (B, T, ...)
-    batch_major = StepMetrics(**{k: v.movedim(0, 1)
+    batch_major = StepMetrics(**{k: None if v is None else v.movedim(0, 1)
                                  for k, v in vars(metrics).items()})
     summary, carry = summarize_chunk(batch_major, carry, window, takeoff_alt,
                                      pose_every)

@@ -97,7 +97,31 @@ and prints no result line:
              memory and the wave's simulated trial-seconds per wall
              second; trial 0 beside the same trial flown alone at the same
              chunking;
-16. the `kernels` line, then the result line. Each kernel row carries the
+16. faults — the fault grid of `benchmarks/faults_suite.py` (eight
+             (dropout, link loss) rows, one `sample_schedule` each) on
+             eight copies of the slice's start as one batched rollout of
+             360 ticks, drops at 60 and rejoins at 180: K1 (atol 5e-5 plus
+             2^-22 |plain| for the forbidden entries, marginals 1e-4) and
+             K2 on the tick-120 masked cost of the 0.5-dropout row, K3 on
+             its lossy dead-masked comm of the (0.3, 0.6) row (both
+             bit-identical); link masks card against CPU bit for bit; the
+             dead frozen and pinned; the recovery clock per trial; the
+             link draw's launches and device ms; launches and device busy
+             over ticks 120-159; `no_faults` against ``faults=None``
+             serially, bit for bit, over 240 ticks;
+17. slice_scenarios — one draw of each of the eight scenario families on
+             eight copies of the slice's start, one batched rollout of
+             240 ticks: every trial's events fire; `no_scenario` against
+             ``scenario=None`` bit for bit; uniform draws card against CPU
+             bit for bit, normal draws' max |dz| reported; each axis
+             draw's launches and device ms; profiled over ticks 120-159
+             (as `faults`);
+18. trial_scenarios — the `trial_batch` wave with a `kitchen_sink` draw
+             per trial over a 160-tick horizon: outcomes, paths,
+             trial-seconds per wall second beside `trial_batch`'s, copies
+             of the profiled chunk 11; then `swarm6_3d` under `wind_gust`
+             (cut at 30 s) on the card against the CPU;
+19. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -2312,6 +2336,481 @@ def phase_trial_batch(seed: int, serial: dict | None,
     return info
 
 
+# the fault grid of benchmarks/faults_suite.py: (dropout, link loss) per
+# trial row of one batched rollout; (0, 0) is the no-fault control row
+FAULT_GRID = [(0.0, 0.0), (0.1, 0.0), (0.3, 0.0), (0.5, 0.0),
+              (0.1, 0.3), (0.3, 0.3), (0.1, 0.6), (0.3, 0.6)]
+# drops land between the auctions at ticks 0 and 120, rejoins between 120
+# and 240: the tick-120 auction solves with dead vehicles
+FAULT_TICKS, FAULT_DROP, FAULT_REJOIN = 360, 60, 180
+FAULT_WINDOW = 100          # the supervisor window W: 1 s of ticks
+SCENARIO_TICKS = 240        # the families' horizon and the rollout's length
+# the profiled window of a faulted or scenario batch: ticks 120-159, one
+# auction; at ~800-2,100 launches a tick a longer one costs the profiler
+# more than the run
+FAULT_TRACE_TICKS = 40
+# the small card-against-CPU trial under wind, cut at 30 s: two
+# formations flown, the wind on from tick 720 of each
+SMALL_SCENARIO_TIMEOUT = 30.0
+# the wave's scenario horizon: events land in the ~200 flying ticks
+# before the `TRIAL_TIMEOUT_CUT` watchdog
+WAVE_SCENARIO_HORIZON = 160
+
+
+def _profile_call(fn, reps: int = 3) -> dict:
+    """Kernel launches and device ms per call of ``fn``, from the
+    profiler's kernel events over ``reps`` calls after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "Memcpy" not in e.name and "Memset" not in e.name]
+    return {"launches_per_call": len(kernels) / reps,
+            "device_ms_per_call": sum(e.time_range.elapsed_us()
+                                      for e in kernels) / reps / 1e3}
+
+
+def _batch_of(seed: int, B: int, **init_kw):
+    """B copies of the slice's start (one formation, designed gains),
+    trial ``b`` carrying ``init_kw[k][b]``: (bstate, bform, gains,
+    sparams)."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.core import types
+
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = problem(N, seed, dev, torch.float32,
+                                               2 * SUITE["init_radius"])
+    states = [sim.init_state(state.swarm.q, flying=True, localization=True,
+                             device=dev, dtype=torch.float32,
+                             **{k: v[b] for k, v in init_kw.items()})
+              for b in range(B)]
+    return (sim.stack_states(states), types.stack([formation] * B), gains,
+            sparams)
+
+
+def _batched_traced(bstate, bform, gains, sparams, cfg, tick0: int,
+                    ticks: int, ms_per_tick: float) -> dict:
+    """Launches and device busy per batched tick over ``ticks`` ticks from
+    ``bstate`` (at shared phase ``tick0``) under the profiler, beside the
+    untraced ms per tick."""
+    from aclswarm_torch import sim
+
+    def run(k):
+        sim.batched_rollout(bstate, bform, gains, sparams, cfg, k, None,
+                            tick0)
+
+    counted, by_name, lost = _traced_window(run, ticks)
+    busy = sum(v[1] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"traced_window_ticks": ticks, "traced_from_tick": tick0,
+            "launches_counted": counted,
+            "launches_traced": {k: by_name.get(k, [0])[0] for k in counted},
+            "kernel_launches_per_batched_tick":
+                sum(v[0] for v in by_name.values()) / ticks,
+            "device_busy_ms_per_batched_tick": busy / ticks,
+            "idle_share": 1.0 - busy / ticks / ms_per_tick,
+            "k3_missing_in_trace": lost["k3_missing"],
+            "top": [{"name": k, "launches": v[0], "device_ms": v[1]}
+                    for k, v in top]}
+
+
+def _masked_auction_cost(state, formation, alive):
+    """What `sinkhorn_assign` hands K1 at ``state``'s auction tick under
+    the fault mask: the normalized `cdist_fast` of the aligned formation
+    with pinned pairs 0 and forbidden ones `4 (max c + 1)`."""
+    from aclswarm_torch.core import geometry
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.faults import masking
+
+    q, v2f = state.swarm.q, state.v2f
+    p_al = geometry.align(formation.points,
+                          permutil.veh_to_formation_order(q, v2f))
+    raw = geometry.cdist_fast(q, p_al)
+    pin, forbid = masking.pin_forbid(alive, v2f)
+    return masking.apply_pin_forbid(raw / (torch.mean(raw) + 1e-12), pin,
+                                    forbid).contiguous(), pin, forbid
+
+
+def phase_faults(seed: int) -> dict:
+    """The fault grid of `benchmarks/faults_suite.py` at n=1000: eight
+    trials of the slice's start, each with its own `sample_schedule` (seed
+    S*1000+i), flown as one `sim.batched_rollout` of 360 ticks on the
+    `simform1000_flooded` engine, float32, designed gains; drops at tick
+    60, rejoins at 180, auctions at 0, 120 and 240. K1, K2 and K3 against
+    their plain versions on the tick-120 inputs the faults shape (the
+    masked cost of the 0.5-dropout trial, the lossy dead-masked comm of
+    the (0.3, 0.6) trial); the card's link masks against the CPU's; the
+    dead frozen, pinned at the auction, every `v2f` a permutation; the
+    recovery clock (`summary.summarize_chunk`, W=100); then, serially,
+    `no_faults` against ``faults=None`` bit for bit over 240 ticks."""
+    from aclswarm_torch import faults, ops, sim
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.core import types
+    from aclswarm_torch.sim import localization as loclib
+    from aclswarm_torch.sim import summary as sumlib
+    from aclswarm_torch.sim.engine import StepMetrics
+
+    dev, B = torch.device("cuda"), len(FAULT_GRID)
+    scheds = [faults.sample_schedule(seed * 1000 + i, N, dropout_frac=df,
+                                     drop_tick=FAULT_DROP,
+                                     rejoin_tick=FAULT_REJOIN, link_loss=pl,
+                                     device=dev, dtype=torch.float32)
+              for i, (df, pl) in enumerate(FAULT_GRID)]
+    bstate, bform, gains, sparams = _batch_of(seed, B, faults=scheds)
+    cfg = _slice_cfg()
+    sim.batched_rollout(bstate, bform, gains, sparams, cfg, 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    mid, m1 = sim.batched_rollout(bstate, bform, gains, sparams, cfg,
+                                  cfg.assign_every)
+    final, m2 = sim.batched_rollout(mid, bform, gains, sparams, cfg,
+                                    FAULT_TICKS - cfg.assign_every, None,
+                                    cfg.assign_every)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = StepMetrics(**{k: None if getattr(m1, k) is None else
+                             torch.cat([getattr(m1, k), getattr(m2, k)])
+                             for k in vars(m1)})
+    ms_per_tick = seconds / FAULT_TICKS * 1e3
+
+    # the recovery clock over the run, per trial
+    batch_major = StepMetrics(**{k: None if v is None else v.movedim(0, 1)
+                                 for k, v in vars(metrics).items()})
+    summ, _ = sumlib.summarize_chunk(
+        batch_major, sumlib.init_carry(N, FAULT_WINDOW, device=dev,
+                                       batch=B), FAULT_WINDOW,
+        float(sparams.takeoff_alt))
+    rec = summ.recovery_ticks.cpu().numpy()
+    chn = summ.fault_churn.cpu().numpy()
+    recovery = [[[int(t), int(rec[b, t]), int(chn[b, t])]
+                 for t in np.flatnonzero(rec[b] >= 0)] for b in range(B)]
+
+    # the kernels on the inputs the faults shape, tick 120
+    drop_b, lossy_b = FAULT_GRID.index((0.5, 0.0)), FAULT_GRID.index(
+        (0.3, 0.6))
+    t_auc = cfg.assign_every
+    alive = faults.alive_at(scheds[drop_b], t_auc)
+    cost, pin, forbid = _masked_auction_cost(sim.trial(mid, drop_b),
+                                             types.row(bform, drop_b), alive)
+    # forbidden entries reach |plan| ~ 10^3, where one float32 step is
+    # 6e-5: 5e-5 plus 2^-22 |plain| allows that last bit (as `kernels`)
+    k1 = _check_sinkhorn("faults: tick-120 masked cost, 0.5 dropout", cost,
+                         0.03, SINKHORN_ITERS, K1_LAUNCHES_PER_SOLVE,
+                         rtol=2.0**-22)
+    k2 = _check_rounding("faults: tick-120 masked plan, 0.5 dropout",
+                         ops.sinkhorn_log(cost, 0.03, SINKHORN_ITERS))
+    lossy = sim.trial(mid, lossy_b)
+    alive_l = faults.alive_at(scheds[lossy_b], t_auc)
+    comm = loclib.comm_mask(bform.adjmat[lossy_b], lossy.v2f) \
+        & faults.link_up_at(scheds[lossy_b], t_auc) \
+        & alive_l[:, None] & alive_l[None, :]
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    age = torch.clamp(lossy.loc.age + 1, max=loclib.AGE_CAP)
+    packed = ((age << 16) | ids[:, None])[:, :N // 2].contiguous()
+    k3 = _check_flood("faults: tick-120 lossy dead-masked comm, (0.3, 0.6)",
+                      packed, comm.contiguous())
+    k3.update(comm_edges=int(comm.sum()), full_comm_edges=int(
+        loclib.comm_mask(bform.adjmat[lossy_b], lossy.v2f).sum()))
+
+    # the card's link draws against the CPU's, bit for bit
+    links_equal = []
+    for b in (FAULT_GRID.index((0.1, 0.3)), lossy_b):
+        cpu = types.tree_map(lambda x: x.cpu(), scheds[b])
+        for t in (0, t_auc, FAULT_TICKS - 1):
+            links_equal.append(torch.equal(
+                faults.link_up_at(scheds[b], t).cpu(),
+                faults.link_up_at(cpu, t)))
+
+    # the dead: frozen from drop to rejoin, pinned at the tick-120 auction
+    alive_t, q, v2f = metrics.alive, metrics.q, metrics.v2f
+    frozen, pinned, dead_counts = [], [], []
+    for b in range(B):
+        dead = ~alive_t[FAULT_DROP, b]
+        dead_counts.append(int(dead.sum()))
+        frozen.append(bool((q[FAULT_DROP:FAULT_REJOIN, b][:, dead]
+                            == q[FAULT_DROP, b][dead]).all()))
+        pinned.append(bool((v2f[t_auc, b][dead]
+                            == v2f[t_auc - 1, b][dead]).all()))
+    perms = bool(permutil.is_valid(v2f.reshape(-1, N)).all())
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        final.swarm.q, final.swarm.vel, final.loc.est, metrics.q))
+
+    # the link draw alone, for the batch at the shared tick
+    ticks_dev = torch.full((B,), t_auc, dtype=torch.int32, device=dev)
+    link = _profile_call(lambda: faults.link_up_at(bstate.faults,
+                                                   ticks_dev))
+    traced = _batched_traced(mid, bform, gains, sparams, cfg, t_auc,
+                             FAULT_TRACE_TICKS, ms_per_tick)
+
+    # serially: no_faults against faults=None, bit for bit
+    formation, _, _, state = problem(N, seed, dev, torch.float32,
+                                     2 * SUITE["init_radius"])
+    f0, n0 = sim.rollout(state, formation, gains, sparams, cfg, TICKS)
+    f1, n1 = sim.rollout(dataclasses.replace(
+        state, faults=faults.no_faults(N, device=dev)), formation, gains,
+        sparams, cfg, TICKS)
+    no_fault_equal = all(torch.equal(getattr(n0, k), getattr(n1, k)) for k in
+                         ("q", "v2f", "distcmd_norm", "ca_active",
+                          "auctioned")) and torch.equal(f0.loc.est,
+                                                        f1.loc.est)
+
+    auctions = -(-FAULT_TICKS // cfg.assign_every)
+    info = {"phase": "faults", "n": N, "batch": B, "ticks": FAULT_TICKS,
+            "dtype": "float32", "grid": FAULT_GRID,
+            "drop_tick": FAULT_DROP, "rejoin_tick": FAULT_REJOIN,
+            "dead": dead_counts, "ms_per_batched_tick": ms_per_tick,
+            "launches": launches, "auctions": auctions, **traced,
+            "link_draw": link, "recovery": recovery,
+            "recovery_format": "[tick, recovery_ticks, fault_churn]",
+            "fault_events": summ.fault_event.sum(dim=1).tolist(),
+            "k1": k1, "k2": k2, "k3": k3,
+            "link_masks_card_equal_cpu": links_equal,
+            "dead_frozen": frozen, "dead_pinned_at_auction": pinned,
+            "v2f_permutations": perms, "finite": finite,
+            "no_faults_equal_none": no_fault_equal,
+            "max_memory_allocated_bytes": peak}
+    emit(info)
+    if not (all(links_equal) and all(frozen) and all(pinned) and perms
+            and finite and no_fault_equal and dead_counts[drop_b] > 0
+            and launches["flood_merge"] == FAULT_TICKS
+            and launches["round_dominant"] == auctions
+            and launches["sinkhorn_log"] >= auctions):
+        raise AssertionError(f"faults check failed: {info}")
+    return info
+
+
+def phase_slice_scenarios(seed: int) -> dict:
+    """Eight trials of the slice's start at n=1000, one draw of each
+    registry family in registry order (seed S+i, horizon 240) — the
+    reference's heterogeneous-batch case at full width — as one
+    `sim.batched_rollout` of 240 ticks on the `simform1000_flooded`
+    engine. Checks: every trial's `scen_event` fires; `no_scenario`
+    equals ``scenario=None`` bit for bit on the card (B=2, 121 ticks);
+    uniform draws on the card equal the CPU's bit for bit (normal draws'
+    max |dz| reported). Timings as `faults`, and each axis draw alone."""
+    from aclswarm_torch import ops, scenarios, sim
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.core import prng
+    from aclswarm_torch.scenarios import timeline
+
+    dev = torch.device("cuda")
+    names = list(scenarios.FAMILIES)
+    B = len(names)
+    scens = [scenarios.sample(name, seed + i, N, horizon=SCENARIO_TICKS,
+                              device=dev, dtype=torch.float32)
+             for i, name in enumerate(names)]
+    bstate, bform, gains, sparams = _batch_of(seed, B, scenario=scens)
+    cfg = _slice_cfg()
+    sim.batched_rollout(bstate, bform, gains, sparams, cfg, 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    half = cfg.assign_every
+    t0 = time.perf_counter()
+    mid, m1 = sim.batched_rollout(bstate, bform, gains, sparams, cfg, half)
+    final, m2 = sim.batched_rollout(mid, bform, gains, sparams, cfg,
+                                    SCENARIO_TICKS - half, None, half)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ms_per_tick = seconds / SCENARIO_TICKS * 1e3
+    events = torch.cat([m1.scen_event, m2.scen_event]).sum(dim=0).tolist()
+    v2f = torch.cat([m1.v2f, m2.v2f])
+    perms = bool(permutil.is_valid(v2f.reshape(-1, N)).all())
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        final.swarm.q, final.swarm.vel, final.loc.est))
+    traced = _batched_traced(mid, bform, gains, sparams, cfg, half,
+                             FAULT_TRACE_TICKS, ms_per_tick)
+
+    # each axis draw alone, for the batch at tick 120 (all on by then)
+    ticks_dev = torch.full((B,), half, dtype=torch.int32, device=dev)
+    q = mid.swarm.q
+    draws = {
+        "byzantine": _profile_call(lambda: timeline.reported_positions(
+            mid.scenario, q, ticks_dev)),
+        "gust": _profile_call(lambda: timeline.wind_at(
+            mid.scenario, ticks_dev, cfg.control_dt, N, q.dtype)),
+        "noise": _profile_call(lambda: timeline.est_noise_at(
+            mid.scenario, ticks_dev, N, q.dtype))}
+    draws["noise"]["normals_per_call"] = B * N * N * 3
+
+    # card against CPU: uniforms bit for bit, normals reported
+    key = prng.fold_in(mid.scenario.key, ticks_dev)
+    uniform_equal = all(torch.equal(
+        prng.uniform(key, shape, dt).cpu(),
+        prng.uniform(key.cpu(), shape, dt))
+        for shape in ((N, N), (N, 3)) for dt in (torch.float32,
+                                                  torch.float64))
+    dz = {}
+    for label, family, fn in (
+            ("noise", "sensor_noise", lambda s, t: timeline.est_noise_at(
+                s, t, N, torch.float32)[0]),
+            ("gust", "wind_gust", lambda s, t: timeline.wind_at(
+                s, t, cfg.control_dt, N, torch.float32)[0]),
+            ("byzantine", "byzantine_bidders",
+             lambda s, t: timeline.reported_positions(
+                 s, q[names.index("byzantine_bidders")].to(s.key.device),
+                 t))):
+        card = scens[names.index(family)]
+        cpu = timeline.from_numpy(
+            {k: v.cpu().numpy() for k, v in vars(card).items()
+             if not k.startswith("_")}, device="cpu", dtype=torch.float32)
+        diff = (fn(card, half).cpu() - fn(cpu, half)).abs()
+        dz[label] = {"max_abs_dz": diff.max().item(),
+                     "elements_differing": int((diff > 0).sum()),
+                     "elements": diff.numel()}
+    normal_card_cpu = (prng.normal(key, (N, 3), torch.float32).cpu()
+                       - prng.normal(key.cpu(), (N, 3), torch.float32)
+                       ).abs().max().item()
+
+    # no_scenario against scenario=None on the card, bit for bit (B=2)
+    b0, bf0, _, _ = _batch_of(seed, 2)
+    b1, _, _, _ = _batch_of(seed, 2, scenario=[
+        scenarios.no_scenario(N, device=dev) for _ in range(2)])
+    r0 = sim.batched_rollout(b0, bf0, gains, sparams, cfg, TICKS_AUCTIONS)
+    r1 = sim.batched_rollout(b1, bf0, gains, sparams, cfg, TICKS_AUCTIONS)
+    no_scenario_equal = all(torch.equal(getattr(r0[1], k), getattr(r1[1], k))
+                            for k in ("q", "v2f", "distcmd_norm",
+                                      "ca_active")) \
+        and torch.equal(r0[0].loc.est, r1[0].loc.est)
+
+    auctions = -(-SCENARIO_TICKS // cfg.assign_every)
+    info = {"phase": "slice_scenarios", "n": N, "batch": B,
+            "ticks": SCENARIO_TICKS, "dtype": "float32", "families": names,
+            "scen_events": events, "ms_per_batched_tick": ms_per_tick,
+            "launches": launches, "auctions": auctions, **traced,
+            "axis_draws": draws, "uniform_card_equal_cpu": uniform_equal,
+            "normal_max_abs_dz_card_vs_cpu": normal_card_cpu,
+            "scenario_draw_max_abs_dz_card_vs_cpu": dz,
+            "no_scenario_equal_none": no_scenario_equal,
+            "v2f_permutations": perms, "finite": finite,
+            "max_memory_allocated_bytes": peak}
+    emit(info)
+    if not (all(e > 0 for e in events) and uniform_equal
+            and no_scenario_equal and perms and finite
+            and launches["flood_merge"] == SCENARIO_TICKS
+            and launches["round_dominant"] == auctions
+            and launches["sinkhorn_log"] >= auctions):
+        raise AssertionError(f"slice_scenarios check failed: {info}")
+    return info
+
+
+def phase_trial_scenarios(seed: int, trial_batch: dict | None) -> dict:
+    """A wave with scenarios: the `simform1000_flooded` row through
+    `run_trials(batch=5)` as `trial_batch` flies it (chunk_ticks 120, the
+    14 s cut), each trial with its own `kitchen_sink` draw over a 160-tick
+    horizon, so its events land in the flying ticks. Outcomes, FSM paths,
+    trial-seconds per wall second beside `trial_batch`'s, copies per
+    profiled chunk. Then `swarm6_3d` (seed 1, float32) under `wind_gust`
+    on the card and on the CPU: the same verdict and states."""
+    import tempfile
+
+    from aclswarm_torch import ops
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.harness import trials
+
+    row = dict(TRIAL_ROW, chunk_ticks=BATCH_CHUNK,
+               trial_timeout=TRIAL_TIMEOUT_CUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = trials.TrialConfig(**row, seed=seed, trials=BATCH, batch=BATCH,
+                                 scenario="kitchen_sink",
+                                 scenario_horizon=WAVE_SCENARIO_HORIZON,
+                                 verbose=False, device="cuda",
+                                 dtype="float32", out=f"{tmp}/wave.csv")
+        probe = _WaveProbe(profile_chunks=(11,))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with contextlib.ExitStack() as stack:
+            probe.install(stack)
+            t0 = time.perf_counter()
+            stats = trials.run_trials(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    ((idx, fsms),) = probe.waves
+    chunks = probe.chunks
+    ticks = sum(c["ticks"] for c in chunks)
+    trial_ticks = sum(c["ticks"] * c["batch"] for c in chunks)
+    auction_ticks = sum(c["auctions"] for c in chunks)
+    less_prof = wall - probe.profiler_seconds
+    final = probe.final_state
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        final.swarm.q, final.swarm.vel, final.goal.pos, final.loc.est))
+    info = {
+        "phase": "trial_scenarios", "formation": cfg.formation, "n": N,
+        "batch": BATCH, "trials": idx, "seed": seed,
+        "scenario": cfg.scenario, "scenario_horizon": cfg.scenario_horizon,
+        "chunk_ticks": cfg.chunk_ticks, "trial_timeout": cfg.trial_timeout,
+        "verdicts": [trials.NAMES[f.state] for f in fsms],
+        "paths": [probe.transitions.get(id(f), []) for f in fsms],
+        "dispatch_ticks": [probe.dispatches.get(id(f), []) for f in fsms],
+        "completed": stats["trials_completed"], "chunks": len(chunks),
+        "ticks": ticks, "trial_ticks": trial_ticks,
+        "wall_seconds": wall, "profiler_seconds": probe.profiler_seconds,
+        "trial_seconds_per_wall_second":
+            trial_ticks * cfg.control_dt / less_prof,
+        "trial_batch_trial_seconds_per_wall_second": None
+        if trial_batch is None
+        else trial_batch["trial_seconds_per_wall_second"],
+        "ms_per_batched_tick": _mean([c["ms"] / c["ticks"]
+                                      for c in chunks[1:]
+                                      if not c["profiled"]]),
+        "profiled": [dict(w, chunk=k, batch=chunks[k]["batch"],
+                          auctions=chunks[k]["auctions"],
+                          kernel_launches_per_tick=w["kernel_launches"]
+                          / chunks[k]["ticks"],
+                          device_busy_ms_per_tick=w["device_busy_ms"]
+                          / chunks[k]["ticks"])
+                     for k, w in probe.windows.items()],
+        "launches": launches, "auction_ticks": auction_ticks,
+        "peak_memory_bytes": peak, "finite": finite,
+        "v2f_valid": bool(permutil.is_valid(final.v2f).all())}
+    emit(info)
+    if not (all(f.done for f in fsms) and len(fsms) == BATCH
+            and launches["flood_merge"] == ticks
+            and launches["round_dominant"] == auction_ticks
+            and launches["sinkhorn_log"] >= auction_ticks > 0
+            and finite and info["v2f_valid"]):
+        raise AssertionError(f"trial_scenarios check failed: {info}")
+
+    small = trials.TrialConfig(formation="swarm6_3d", seed=1, trials=1,
+                               verbose=False, dtype="float32",
+                               scenario="wind_gust",
+                               trial_timeout=SMALL_SCENARIO_TIMEOUT)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        s_fsm, s_probe, s_wall = _fly_trial(
+            dataclasses.replace(small, device=dev))
+        runs[dev] = (s_fsm, s_probe.transitions, s_wall)
+    (c_fsm, c_tr, c_wall), (h_fsm, h_tr, h_wall) = runs["cuda"], runs["cpu"]
+    emit({"phase": "trial_scenarios",
+          "check": "swarm6_3d seed 1 float32 wind_gust, card vs CPU",
+          "verdict": trials.NAMES[c_fsm.state],
+          "verdict_cpu": trials.NAMES[h_fsm.state],
+          "transitions": c_tr, "transitions_cpu": h_tr,
+          "transition_ticks_equal": c_tr == h_tr,
+          "wall_seconds": c_wall, "wall_seconds_cpu": h_wall})
+    if not (c_fsm.state == h_fsm.state
+            and [s for s, _ in c_tr] == [s for s, _ in h_tr]):
+        raise AssertionError("trial_scenarios: swarm6_3d under wind_gust on "
+                             f"the card disagrees with the CPU: {c_tr} vs "
+                             f"{h_tr}")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2339,13 +2838,17 @@ def main(argv=None) -> int:
                  "slice_cbaa": phase_slice_cbaa,
                  "slice_auction": phase_slice_auction,
                  "trial": phase_trial, "batch_kernels": phase_batch_kernels,
-                 "slice_batch": phase_slice_batch}
+                 "slice_batch": phase_slice_batch, "faults": phase_faults,
+                 "slice_scenarios": phase_slice_scenarios}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
                 done[name] = timed(name, phase_trial_batch, args.seed,
                                    done.get("trial"),
                                    done.get("slice_batch"))
+            elif name == "trial_scenarios":
+                done[name] = timed(name, phase_trial_scenarios, args.seed,
+                                   done.get("trial_batch"))
             else:
                 done[name] = timed(name, table[name], args.seed)
         print("chip_smoke: partial run (--phases), no result line",
@@ -2367,6 +2870,9 @@ def main(argv=None) -> int:
     bk = timed("batch_kernels", phase_batch_kernels, args.seed)
     sb = timed("slice_batch", phase_slice_batch, args.seed)
     tb = timed("trial_batch", phase_trial_batch, args.seed, tr, sb)
+    fl = timed("faults", phase_faults, args.seed)
+    ss = timed("slice_scenarios", phase_slice_scenarios, args.seed)
+    ts = timed("trial_scenarios", phase_trial_scenarios, args.seed, tb)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -2404,7 +2910,10 @@ def main(argv=None) -> int:
                    "slice_auction": sl_auction["launches"][name],
                    "trial": tr["launches"][name],
                    "slice_batch": sb["launches"][name],
-                   "trial_batch": tb["launches"][name]},
+                   "trial_batch": tb["launches"][name],
+                   "faults": fl["launches"][name],
+                   "slice_scenarios": ss["launches"][name],
+                   "trial_scenarios": ts["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -197,11 +197,22 @@ def test_colavoid_keepout_repulse():
     assert ca[:3].all() and not ca[3]
 
 
-def test_colavoid_obstacles_not_ported():
+def test_colavoid_obstacles():
+    """Scenario obstacles are ported (`tests/test_torch_scenarios.py`
+    holds them against the reference): an active cylinder ahead turns the
+    vehicle, an inactive one changes nothing."""
     sp, _ = _params()
-    with pytest.raises(NotImplementedError, match="scenarios"):
-        control.collision_avoidance(torch.zeros(3, 3), torch.zeros(3, 3),
-                                    sp, obstacles=(None, None, None))
+    q = torch.tensor([[0.0, 0.0, 2.0], [9.0, 9.0, 2.0], [-9.0, 9.0, 2.0]],
+                     dtype=torch.float64)
+    vel = torch.tensor([[0.5, 0.0, 0.0]] * 3, dtype=torch.float64)
+    obs = (torch.tensor([[1.4, 0.0, 2.0]], dtype=torch.float64),
+           torch.tensor([1.2], dtype=torch.float64), torch.tensor([True]))
+    v, ca = control.collision_avoidance(q, vel, sp, obstacles=obs)
+    assert ca.tolist() == [True, False, False]
+    off = (obs[0], obs[1], torch.tensor([False]))
+    v0, ca0 = control.collision_avoidance(q, vel, sp)
+    v1, ca1 = control.collision_avoidance(q, vel, sp, obstacles=off)
+    assert torch.equal(v0, v1) and torch.equal(ca0, ca1)
 
 
 def test_hover_at_and_init_flight_dtype_device():

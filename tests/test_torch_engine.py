@@ -211,12 +211,9 @@ def test_formgen_matches_reference():
 @pytest.mark.parametrize("cfg_kw,init_kw,match", [
     (dict(assignment="none", check_mode="on"), {}, "invariants"),
     (dict(assignment="none", telemetry="on"), {}, "telemetry"),
-    (None, dict(faults=object()), "faults"),
-    (None, dict(scenario=object()), "scenarios"),
     (None, dict(checks=True), "invariants"),
     (None, dict(telemetry=True), "telemetry"),
 ], ids=["cfg_kw2-init_kw2-invariants", "cfg_kw3-init_kw3-telemetry",
-        "None-init_kw4-faults", "None-init_kw5-scenarios",
         "None-init_kw6-invariants", "None-init_kw7-telemetry"])
 def test_unported_modes_raise(cfg_kw, init_kw, match):
     q0 = np.zeros((4, 3))
@@ -233,11 +230,22 @@ def test_unported_modes_raise(cfg_kw, init_kw, match):
     (dict(), {}),                               # the default: 'auction'
     (dict(assignment="cbaa"), {}),
     (dict(assignment="cbaa", cbaa_task_block=3), dict(cbaa_warm=True)),
-], ids=["auction", "cbaa", "cbaa_warm"])
+    (dict(), dict(faults=True)),
+    (dict(), dict(scenario=True)),
+], ids=["auction", "cbaa", "cbaa_warm", "faults", "scenarios"])
 def test_ported_modes_run(cfg_kw, init_kw):
-    """The modes that used to raise: one auction tick each on the CPU."""
+    """The modes that used to raise: one auction tick each on the CPU
+    (the fault and scenario carries with their inert scripts)."""
+    from aclswarm_torch import faults, scenarios
+
     jform, jsp, jcg, q0 = _problem()
-    state = sim.init_state(q0, device="cpu", dtype=torch.float64, **init_kw)
+    cpu64 = dict(device="cpu", dtype=torch.float64)
+    init_kw = dict(init_kw)
+    if init_kw.get("faults"):
+        init_kw["faults"] = faults.no_faults(N, **cpu64)
+    if init_kw.get("scenario"):
+        init_kw["scenario"] = scenarios.no_scenario(N, **cpu64)
+    state = sim.init_state(q0, **cpu64, **init_kw)
     new, m = sim.step(state, convert.formation_from_numpy(_np(jform), "cpu",
                                                           torch.float64),
                       convert.control_gains_from_numpy(_np(jcg)),
@@ -245,7 +253,7 @@ def test_ported_modes_run(cfg_kw, init_kw):
                       sim.SimConfig(**cfg_kw))
     assert bool(m.auctioned) and new.tick == 1
     assert sorted(new.v2f.tolist()) == list(range(N))
-    assert (new.cbaa_warm is not None) == bool(init_kw)
+    assert (new.cbaa_warm is not None) == ("cbaa_warm" in init_kw)
 
 
 def test_flooded_needs_tables():

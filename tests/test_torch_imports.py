@@ -37,7 +37,8 @@ def test_scan_covers_the_package():
             "convert.py", "_build.py", "auction.py", "cbaa.py",
             "masking.py", "admm.py", "params.py", "trials.py",
             "supervisor.py", "formations.py", "checkpoint.py", "crash.py",
-            "config.py", "summary.py"} <= names
+            "config.py", "summary.py", "prng.py", "schedule.py",
+            "timeline.py", "registry.py"} <= names
 
 
 def test_init_state_without_device_needs_the_card(monkeypatch):

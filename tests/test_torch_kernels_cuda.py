@@ -15,7 +15,9 @@ at n=257 the card must reproduce the CPU bit for bit from shared inputs
 (one benefit matrix, one aligned formation), ties included. The ADMM gain
 design is tensor code too: held against the CPU at n=64, with its kernel
 basis computed on the host, and checked at n=1000 in float32. A short
-`swarm4` trial flies through the trial driver on the card."""
+`swarm4` trial flies through the trial driver on the card. A faulted fleet
+shapes the kernels' inputs once more: a masked cost with half the fleet
+dead and a lossy comm mask with the dead's rows empty."""
 import math
 
 import numpy as np
@@ -500,3 +502,47 @@ def test_batched_rollout_on_the_card_equals_serial_assignments(card):
                             cfg, T)
         assert torch.equal(sm.v2f, bm.v2f[:, b])
         assert torch.equal(sm.auctioned, bm.auctioned[:, b])
+
+
+def test_kernels_on_a_faulted_fleet(card):
+    """K1, K2 and K3 on the inputs a fault schedule shapes at n=1000: the
+    masked cost of a fleet with half its vehicles dead (their pairs pinned
+    to their points at cost 0, every other pair of theirs and every pair
+    onto a dead-owned point forbidden at 4 (max c + 1)), and the comm mask
+    of a lossy link draw with the dead's rows and columns empty. K1 at
+    5e-5 plus 2^-22 |plain| (the forbidden entries' last bit) and
+    marginals 1e-4; K2 and K3 bit-identical; the card's link draws equal
+    the CPU's bit for bit."""
+    from aclswarm_torch import faults
+    from aclswarm_torch.core import perm as permutil
+
+    sched = faults.sample_schedule(7, N, dropout_frac=0.5, drop_tick=10,
+                                   link_loss=0.6, device=card)
+    alive = faults.alive_at(sched, 20)
+    assert int(alive.sum()) == N // 2
+    v2f = torch.as_tensor(np.random.default_rng(4).permutation(N),
+                          dtype=torch.int32, device=card)
+    pin, forbid = masking.pin_forbid(alive, v2f)
+    cost = masking.apply_pin_forbid(_cost(card, 6), pin, forbid).contiguous()
+    out = ops.sinkhorn_log(cost, 0.03, 200)
+    ref = ops.sinkhorn_log_plain(cost, 0.03, 200)
+    assert ((out - ref).abs() - 2.0**-22 * ref.abs()).max().item() <= 5e-5
+    for mass, mass_ref in zip(_masses(out), _masses(ref)):
+        assert (mass - mass_ref).abs().max().item() <= 1e-4
+    perm, rounds = ops.round_dominant(out)
+    perm_ref, rounds_ref = ops.round_dominant_plain(out)
+    assert torch.equal(perm, perm_ref) and int(rounds) == int(rounds_ref)
+    assert bool(permutil.is_valid(perm))
+    assert torch.equal(perm[~alive], v2f[~alive])      # the dead stay put
+    up = faults.link_up_at(sched, 20)
+    cpu = faults.FaultSchedule(**{k: v.cpu() for k, v in vars(sched).items()})
+    assert torch.equal(up.cpu(), faults.link_up_at(cpu, 20))
+    comm = (torch.rand(N, N, generator=torch.Generator(device=card)
+                       .manual_seed(5), device=card) < 0.3) \
+        & up & alive[:, None] & alive[None, :]
+    g = torch.Generator(device=card).manual_seed(8)
+    packed = torch.randint(0, 2**30, (N, N // 2), generator=g, device=card,
+                           dtype=torch.int32)
+    merged = ops.flood_merge(packed, comm.contiguous())
+    assert torch.equal(merged, ops.flood_merge_plain(packed, comm, block=64))
+    assert (merged[~alive] == SENTINEL).all()

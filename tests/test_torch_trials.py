@@ -326,7 +326,6 @@ def test_config_layers_match_the_reference(tmp_path):
 # ------------------------------------------------ fields that still raise
 
 @pytest.mark.parametrize("field,value,item", [
-    ("scenario", "wind", "item 13"),
     ("check_mode", "on", "item 12"),
     ("telemetry", "on", "item 12"),
     ("telemetry_dump", "m.jsonl", "item 12"),
@@ -340,6 +339,17 @@ def test_unported_fields_raise(field, value, item):
                 lambda: ttrials.run_trials(cfg)):
         with pytest.raises(NotImplementedError, match=item):
             run()
+
+
+def test_scenario_field_is_ported():
+    """`scenario` (item 13) no longer raises; a family the registry does
+    not know is refused before the trial flies, as the reference's is.
+    `tests/test_torch_scenarios_trials.py` flies scenarios."""
+    cfg = ttrials.TrialConfig(formation="swarm4", verbose=False,
+                              scenario="wind", **CPU64)
+    ttrials._check_ported(cfg)
+    with pytest.raises(ValueError, match="unknown scenario family"):
+        ttrials.run_trial(cfg, 0)
 
 
 # ------------------------------------------------ library, loader, formgen

@@ -163,9 +163,9 @@ def test_batch_is_ported_and_the_rest_still_raises():
     item for a batched configuration too."""
     ttrials._check_ported(ttrials.TrialConfig(batch=2, **CPU64))
     cfg = ttrials.TrialConfig(formation="simform8", batch=2, trials=2,
-                              chunk_ticks=120, scenario="wind",
+                              chunk_ticks=120, check_mode="on",
                               verbose=False, **CPU64)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         ttrials.run_trials(cfg)
 
 
