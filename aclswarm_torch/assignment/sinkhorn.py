@@ -42,13 +42,14 @@ def sinkhorn_log(cost: torch.Tensor, tau: float = 0.03, n_iters: int = 200,
 
 def marginal_errors(plan_log: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """L1 marginal errors ``(row_err, col_err)`` of a log plan, each
-    ``sum_i |mass_i - 1/n|`` over rows / columns."""
-    target = 1.0 / plan_log.shape[0]
-    row_mass = torch.exp(torch.logsumexp(plan_log, dim=1))
-    col_mass = torch.exp(torch.logsumexp(plan_log, dim=0))
-    return (torch.sum(torch.abs(row_mass - target)),
-            torch.sum(torch.abs(col_mass - target)))
+    """L1 marginal errors ``(row_err, col_err)`` of a ([B,] n, n) log
+    plan, each ``sum_i |mass_i - 1/n|`` over rows / columns, per trial.
+    The `sinkhorn_marginal` contract thresholds them."""
+    target = 1.0 / plan_log.shape[-1]
+    row_mass = torch.exp(torch.logsumexp(plan_log, dim=-1))
+    col_mass = torch.exp(torch.logsumexp(plan_log, dim=-2))
+    return (torch.sum(torch.abs(row_mass - target), dim=-1),
+            torch.sum(torch.abs(col_mass - target), dim=-1))
 
 
 def round_to_permutation(plan_log: torch.Tensor) -> torch.Tensor:

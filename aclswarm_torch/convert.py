@@ -20,6 +20,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from aclswarm_torch.analysis.invariants import InvariantState
 from aclswarm_torch.assignment.cbaa import CbaaTables
 from aclswarm_torch.control.safety import TrajGoal
 from aclswarm_torch.core.types import (ControlGains, Formation, SafetyParams,
@@ -34,6 +35,8 @@ from aclswarm_torch.sim.engine import SimState
 from aclswarm_torch.sim.localization import EstimateTable
 from aclswarm_torch.sim.summary import SummaryCarry
 from aclswarm_torch.sim.vehicle import FlightState
+from aclswarm_torch.telemetry import device as devtel
+from aclswarm_torch.telemetry.device import ChunkTelemetry
 
 
 def _get(obj, name):
@@ -123,18 +126,30 @@ def scenario_from_numpy(sc, device=None, dtype=torch.float32) -> Scenario:
         device=device, dtype=dtype)
 
 
+def invariant_state_from_numpy(inv, device=None) -> InvariantState:
+    """The reference's `InvariantState` (one trial or a batch): code and
+    tick, int32."""
+    return InvariantState(**_ints(inv, ("code", "tick"),
+                                  resolve_device(device)))
+
+
+def telemetry_from_numpy(tel, device=None, dtype=torch.float32
+                         ) -> ChunkTelemetry:
+    """The reference's `ChunkTelemetry` (one trial or a batch): the int32
+    counters, the residual in ``dtype``."""
+    dev = resolve_device(device)
+    return ChunkTelemetry(**_ints(tel, devtel.INT_FIELDS, dev),
+                          **_floats(tel, ("admm_residual",), dev, dtype))
+
+
 def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
     """swarm, goal, v2f, tick, flight, loc, first_auction, assign_enabled,
-    cbaa_warm, faults, scenario. The reference's other optional carries
-    (inv, tel) are not ported yet and must be absent."""
-    for extra in ("inv", "tel"):
-        if _optional(s, extra) is not None:
-            raise NotImplementedError(
-                f"SimState.{extra} is not ported yet")
+    cbaa_warm, faults, scenario, inv, tel."""
     dev = resolve_device(device)
     swarm, goal, flight = _get(s, "swarm"), _get(s, "goal"), _get(s, "flight")
     loc, warm = _get(s, "loc"), _optional(s, "cbaa_warm")
     faults, scen = _optional(s, "faults"), _optional(s, "scenario")
+    inv, tel = _optional(s, "inv"), _optional(s, "tel")
     tick = np.asarray(_get(s, "tick"))
     return SimState(
         swarm=SwarmState(**_floats(swarm, ("q", "vel"), dev, dtype)),
@@ -157,7 +172,9 @@ def sim_state_from_numpy(s, device=None, dtype=torch.float32) -> SimState:
         faults=None if faults is None else fault_schedule_from_numpy(
             faults, dev, dtype),
         scenario=None if scen is None else scenario_from_numpy(
-            scen, dev, dtype))
+            scen, dev, dtype),
+        inv=None if inv is None else invariant_state_from_numpy(inv, dev),
+        tel=None if tel is None else telemetry_from_numpy(tel, dev, dtype))
 
 
 def _np(obj) -> dict:
@@ -188,6 +205,8 @@ def sim_state_to_numpy(state: SimState) -> dict:
               for k, v in state.cbaa_warm._asdict().items()},
         "faults": _np_keyed(state.faults),
         "scenario": _np_keyed(state.scenario),
+        "inv": None if state.inv is None else _np(state.inv),
+        "tel": None if state.tel is None else _np(state.tel),
     }
 
 

@@ -54,6 +54,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from aclswarm_torch.analysis import invariants as invlib
 from aclswarm_torch.core.types import gains_from_flat, resolve_device
 from aclswarm_torch.gains.params import AdmmParams
 
@@ -303,11 +304,14 @@ def _psd_newton(W, params, poll_every, rec):
     return (W + _mm(Z, W)) / 2.0
 
 
-def _subproblem(Q, i_idx, j_idx, valid, d, params, warm, poll_every, rec):
+def _subproblem(Q, i_idx, j_idx, valid, d, params, warm, poll_every, rec,
+                check: bool = False):
     """One (2D or 1D) gain subproblem over a batch of formations. Returns
     the full-space gains -Q Abar Q^T (`solver.cpp:143,207`), the final
     (X, S), the live ADMM steps and the last step's sum |X_new - X|, each
-    per formation."""
+    per formation. ``check`` appends to ``rec["violated"]`` each
+    formation's `admm_residual` predicate ((B,) bool on the device) and
+    sets ``rec["ran_out"]`` when the loop spent its budget."""
     dtype, dev = Q.dtype, Q.device
     nb, _, dm = Q.shape
     mu = params.mu
@@ -362,11 +366,15 @@ def _subproblem(Q, i_idx, j_idx, valid, d, params, warm, poll_every, rec):
     stop = torch.zeros(nb, dtype=torch.bool, device=dev)
     steps = torch.zeros(nb, dtype=torch.int32, device=dev)
     diff = torch.zeros(nb, dtype=dtype, device=dev)
+    first = None
+    early = False
     for k in range(params.max_itr):
         W = W_of(C - S - mu * X) + S
         Snew = psd(W)
         Xnew = (Snew - W) / mu
         diffX = (Xnew - X).abs().sum((-2, -1))
+        if check and k == 0:
+            first = diffX
         tr = _trace(Xnew[:, dm:, dm:])
         now = (diffX < params.thresh) \
             | ((tr - dm) / dm < params.thresh_tr)   # signed, solver.cpp:328
@@ -379,8 +387,13 @@ def _subproblem(Q, i_idx, j_idx, valid, d, params, warm, poll_every, rec):
         if k + 1 < params.max_itr:
             rec["host_reads"] += 1
             if bool(stop.all()):
+                early = True
                 break
     rec["admm"].append(steps)
+    if check:
+        rec.setdefault("violated", []).append(
+            invlib.admm_residual_violated(first, diff, stop))
+        rec["ran_out"] = rec.get("ran_out", False) or not early
 
     # the final projection with S = 0 (`solver.cpp:333-346`)
     X22 = (-W_of(C - mu * X) / mu)[:, dm:, dm:]
@@ -468,20 +481,23 @@ def new_record() -> dict:
 
 
 def solve(prob: Problem, params: AdmmParams, warm=None,
-          poll_every: int | None = None, rec: dict | None = None):
+          poll_every: int | None = None, rec: dict | None = None,
+          check: bool = False):
     """The device solve of a `Problem` batch: (B, 3n, 3n) gains, the new
     (X2, S2, X1, S1) iterates, (B,) int32 ADMM iterations of both
     subproblems together and (B,) worse final residual. ``warm`` is a
-    (B, ...)-batched (X2, S2, X1, S1) or None (cold)."""
+    (B, ...)-batched (X2, S2, X1, S1) or None (cold). ``check``: each
+    subproblem's `admm_residual` predicate lands in ``rec``
+    (`_subproblem`)."""
     if poll_every is None:
         poll_every = POLL_EVERY if prob.q2.device.type == "cuda" else 1
     rec = new_record() if rec is None else rec
     A2d, X2, S2, it2, r2 = _subproblem(
         prob.q2, prob.i_idx, prob.j_idx, prob.valid, 2, params,
-        None if warm is None else warm[:2], poll_every, rec)
+        None if warm is None else warm[:2], poll_every, rec, check)
     A1d, X1, S1, it1, r1 = _subproblem(
         prob.q1, prob.i_idx, prob.j_idx, prob.valid, 1, params,
-        None if warm is None else warm[2:], poll_every, rec)
+        None if warm is None else warm[2:], poll_every, rec, check)
     nb, n = prob.adjmask.shape[:2]
     out = torch.zeros((nb, n, 3, n, 3), dtype=A2d.dtype, device=A2d.device)
     out[:, :, :2, :, :2] = A2d.reshape(nb, n, 2, n, 2)
@@ -515,8 +531,11 @@ def solve_gains(points, adj, params: AdmmParams | None = None,
     `AdmmSolveStats`. ``carry`` (an `AdmmCarry`, e.g. `init_carry` or a
     previous solve's) warm-starts both subproblems and makes the return
     ``(gains, new_carry)`` (``(gains, new_carry, stats)`` with
-    telemetry). ``check_mode='on'`` (the `admm_residual` contract) is not
-    ported yet. ``poll_every``: Newton steps between host reads of the
+    telemetry). ``check_mode='on'`` checks the `admm_residual` contract on
+    both subproblems and raises `InvariantViolation` (tick -1) when either
+    ended neither converged nor below its first residual; a subproblem that
+    stopped on its flags cannot violate it, so the code is read back only
+    when one spent its whole budget. ``poll_every``: Newton steps between host reads of the
     stall flag (None = `POLL_EVERY` on a CUDA device, 1 on the CPU); any
     value gives the same result.
 
@@ -526,11 +545,7 @@ def solve_gains(points, adj, params: AdmmParams | None = None,
     params = params or AdmmParams()
     if check_mode not in ("off", "on"):
         raise ValueError(f"unknown check_mode {check_mode!r}")
-    if check_mode == "on":
-        raise NotImplementedError(
-            "solve_gains(check_mode='on') is not ported yet: the "
-            "admm_residual contract arrives with the engine-extensions "
-            "slice (invariants)")
+    check = check_mode == "on"
     dev = _device_of(points, device)
     pts = _host_float(points)
     adj_np = _host(adj)
@@ -550,7 +565,13 @@ def solve_gains(points, adj, params: AdmmParams | None = None,
     prob = problem(pts[None], adj_np[None], planar, max_nonedges, dev)
     warm = None if carry is None else tuple(
         t[None] for t in (carry.x2, carry.s2, carry.x1, carry.s1))
-    flat, fin, iters, residual = solve(prob, params, warm, poll_every)
+    rec = new_record()
+    flat, fin, iters, residual = solve(prob, params, warm, poll_every, rec,
+                                       check)
+    if check and rec["ran_out"] and bool(torch.any(
+            rec["violated"][0] | rec["violated"][1])):
+        raise invlib.InvariantViolation(
+            invlib.contract_of(invlib.CODES["admm_residual"]), tick=-1)
     gains = flat[0]
     out = (gains,)
     if carry is not None:

@@ -45,12 +45,26 @@ Run:
 trial flies its own seeded draw, whose clock restarts with every dispatch
 (the tick is re-phased), over ``scenario_horizon`` ticks.
 
-Fields of the reference's config that the port does not run yet raise
-`NotImplementedError` naming their queue item in ROADMAP.md.
+``check_mode='on'`` runs the invariant sanitizer in the engine
+(`analysis.invariants`) and raises `InvariantViolation` naming the trial,
+its tick and the contract at the first violated chunk; ``telemetry='on'``
+carries the device counters (`telemetry.device`) and publishes them into
+the process registry at every chunk boundary (``telemetry_dump`` writes
+the registry as JSONL at the end of `run_trials`). Both ride the chunk's
+two copies. ``profile_dir`` writes a `torch.profiler` trace of chunk
+``profile_chunk`` (TensorBoard/Perfetto); ``record_dir`` writes each
+serial trial's metric stack as ``trial_<i>.npz`` for `harness.review`.
+
+    python -m aclswarm_torch.harness.trials -f swarm4 -m 1 \\
+        --set device=cpu --set dtype=float64 --set check_mode=on \\
+        --set telemetry=on --set telemetry_dump=tel.jsonl \\
+        --set record_dir=rec
+    python -m aclswarm_torch.harness.review rec/trial_0.npz
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import re
@@ -64,6 +78,7 @@ import torch
 from aclswarm_torch import convert
 from aclswarm_torch import gains as gainslib
 from aclswarm_torch import sim
+from aclswarm_torch.analysis import invariants as invlib
 from aclswarm_torch.core import config as configlib
 from aclswarm_torch.core import perm as permutil
 from aclswarm_torch.core import types as typeslib
@@ -79,6 +94,8 @@ from aclswarm_torch.resilience import checkpoint as ckptlib
 from aclswarm_torch.resilience.crash import maybe_crash
 from aclswarm_torch.sim import summary as sumlib
 from aclswarm_torch.sim.vehicle import CMD_GO, ExternalInputs
+from aclswarm_torch.telemetry import device as devtel
+from aclswarm_torch.telemetry import get_registry
 
 
 @dataclasses.dataclass
@@ -172,23 +189,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _SIMFORM = re.compile(r"^simform(\d+)$")
 
 
-def _not_ported(field: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TrialConfig.{field} is not ported yet: it arrives with ROADMAP.md "
-        f"queue 1 item {item}")
-
-
-def _check_ported(cfg: TrialConfig) -> None:
-    """Raise for the reference's fields that the port does not run."""
-    if cfg.check_mode == "on":
-        raise _not_ported("check_mode='on'", "12 (invariants)")
-    if cfg.telemetry == "on" or cfg.telemetry_dump is not None:
-        raise _not_ported("telemetry", "12 (device telemetry)")
-    if cfg.profile_dir is not None:
-        raise _not_ported("profile_dir", "12 (device telemetry)")
-    if cfg.record_dir is not None:
-        raise _not_ported("record_dir", "12 (recordings, with "
-                          "harness/review.py)")
+def _check_dtype(cfg: TrialConfig) -> None:
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r} "
                          f"(expected one of {sorted(_DTYPES)})")
@@ -214,33 +215,6 @@ def _formations_for_trial(cfg: TrialConfig, seed: int
             h=cfg.sim_h, min_dist=cfg.sim_min_dist, k=cfg.sim_formations,
             fc=cfg.sim_fc)
     return formlib.load_group(cfg.library, cfg.formation)
-
-
-def _gains_for(spec: FormationSpec, max_nonedges: Optional[int] = None,
-               warm: bool = False, carry=None, device=None,
-               dtype=torch.float32):
-    """Library gains if shipped, else the on-dispatch device ADMM solve in
-    ``dtype`` on ``device``. ``max_nonedges`` pins the padded constraint
-    bucket. ``warm=True`` threads an `AdmmCarry` through the solve and
-    returns ``(gains, new_carry)``: ``carry`` seeds it (None or a carry of
-    another shape falls back to the cold `init_carry`, which equals the
-    carry-free solve bit for bit). Library gains run no solve and pass
-    the carry through."""
-    if spec.gains is not None:
-        g = np.asarray(spec.gains)
-        return (g, carry) if warm else g
-    pts = np.asarray(spec.points, dtype=str(dtype).removeprefix("torch."))
-    if not warm:
-        return gainslib.solve_gains(pts, spec.adjmat,
-                                    max_nonedges=max_nonedges, device=device)
-    cold = gainslib.init_carry(pts.shape[0], gainslib.planar_of(pts),
-                               dtype=dtype, device=device)
-    if carry is None or any(
-            tuple(getattr(carry, f).shape) != tuple(getattr(cold, f).shape)
-            for f in ("x2", "s2", "x1", "s1")):
-        carry = cold
-    return gainslib.solve_gains(pts, spec.adjmat, max_nonedges=max_nonedges,
-                                carry=carry, device=device)
 
 
 def _trial_overrides(cfg: TrialConfig, *fields) -> dict:
@@ -308,23 +282,48 @@ def _engine_kw(cfg: TrialConfig) -> dict:
 
 def _dispatch_gains(cfg: TrialConfig, spec: FormationSpec, n: int,
                     carry=None, device=None, dtype=torch.float32):
-    """On-dispatch gain design with the padded-constraint bucket rule:
-    complete graphs have no non-edges (a 1-slot bucket), random `simformN`
-    graphs remove at most n-4 edges, a static bound shared by every seed;
-    library groups use their exact count. x ``cfg.gain_scale``. With
-    ``cfg.warm_gains`` the return is ``(gains, new_carry)``."""
-    if not _SIMFORM.match(cfg.formation):
-        bucket = None
-    elif cfg.sim_fc:
-        bucket = 1
+    """On-dispatch gain design: library gains if shipped, else the device
+    ADMM solve in ``dtype`` on ``device`` with the padded-constraint
+    bucket rule: complete graphs have no non-edges (a 1-slot bucket),
+    random `simformN` graphs remove at most n-4 edges, a static bound
+    shared by every seed; library groups use their exact count. x
+    ``cfg.gain_scale``. Returns ``(gains, new_carry, stats)``: the carry
+    None without ``cfg.warm_gains`` (``carry`` seeds the warm solve; None
+    or a carry of another shape falls back to the cold `init_carry`, which
+    equals the carry-free solve bit for bit; library gains pass it
+    through), the `AdmmSolveStats` None unless ``cfg.telemetry='on'`` and
+    a solve ran."""
+    warm, stats, st = cfg.warm_gains, cfg.telemetry == "on", None
+    if spec.gains is not None:
+        g = np.asarray(spec.gains)
     else:
-        bucket = max(n - 4, 1)
-    out = _gains_for(spec, bucket, warm=cfg.warm_gains, carry=carry,
-                     device=device, dtype=dtype)
-    g, new_carry = out if cfg.warm_gains else (out, None)
+        if not _SIMFORM.match(cfg.formation):
+            bucket = None
+        elif cfg.sim_fc:
+            bucket = 1
+        else:
+            bucket = max(n - 4, 1)
+        pts = np.asarray(spec.points,
+                         dtype=str(dtype).removeprefix("torch."))
+        if warm:
+            cold = gainslib.init_carry(pts.shape[0], gainslib.planar_of(pts),
+                                       dtype=dtype, device=device)
+            if carry is None or any(
+                    tuple(getattr(carry, f).shape) != tuple(
+                        getattr(cold, f).shape)
+                    for f in ("x2", "s2", "x1", "s1")):
+                carry = cold
+        out = gainslib.solve_gains(pts, spec.adjmat, max_nonedges=bucket,
+                                   telemetry=stats,
+                                   carry=carry if warm else None,
+                                   device=device)
+        out = out if isinstance(out, tuple) else (out,)
+        g = out[0]
+        carry = out[1] if warm else None
+        st = out[-1] if stats else None
     if cfg.gain_scale is not None:
         g = g * cfg.gain_scale
-    return (g, new_carry) if cfg.warm_gains else g
+    return g, carry if warm else None, st
 
 
 def _host(x) -> np.ndarray:
@@ -360,26 +359,75 @@ def _chunk_inputs(chunk: int, n: int, device, dtype, go: bool
         joy_active=torch.zeros((chunk, n), dtype=torch.bool, device=device))
 
 
-def _host_signals(metrics):
-    """What the FSM reads of a chunk's stacked `StepMetrics`, in two
-    device-to-host copies: positions and |distcmd| (floats), and the
-    collision-avoidance flags, `reassigned` and the valid-auction flag
-    (booleans). Returns q (T, n, 3), distcmd (T, n), ca (T, n), reassigned
-    (T,), auction_ok (T,)."""
-    T, n = metrics.distcmd_norm.shape
-    floats = torch.cat([metrics.q.reshape(T, 3 * n), metrics.distcmd_norm],
-                       dim=1).cpu().numpy()
-    flags = torch.cat([metrics.ca_active, metrics.reassigned[:, None],
-                       (metrics.auctioned & metrics.assign_valid)[:, None]],
-                      dim=1).cpu().numpy()
-    return (floats[:, :3 * n].reshape(T, n, 3), floats[:, 3 * n:],
-            flags[:, :n], flags[:, n], flags[:, n + 1])
+def _host_signals(metrics, record: bool = False) -> dict:
+    """What the driver reads of a chunk's stacked `StepMetrics`, in two
+    device-to-host copies: one float copy of the positions ``q`` (T, n, 3)
+    and ``distcmd_norm`` (T, n), and one int32 copy of the flags
+    ``ca_active`` (T, n), ``reassigned`` and ``auction_ok`` (T,). The
+    invariant codes ``inv_code`` (T,) and the counters after the chunk
+    (``tel``, the `telemetry.device.to_host` dict) ride the same copies
+    when the rollout carries them, and with ``record`` the rest of a
+    recording's fields (``mode``, ``v2f``, ``auctioned``,
+    ``assign_valid``). Returns numpy arrays keyed by name."""
+    floats = {"q": metrics.q, "distcmd_norm": metrics.distcmd_norm}
+    ints = {"ca_active": metrics.ca_active,
+            "reassigned": metrics.reassigned,
+            "auction_ok": metrics.auctioned & metrics.assign_valid}
+    if metrics.inv_code is not None:
+        ints["inv_code"] = metrics.inv_code
+    if metrics.tel is not None:
+        ints.update({f"tel.{f}": getattr(metrics.tel, f)[-1]
+                     for f in devtel.INT_FIELDS})
+        floats["tel.admm_residual"] = metrics.tel.admm_residual[-1]
+    if record:
+        ints.update(mode=metrics.mode, v2f=metrics.v2f,
+                    auctioned=metrics.auctioned,
+                    assign_valid=metrics.assign_valid)
+    fflat, flay = sumlib.pack(floats, metrics.q.dtype)
+    iflat, ilay = sumlib.pack(ints, torch.int32)
+    out = sumlib.unpack(fflat.cpu().numpy(), flay)
+    out.update(sumlib.unpack(iflat.cpu().numpy(), ilay))
+    for k in ("ca_active", "reassigned", "auction_ok", "auctioned",
+              "assign_valid"):
+        if k in out:
+            out[k] = out[k].astype(bool)
+    if metrics.tel is not None:
+        out["tel"] = devtel.to_host({f: out.pop(f"tel.{f}")
+                                     for f in devtel.FIELDS})
+    return out
+
+
+def _profiler(cfg: TrialConfig, chunk_idx: int, dev):
+    """A `torch.profiler` capture of chunk ``profile_chunk`` into
+    ``profile_dir`` (CPU activity, and the card's on CUDA), written as a
+    TensorBoard/Perfetto trace when the chunk ends; a null context for
+    every other chunk."""
+    if cfg.profile_dir is None or chunk_idx != cfg.profile_chunk:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(cfg.profile_dir))
+
+
+def _set_solve(tel, st, b=None) -> None:
+    """A dispatch's `AdmmSolveStats` into the counter carry (trial ``b``
+    of a batch), in place: fills, no host-to-device copy."""
+    if b is None:
+        tel.admm_iters.fill_(st.iters)
+        tel.admm_residual.fill_(st.residual)
+    else:
+        tel.admm_iters[b] = st.iters
+        tel.admm_residual[b] = st.residual
 
 
 def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
     """One seeded trial: ground start -> takeoff -> cycle through the
     group's formations -> COMPLETE/TERMINATE. Returns the finished FSM."""
-    _check_ported(cfg)
+    _check_dtype(cfg)
     dev = resolve_device(cfg.device)
     dtype = _DTYPES[cfg.dtype]
     seed = cfg.seed + trial_idx
@@ -412,8 +460,11 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
     # solve, and always None with warm_gains off)
     admm_carry = None
 
+    checks = cfg.check_mode == "on"
+    tel_on = cfg.telemetry == "on"
     state = sim.init_state(q0, flying=False,
                            localization=cfg.localization == "flooded",
+                           checks=checks, telemetry=tel_on,
                            scenario=_trial_scenario(cfg, seed, trial_idx, n,
                                                     trial_timeout, dev,
                                                     dtype),
@@ -438,8 +489,15 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
     chunk_idx = 0
     inputs = {go: _chunk_inputs(chunk, n, dev, dtype, go)
               for go in (False, True)}
+    recorded: list = []
+    if tel_on:
+        publisher = devtel.ChunkPublisher(get_registry(), prefix="trial")
 
     ckpt_dir = cfg.checkpoint_dir
+    if ckpt_dir is not None and cfg.record_dir is not None:
+        raise ValueError("checkpoint_dir with record_dir is unsupported: "
+                         "the recorded metric stack does not survive a "
+                         "crash, so a resumed recording would be a lie")
     stem = f"trial{trial_idx:05d}"
     if ckpt_dir is not None:
         cfg_hash, fingerprint = _ckpt_cfg_hash(cfg), _fingerprint(cfg)
@@ -472,11 +530,24 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
     while chunk_idx < max_ticks // chunk + 1:
         if fsm.done:
             break
-        state, metrics = sim.rollout(state, cur_formation, cgains, sparams,
-                                     cur_cfg, chunk, inputs[pending_go])
+        with _profiler(cfg, chunk_idx, dev):
+            state, metrics = sim.rollout(state, cur_formation, cgains,
+                                         sparams, cur_cfg, chunk,
+                                         inputs[pending_go])
         pending_go = False
+        host = _host_signals(metrics, record=cfg.record_dir is not None)
+        if cfg.record_dir is not None:
+            recorded.append(host)
+        if checks:
+            # the codes ride the chunk's copies; tick0 is the trial's wall
+            # tick (the engine's own tick re-phases at each dispatch)
+            invlib.raise_on_violation(host["inv_code"], trial=trial_idx,
+                                      tick0=ticks_done)
+        if tel_on:
+            publisher.publish(trial_idx, host["tel"])
         ticks_done += chunk
-        q, dn, ca, reassigned, auction_ok = _host_signals(metrics)
+        q, dn, ca = host["q"], host["distcmd_norm"], host["ca_active"]
+        reassigned, auction_ok = host["reassigned"], host["auction_ok"]
 
         suppress_events = False
         for t in range(chunk):
@@ -496,14 +567,12 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
 
         if pending_dispatch is not None and not fsm.done:
             spec = specs[pending_dispatch]
+            solve_st = None
             if pending_dispatch not in gains_cache:
+                g, new_carry, solve_st = _dispatch_gains(
+                    cfg, spec, n, carry=admm_carry, device=dev, dtype=dtype)
                 if cfg.warm_gains:
-                    g, admm_carry = _dispatch_gains(
-                        cfg, spec, n, carry=admm_carry, device=dev,
-                        dtype=dtype)
-                else:
-                    g = _dispatch_gains(cfg, spec, n, device=dev,
-                                        dtype=dtype)
+                    admm_carry = new_carry
                 gains_cache[pending_dispatch] = g
             cur_formation = make_formation(spec.points, spec.adjmat,
                                            gains_cache[pending_dispatch],
@@ -517,6 +586,10 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
             state = dataclasses.replace(
                 state, v2f=permutil.identity(n, dev), tick=0,
                 first_auction=torch.ones((), dtype=torch.bool, device=dev))
+            if tel_on and solve_st is not None:
+                # the dispatch's solve rides the carry: it checkpoints and
+                # reads back with everything else
+                _set_solve(state.tel, solve_st)
             formation_just_received = True
             committed_idx = pending_dispatch
             pending_dispatch = None
@@ -551,6 +624,16 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
         ckptlib.clear_checkpoints(ckpt_dir, stem)
     # the reference's executor records CPU re-runs here; the port has none
     fsm.execution = {}
+
+    if cfg.record_dir is not None and recorded:
+        from aclswarm_torch.harness import review
+        stacked = {f: np.concatenate([r[f] for r in recorded])
+                   for f in review.FIELDS}
+        outdir = Path(cfg.record_dir)
+        outdir.mkdir(parents=True, exist_ok=True)
+        review.record(str(outdir / f"trial_{trial_idx}.npz"), stacked,
+                      dt=cfg.control_dt, seed=seed, formation=cfg.formation,
+                      trial_timeout=trial_timeout)
     return fsm
 
 
@@ -595,7 +678,7 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
     if cfg.record_dir is not None:
         raise ValueError("record_dir needs the per-tick metric stack; run "
                          "with batch=1 to record rollouts")
-    _check_ported(cfg)
+    _check_dtype(cfg)
     chunk = cfg.chunk_ticks
     if chunk % cfg.assign_every:
         raise ValueError(
@@ -635,8 +718,11 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
                          "be a multiple of flood_every (a shared flood "
                          "phase)")
 
+    checks = cfg.check_mode == "on"
+    tel_on = cfg.telemetry == "on"
     bstate = sim.stack_states([
         sim.init_state(q0, flying=False, localization=flooded,
+                       checks=checks, telemetry=tel_on,
                        scenario=_trial_scenario(cfg, cfg.seed + t, t, n,
                                                 trial_timeout, dev, dtype),
                        device=dev, dtype=dtype)
@@ -670,6 +756,8 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
     chunk_idx = 0
     specs_per_orig = list(specs_per)
 
+    if tel_on:
+        publisher = devtel.ChunkPublisher(get_registry(), prefix="trial")
     ckpt_dir = cfg.checkpoint_dir
     stem = f"wave{trial_indices[0]:05d}_b{B}"
     if ckpt_dir is not None:
@@ -740,11 +828,26 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
                                [b for b in range(bc) if pending_go[b]], dev,
                                dtype)
         pending_go = [False] * bc
-        bstate, scarry, summ = sumlib.batched_rollout_summary(
-            bstate, scarry, bform, cgains, sparams, fly_cfg, chunk, inputs,
-            0, window=window, takeoff_alt=float(sparams.takeoff_alt))
+        with _profiler(cfg, chunk_idx, dev):
+            bstate, scarry, summ = sumlib.batched_rollout_summary(
+                bstate, scarry, bform, cgains, sparams, fly_cfg, chunk,
+                inputs, 0, window=window,
+                takeoff_alt=float(sparams.takeoff_alt))
         # the chunk's host reads: two copies for the whole wave
         host = sumlib.to_host(summ)
+        if checks:
+            # each live trial's codes, attributed to its original index
+            for b, fsm in enumerate(fsms):
+                if not fsm.done:
+                    invlib.raise_on_violation(host["inv_code"][b],
+                                              trial=torig[b],
+                                              tick0=ticks_done)
+        if tel_on:
+            # finished rows stop publishing (their counters froze)
+            for b, fsm in enumerate(fsms):
+                if not fsm.done:
+                    publisher.publish(torig[b],
+                                      devtel.to_host(host["tel"], index=b))
         ticks_done += chunk
         auc_ok = host["auctioned"] & host["assign_valid"]
 
@@ -769,14 +872,13 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
             if idx is None or fsm.done:
                 continue
             spec = specs_per[b][idx]
+            solve_st = None
             if idx not in gains_cache[b]:
+                g, new_carry, solve_st = _dispatch_gains(
+                    cfg, spec, n, carry=admm_carries[b], device=dev,
+                    dtype=dtype)
                 if cfg.warm_gains:
-                    g, admm_carries[b] = _dispatch_gains(
-                        cfg, spec, n, carry=admm_carries[b], device=dev,
-                        dtype=dtype)
-                else:
-                    g = _dispatch_gains(cfg, spec, n, device=dev,
-                                        dtype=dtype)
+                    admm_carries[b] = new_carry
                 gains_cache[b][idx] = g
             typeslib.set_row(bform, b, make_formation(
                 spec.points, spec.adjmat, gains_cache[b][idx], device=dev,
@@ -787,6 +889,8 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
             bstate.first_auction[b] = True
             bstate.assign_enabled[b] = True
             bstate.tick[b] = 0
+            if tel_on and solve_st is not None:
+                _set_solve(bstate.tel, solve_st, b)
             fsm.formation_dispatched()
 
         # chunk boundary: checkpoint first, then the scripted-preemption
@@ -939,7 +1043,7 @@ def run_trials(cfg: TrialConfig) -> dict:
     boundaries: a killed run resumed with the same config replays finished
     results and continues the interrupted one bit for bit; CSV appends are
     idempotent by trial id."""
-    _check_ported(cfg)
+    _check_dtype(cfg)
     rows = []
     n = None
     ckpt = cfg.checkpoint_dir is not None
@@ -985,6 +1089,10 @@ def run_trials(cfg: TrialConfig) -> dict:
         stats = analyze(np.asarray(rows, dtype=np.float64), n, cfg.trials)
     else:
         stats = analyze(np.empty((0, 0)), n or 0, cfg.trials)
+    if cfg.telemetry_dump:
+        get_registry().dump(cfg.telemetry_dump)
+        if cfg.verbose:
+            print(f"telemetry: wrote {cfg.telemetry_dump}")
     if cfg.verbose:
         print_analysis(stats)
     return stats

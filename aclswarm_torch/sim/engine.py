@@ -27,8 +27,13 @@ of a batch: masks and `where`s of each trial's own tick, which the step
 holds as a device tensor (`batched_rollout` builds it once per call, not
 per tick). `no_faults` and `no_scenario` are bit-identical to None.
 
-Not ported yet (raise `NotImplementedError`): ``check_mode='on'`` and
-``telemetry='on'``.
+``SimConfig.check_mode='on'`` records the first violated invariant of
+each trial into the ``SimState.inv`` carry (`analysis.invariants`), and
+``telemetry='on'`` accumulates the device counters into ``SimState.tel``
+(`telemetry.device`); both ride `StepMetrics` out. Every check and
+counter site is gated in Python on the static mode, so ``'off'`` adds no
+operation, and ``'on'`` adds operations but no host read and changes no
+result.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ import numpy as np
 import torch
 
 from aclswarm_torch import control
+from aclswarm_torch.analysis import invariants as invlib
+from aclswarm_torch.analysis.invariants import InvariantState
 from aclswarm_torch.assignment import auction, cbaa, sinkhorn
 from aclswarm_torch.assignment.cbaa import CbaaTables
 from aclswarm_torch.core import geometry
@@ -54,17 +61,8 @@ from aclswarm_torch.sim import localization as loclib
 from aclswarm_torch.sim import vehicle
 from aclswarm_torch.sim.localization import EstimateTable
 from aclswarm_torch.sim.vehicle import ExternalInputs, FlightState
-
-# what is not ported yet, by ROADMAP.md queue 1 item
-_LATER = {
-    "check_mode": "ROADMAP.md queue 1 item 12 (invariants)",
-    "telemetry": "ROADMAP.md queue 1 item 12 (telemetry)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it arrives with "
-                               f"{_LATER[what]}")
+from aclswarm_torch.telemetry import device as devtel
+from aclswarm_torch.telemetry.device import ChunkTelemetry
 
 
 @dataclass(frozen=True)
@@ -99,8 +97,9 @@ class SimState:
     are () bool tensors, as in the reference. ``cbaa_warm`` (None = the
     stateless-auction engine) re-seeds each CBAA auction from the last
     valid one's fixed point. ``faults`` and ``scenario`` (None = the
-    fault-free, scenario-free engine) are the trial's scripts. The
-    reference's other optional carries (inv, tel) are not ported yet. A
+    fault-free, scenario-free engine) are the trial's scripts. ``inv``
+    (the invariant carry, ``check_mode='on'``) and ``tel`` (the counter
+    carry, ``telemetry='on'``) are None when unused. A
     batch of B trials (`stack_states`) has a (B,) int64 numpy ``tick`` and
     a leading (B,) axis on every tensor."""
 
@@ -115,6 +114,8 @@ class SimState:
     cbaa_warm: CbaaTables | None = None
     faults: FaultSchedule | None = None
     scenario: Scenario | None = None
+    inv: InvariantState | None = None
+    tel: ChunkTelemetry | None = None
 
 
 @dataclass
@@ -135,6 +136,10 @@ class StepMetrics:
     fault_event: torch.Tensor | None = None  # () bool: an alive bit flipped
     scen_event: torch.Tensor | None = None   # () bool: a scenario axis
     #                                          flipped state this tick
+    # None unless cfg.check_mode / cfg.telemetry is 'on'
+    inv_code: torch.Tensor | None = None     # () int32 first violation's
+    #                                          code so far (0 = clean)
+    tel: ChunkTelemetry | None = None        # the counters after the tick
 
 
 def init_state(q0, v2f0=None, flying: bool = True,
@@ -148,11 +153,10 @@ def init_state(q0, v2f0=None, flying: bool = True,
     allocates the CBAA warm-start tables (cold, `cbaa.init_tables`).
     ``faults`` (a `FaultSchedule`) and ``scenario`` (a `Scenario`) attach
     the trial's scripts; None keeps the fault-free, scenario-free engine.
-    ``device=None`` is the card; the state lives on ``device`` in
-    ``dtype``."""
-    for what, on in (("check_mode", checks), ("telemetry", telemetry)):
-        if on:
-            raise _not_ported(what)
+    ``checks=True`` allocates the invariant carry (needed iff the rollout
+    runs with ``cfg.check_mode='on'``), ``telemetry=True`` the counter
+    carry (``cfg.telemetry='on'``). ``device=None`` is the card; the state
+    lives on ``device`` in ``dtype``."""
     q0 = as_float(q0, device, dtype)
     dev = q0.device
     n = q0.shape[0]
@@ -170,7 +174,10 @@ def init_state(q0, v2f0=None, flying: bool = True,
         first_auction=torch.ones((), dtype=torch.bool, device=dev),
         assign_enabled=torch.ones((), dtype=torch.bool, device=dev),
         cbaa_warm=cbaa.init_tables(n, dev, dtype) if cbaa_warm else None,
-        faults=faults, scenario=scenario)
+        faults=faults, scenario=scenario,
+        inv=invlib.init_invariants(device=dev) if checks else None,
+        tel=devtel.init_telemetry(dtype=dtype, device=dev) if telemetry
+        else None)
 
 
 def _check_cfg(cfg: SimConfig) -> None:
@@ -178,9 +185,7 @@ def _check_cfg(cfg: SimConfig) -> None:
         raise ValueError(f"unknown assignment mode {cfg.assignment!r}")
     for what in ("check_mode", "telemetry"):
         mode = getattr(cfg, what)
-        if mode == "on":
-            raise _not_ported(what)
-        if mode != "off":
+        if mode not in ("off", "on"):
             raise ValueError(f"unknown {what} {mode!r}")
     if cfg.localization not in ("truth", "flooded"):
         raise ValueError(f"unknown localization mode {cfg.localization!r}")
@@ -193,9 +198,15 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
            first: torch.Tensor | None = None,
            alive: torch.Tensor | None = None,
            link_mask: torch.Tensor | None = None,
-           warm: CbaaTables | None = None):
-    """One re-assignment: (new v2f, () bool valid), plus the updated
-    `CbaaTables` appended last when ``warm`` is given.
+           warm: CbaaTables | None = None,
+           check: bool = False, tel: bool = False):
+    """One re-assignment: ``(v2f, valid[, code][, rounds][, tables])``.
+    ``check`` appends the solver-level invariant code (([B,]) int32, 0 =
+    clean: the `sinkhorn_marginal` contract on K1's plan), ``tel`` the
+    solver's rounds (([B,]) int32: the auction LAP's bid rounds, CBAA's
+    consensus rounds, 0 for Sinkhorn), and ``warm`` the updated
+    `CbaaTables`, in that order; each flag is Python-gated, so without
+    them the return is ``(v2f, valid)``.
 
     'auction' and 'sinkhorn' follow the centralized path: order the swarm
     by the *last* assignment, align the formation globally (d=2), then
@@ -225,8 +236,20 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
                          f"assignment mode, not {cfg.assignment!r}")
     if v2f.ndim > 1 and cfg.assignment in ("auction", "cbaa"):
         return _assign_by_trial(swarm, formation, v2f, cfg, est, first,
-                                alive, link_mask, warm)
-    true_ = torch.ones(v2f.shape[:-1], dtype=torch.bool, device=v2f.device)
+                                alive, link_mask, warm, check, tel)
+    lead = v2f.shape[:-1]
+    true_ = torch.ones(lead, dtype=torch.bool, device=v2f.device)
+
+    def zeros():
+        return torch.zeros(lead, dtype=torch.int32, device=v2f.device)
+
+    def ret(new_v2f, valid, code, rounds):
+        out = (new_v2f, valid)
+        if check:
+            out += (zeros() if code is None else code,)
+        if tel:
+            out += (zeros() if rounds is None else rounds.to(torch.int32),)
+        return out
 
     def hysteresis(cand, cost):
         """Keep the current assignment unless the candidate improves the
@@ -244,7 +267,7 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
         return torch.where(take[..., None], cand, v2f)
 
     if cfg.assignment == "none":
-        return v2f, true_
+        return ret(v2f, true_, None, None)
     if cfg.assignment == "cbaa":
         res = cbaa.cbaa_from_state(swarm.q, formation.points,
                                    formation.adjmat, v2f, est=est,
@@ -252,13 +275,14 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
                                    alive=alive, comm_extra=link_mask,
                                    warm=warm, assign_eps=cfg.assign_eps,
                                    first=first)
-        new_v2f = torch.where(res.valid, res.v2f, v2f)
+        out = ret(torch.where(res.valid, res.v2f, v2f), res.valid, None,
+                  res.rounds)
         if warm is None:
-            return new_v2f, res.valid
+            return out
         # only a VALID auction's fixed point is worth carrying
-        return new_v2f, res.valid, CbaaTables(
+        return out + (CbaaTables(
             price=torch.where(res.valid, res.price, warm.price),
-            who=torch.where(res.valid, res.who, warm.who))
+            who=torch.where(res.valid, res.who, warm.who)),)
     if cfg.assignment not in ("auction", "sinkhorn"):
         raise ValueError(f"unknown assignment mode {cfg.assignment!r}")
     q_form = permutil.veh_to_formation_order(swarm.q, v2f)
@@ -268,8 +292,8 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
         if alive is not None:
             c = faultmask.mask_cost(c, alive, v2f)
         res = auction.auction_lap(-c)
-        return (torch.where(res.valid, hysteresis(res.row_to_col, c), v2f),
-                res.valid)
+        return ret(torch.where(res.valid, hysteresis(res.row_to_col, c),
+                               v2f), res.valid, None, res.iters)
     if alive is None:
         res = sinkhorn.sinkhorn_assign(swarm.q, paligned)
     else:
@@ -281,21 +305,28 @@ def assign(swarm: SwarmState, formation: Formation, v2f: torch.Tensor,
         c = geometry.cdist(swarm.q, paligned)
         if alive is not None:
             c = faultmask.mask_cost(c, alive, v2f)
-    return hysteresis(res.row_to_col, c), true_
+    code = None
+    if check:
+        # the marginal contract on the transport plan K1 returned (the
+        # rounded permutation is the engine's assign_perm contract)
+        row_err, col_err = sinkhorn.marginal_errors(res.plan_log)
+        code = invlib.sinkhorn_marginals_violated(row_err, col_err).to(
+            torch.int32) * invlib.CODES["sinkhorn_marginal"]
+    return ret(hysteresis(res.row_to_col, c), true_, code, None)
 
 
 def _assign_by_trial(swarm, formation, v2f, cfg, est, first, alive,
-                     link_mask, warm):
+                     link_mask, warm, check, tel):
     """`assign` for a batch of trials in the host-polled modes (the auction
-    LAP, CBAA): one serial solve per trial, the results stacked — the
-    serial outputs bit for bit."""
+    LAP, CBAA): one serial solve per trial, the results (codes and rounds
+    too) stacked — the serial outputs bit for bit."""
     def pick(x, b):
         return None if x is None else typeslib.row(x, b)
 
     outs = [assign(typeslib.row(swarm, b), typeslib.row(formation, b),
                    v2f[b], cfg, est=pick(est, b), first=pick(first, b),
                    alive=pick(alive, b), link_mask=pick(link_mask, b),
-                   warm=pick(warm, b))
+                   warm=pick(warm, b), check=check, tel=tel)
             for b in range(v2f.shape[0])]
     return tuple(typeslib.stack(list(xs)) for xs in zip(*outs))
 
@@ -346,8 +377,27 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                                      batch=lead[0] if lead else None)
     true_ = torch.ones(lead, dtype=torch.bool, device=dev)
     faults, scen = state.faults, state.scenario
-    if (faults is not None or scen is not None) and trial_ticks is None:
+    # the sanitizer and the counters (`analysis.invariants`,
+    # `telemetry.device`): every site below is gated in Python on the
+    # static modes, so 'off' adds no operation. Recording order = blame
+    # priority (first violation wins; see invariants.CONTRACTS).
+    checks = cfg.check_mode == "on"
+    tel_on = cfg.telemetry == "on"
+    inv, tel = state.inv, state.tel
+    if checks and inv is None:
+        raise ValueError("cfg.check_mode='on' needs init_state(..., "
+                         "checks=True): the sanitizer records violations "
+                         "into the SimState.inv carry")
+    if tel_on and tel is None:
+        raise ValueError("cfg.telemetry='on' needs init_state(..., "
+                         "telemetry=True): the counters accumulate into "
+                         "the SimState.tel carry")
+    if (faults is not None or scen is not None or checks) \
+            and trial_ticks is None:
         trial_ticks = _trial_ticks(state, dev)
+    if checks:
+        inv = invlib.record(inv, invlib.adjacency_asymmetric(
+            formation.adjmat), "adj_sym", trial_ticks)
 
     # --- fault model: masks of each trial's own tick ---
     if faults is not None:
@@ -356,6 +406,10 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         link_mask = faultlib.link_up_at(faults, trial_ticks) \
             & alive[..., :, None] & alive[..., None, :]
         fault_event = faultlib.fault_event_at(faults, trial_ticks)
+        if checks:
+            inv = invlib.record(inv, invlib.alive_mask_stale(
+                alive, faults, trial_ticks), "mask_consistency",
+                trial_ticks)
     else:
         alive = link_mask = fault_event = None
 
@@ -363,10 +417,18 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     # skipped, which equals its `where` against the baseline ---
     if scen is not None:
         on = scenlib.axes_on(scen, state.tick)
+        if checks and not on["formation"]:
+            # the axis is off for every trial: the effective points are
+            # the formation's own
+            inv = invlib.record(inv, invlib.nonfinite_points(
+                formation.points), "scen_points", trial_ticks)
         if on["formation"]:
             # (c)+(e): the effective formation and its desired distances
             pts, changed = scenlib.formation_points_at(
                 scen, formation.points, trial_ticks, cfg.control_dt)
+            if checks:
+                inv = invlib.record(inv, invlib.nonfinite_points(pts),
+                                    "scen_points", trial_ticks)
             changed = changed[..., None, None]
             formation = replace(
                 formation, points=pts,
@@ -421,6 +483,7 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     est = loc_view.est if loc_view is not None else None
     warm = state.cbaa_warm if cfg.assignment == "cbaa" else None
     new_warm = state.cbaa_warm
+    cand_rounds = None
     if cfg.assignment != "none" and shared_tick % cfg.assign_every == 0:
         bidders = swarm
         if scen is not None and on["byz"]:
@@ -428,9 +491,21 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
             # lying; control and dynamics keep the true state
             bidders = SwarmState(q=scenlib.reported_positions(
                 scen, swarm.q, trial_ticks), vel=swarm.vel)
-        outs = assign(bidders, formation, v2f, cfg, est=est,
+        solver_form, solver_est = formation, est
+        if checks:
+            # the solvers see non-finite inputs as 0: LAPACK and the
+            # rounding refuse a NaN pose, which is the sanitizer's to
+            # report (finite inputs pass through bit for bit)
+            bidders = SwarmState(q=torch.nan_to_num(bidders.q),
+                                 vel=bidders.vel)
+            solver_form = replace(formation, points=torch.nan_to_num(
+                formation.points))
+            if est is not None:
+                solver_est = torch.nan_to_num(est)
+        outs = assign(bidders, solver_form, v2f, cfg, est=solver_est,
                       first=state.first_auction, alive=alive,
-                      link_mask=link_mask, warm=warm)
+                      link_mask=link_mask, warm=warm, check=checks,
+                      tel=tel_on)
         take = state.assign_enabled
         if cfg.flight_fsm:
             take = take & torch.all(flying, dim=-1)
@@ -438,12 +513,21 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
             take = take & scenlib.rematch_ok_at(scen, trial_ticks)
         new_v2f = torch.where(take[..., None], outs[0], v2f)
         valid = torch.where(take, outs[1], true_)
+        i = 2
+        if checks:
+            # a gated-off candidate is discarded, so are its violations
+            inv = invlib.record_code(inv, torch.where(
+                take, outs[i], torch.zeros_like(outs[i])), trial_ticks)
+            i += 1
+        if tel_on:
+            cand_rounds = outs[i]
+            i += 1
         if warm is not None:
             # a gated-off auction's tables are discarded like its v2f
             new_warm = CbaaTables(
-                price=torch.where(take[..., None, None], outs[2].price,
+                price=torch.where(take[..., None, None], outs[i].price,
                                   warm.price),
-                who=torch.where(take[..., None, None], outs[2].who,
+                who=torch.where(take[..., None, None], outs[i].who,
                                 warm.who))
     else:
         new_v2f, valid = v2f, true_
@@ -451,6 +535,10 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     reassigned = take & torch.any(new_v2f != v2f, dim=-1)
     first_auction = state.first_auction & ~(take & valid)
     v2f = new_v2f
+    if checks:
+        # every solver's output and the held assignment alike
+        inv = invlib.record(inv, invlib.perm_violated(v2f), "assign_perm",
+                            trial_ticks)
 
     # --- distributed control law -> distcmd ---
     rel = None if loc_view is None else loclib.relative_views(loc_view)
@@ -470,6 +558,10 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         # dead vehicles publish no distcmd
         u = torch.where(alive[..., None], u, torch.zeros_like(u))
     distcmd_norm = torch.linalg.vector_norm(u, dim=-1)
+    if checks and faults is not None:
+        inv = invlib.record(inv, invlib.dead_rows_active(distcmd_norm,
+                                                         alive),
+                            "dead_distcmd", trial_ticks)
 
     # --- safety shim: saturate -> mux -> avoid -> safe trajectory ---
     u = control.saturate_velocity(u, sparams)
@@ -532,25 +624,55 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         fs = typeslib.tree_map(hold, fs, state.flight)
         ca = ca & alive
 
+    if checks:
+        if faults is not None:
+            inv = invlib.record(inv, invlib.dead_rows_moved(
+                new_swarm.q, swarm.q, alive), "dead_frozen", trial_ticks)
+        # finiteness before bounds: a NaN pose fails the inside test too
+        inv = invlib.record(inv, invlib.nonfinite_state(new_swarm, goal),
+                            "state_finite", trial_ticks)
+        inv = invlib.record(inv, invlib.out_of_bounds(new_swarm.q, sparams),
+                            "state_bounds", trial_ticks)
+
+    # --- counters, after every mask is final (`ca` is what flew) ---
+    if tel_on:
+        rounds = tel.assign_rounds
+        if cand_rounds is not None:
+            rounds = rounds + torch.where(take, cand_rounds,
+                                          torch.zeros_like(cand_rounds))
+        stale = tel.flood_stale_max
+        if cfg.localization == "flooded":
+            stale = torch.maximum(stale, torch.amax(
+                loc.age, dim=(-2, -1)).to(torch.int32))
+        tel = replace(tel, auctions=tel.auctions + take.to(torch.int32),
+                      assign_rounds=rounds,
+                      reassigns=tel.reassigns + reassigned.to(torch.int32),
+                      ca_ticks=tel.ca_ticks + torch.sum(ca, dim=-1,
+                                                        dtype=torch.int32),
+                      flood_stale_max=stale)
+
     new_state = SimState(swarm=new_swarm, goal=goal, v2f=v2f,
                          tick=state.tick + 1, flight=fs, loc=loc,
                          first_auction=first_auction,
                          assign_enabled=state.assign_enabled,
-                         cbaa_warm=new_warm, faults=faults, scenario=scen)
+                         cbaa_warm=new_warm, faults=faults, scenario=scen,
+                         inv=inv, tel=tel)
     return new_state, StepMetrics(distcmd_norm=distcmd_norm, ca_active=ca,
                                   assign_valid=valid, reassigned=reassigned,
                                   auctioned=take, q=new_swarm.q,
                                   mode=fs.mode, v2f=v2f, alive=alive,
                                   fault_event=fault_event,
-                                  scen_event=scen_event)
+                                  scen_event=scen_event,
+                                  inv_code=inv.code if checks else None,
+                                  tel=tel if tel_on else None)
 
 
 def _stack_metrics(per_tick: list) -> StepMetrics | None:
     if not per_tick:
         return None
     return StepMetrics(**{f.name: None if getattr(per_tick[0], f.name)
-                          is None else torch.stack([getattr(m, f.name)
-                                                    for m in per_tick])
+                          is None else typeslib.stack([getattr(m, f.name)
+                                                       for m in per_tick])
                           for f in fields(StepMetrics)})
 
 
@@ -585,11 +707,12 @@ def batched_rollout(state: SimState, formation: Formation,
     reference's ``shared_tick``): tick t of the rollout auctions when
     ``(tick0 + t) % assign_every == 0``. Returns the final batched state
     and `StepMetrics` with leaves (n_ticks, B, ...) — per trial, the
-    serial `rollout` of the same start bit for bit. With faults or
-    scenarios the trials' own ticks cross to the device once, as offsets
-    from the shared phase."""
+    serial `rollout` of the same start bit for bit. With faults,
+    scenarios or checks the trials' own ticks cross to the device once, as
+    offsets from the shared phase."""
     offset = None
-    if state.faults is not None or state.scenario is not None:
+    if state.faults is not None or state.scenario is not None \
+            or cfg.check_mode == "on":
         offset = torch.as_tensor(
             (np.asarray(state.tick) - tick0).astype(np.int32)).to(
                 state.v2f.device)

@@ -27,7 +27,12 @@ scenario event to reconvergence, and the accepted reassignments in
 between. The reference advances it tick by tick in a scan; here it is a
 few whole-chunk operations (the last event's index by a cumulative max,
 the first reconvergence after it by a cumulative count), the same
-numbers. The device telemetry snapshot is not ported: ``tel`` stays None.
+numbers.
+
+A rollout under ``check_mode='on'`` passes its per-tick invariant codes
+through (``inv_code``), and one under ``telemetry='on'`` its counters
+after the chunk's last tick (``tel``); `to_host` packs both into its two
+copies.
 """
 from __future__ import annotations
 
@@ -36,8 +41,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from aclswarm_torch.core import types as typeslib
 from aclswarm_torch.sim import engine, vehicle
 from aclswarm_torch.sim.engine import StepMetrics
+from aclswarm_torch.telemetry import device as devtel
+from aclswarm_torch.telemetry.device import ChunkTelemetry
 
 # the supervisor's thresholds (`harness.supervisor`), duplicated so the
 # device code does not import the host-side harness
@@ -83,7 +91,9 @@ class ChunkSummary:
     # recovery clock outputs, -1 except at the tick recovery completes
     recovery_ticks: torch.Tensor | None = None  # ([B,] T) int32
     fault_churn: torch.Tensor | None = None     # ([B,] T) int32
-    tel: None = None            # device telemetry is not ported
+    # None unless the rollout ran with check_mode / telemetry 'on'
+    inv_code: torch.Tensor | None = None        # ([B,] T) int32 codes
+    tel: ChunkTelemetry | None = None           # ([B,]) after the chunk
 
 
 def init_carry(n: int, window: int, dtype=torch.float32, device=None,
@@ -220,6 +230,11 @@ def summarize_chunk(metrics: StepMetrics, carry: SummaryCarry, window: int,
     else:
         pending, since, churn = (carry.rec_pending, carry.rec_since,
                                  carry.rec_churn)
+    if metrics.inv_code is not None:
+        extra["inv_code"] = metrics.inv_code
+    if metrics.tel is not None:
+        # the carry after the chunk's last tick
+        extra["tel"] = typeslib.tree_map(lambda x: x[..., -1], metrics.tel)
     summary = ChunkSummary(
         conv_all=conv_all,
         grid_any=torch.any(ca_mean > AVG_ACTIVE_CA_THR, dim=-1),
@@ -249,23 +264,56 @@ def batched_rollout_summary(state, carry: SummaryCarry, formation, gains,
     state, metrics = engine.batched_rollout(state, formation, gains, sparams,
                                             cfg, n_ticks, inputs, tick0)
     # (T, B, ...) -> (B, T, ...)
-    batch_major = StepMetrics(**{k: None if v is None else v.movedim(0, 1)
-                                 for k, v in vars(metrics).items()})
+    batch_major = typeslib.tree_map(lambda x: x.movedim(0, 1), metrics)
     summary, carry = summarize_chunk(batch_major, carry, window, takeoff_alt,
                                      pose_every)
     return state, carry, summary
 
 
-# the per-tick flags `to_host` packs into one bool copy, in this order
+# the per-tick flags `to_host` packs into its integer copy, in this order
 FLAGS = ("conv_all", "grid_any", "taken_off", "all_flying", "auctioned",
          "assign_valid", "reassigned")
 
 
+def pack(parts: dict, dtype) -> tuple[torch.Tensor, list]:
+    """Tensors of any shapes -> one flat ``dtype`` tensor and the layout
+    `unpack` needs: one device-to-host copy for all of them."""
+    layout = [(k, tuple(v.shape)) for k, v in parts.items()]
+    flat = torch.cat([v.reshape(-1).to(dtype) for v in parts.values()])
+    return flat, layout
+
+
+def unpack(flat: np.ndarray, layout: list) -> dict:
+    """The host side of `pack`: numpy arrays keyed by name."""
+    out, at = {}, 0
+    for k, shape in layout:
+        size = int(np.prod(shape, dtype=np.int64))
+        out[k] = flat[at:at + size].reshape(shape)
+        at += size
+    return out
+
+
 def to_host(summary: ChunkSummary) -> dict:
-    """The summary on the host in two device-to-host copies: the seven
-    ([B,] T) flags packed into one bool tensor, and ``cumdist`` ([B,] n).
-    Returns numpy arrays keyed by field name."""
-    flags = torch.stack([getattr(summary, k) for k in FLAGS]).cpu().numpy()
-    out = {k: flags[i] for i, k in enumerate(FLAGS)}
-    out["cumdist"] = summary.cumdist.cpu().numpy().astype(np.float64)
+    """The summary on the host in two device-to-host copies: one int32
+    copy of the seven ([B,] T) flags, with the invariant codes and the
+    integer counters when they ride the summary, and one float copy of
+    ``cumdist`` ([B,] n), with ``admm_residual``. Returns numpy arrays
+    keyed by field name (flags as bool, ``tel`` as a dict of the counters'
+    arrays)."""
+    ints = {k: getattr(summary, k) for k in FLAGS}
+    floats = {"cumdist": summary.cumdist}
+    if summary.inv_code is not None:
+        ints["inv_code"] = summary.inv_code
+    if summary.tel is not None:
+        ints.update({f"tel.{f}": getattr(summary.tel, f)
+                     for f in devtel.INT_FIELDS})
+        floats["tel.admm_residual"] = summary.tel.admm_residual
+    iflat, ilay = pack(ints, torch.int32)
+    fflat, flay = pack(floats, summary.cumdist.dtype)
+    out = unpack(iflat.cpu().numpy(), ilay)
+    out.update(unpack(fflat.cpu().numpy().astype(np.float64), flay))
+    for k in FLAGS:
+        out[k] = out[k].astype(bool)
+    if summary.tel is not None:
+        out["tel"] = {f: out.pop(f"tel.{f}") for f in devtel.FIELDS}
     return out

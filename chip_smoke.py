@@ -121,7 +121,34 @@ and prints no result line:
              trial-seconds per wall second beside `trial_batch`'s, copies
              of the profiled chunk 11; then `swarm6_3d` under `wind_gust`
              (cut at 30 s) on the card against the CPU;
-19. the `kernels` line, then the result line. Each kernel row carries the
+19. checks — the slice's 240 ticks with ``check_mode`` and ``telemetry``
+             off, then on, from one start: every invariant code 0, q and
+             v2f bit-identical, the off run's launches equal `slice`'s,
+             the counters equal their recomputation from the metrics; ms
+             and kernel launches per tick, on against off; then four
+             mutations on the card, each tripping its own contract at its
+             own tick (a NaN pose at tick 150, a duplicated row in K2's
+             tick-120 permutation, an asymmetric adjacency, K1's tick-120
+             plan with its mass doubled);
+20. checks_faults — the `faults` batch off and on: every trial clean,
+             bit-identical, counters recomputed; a stale alive mask
+             injected into one trial trips `mask_consistency` on that
+             trial alone; ms per batched tick, on against off;
+21. trial_checked — the `trial` configuration with every observability
+             field on: `trial`'s verdict, path, times and CSV row; the
+             recording replayed to the live FSM's state and times; the
+             dumped counters equal the carry's; the trace written; the
+             device-to-host reads Python makes per chunk (wrapped
+             `Tensor` methods) within the bound; simulated seconds per
+             wall second against `trial`'s;
+22. trial_batch_checked — the `trial_batch` wave checked and counted:
+             its verdicts, paths and CSV rows, each trial's counters
+             published; trial-seconds per wall second against
+             `trial_batch`'s;
+23. churn — the reference's churn/lag curve (n=24, CBAA under
+             `goal_drift`, 2400 ticks, assign_eps 0 and 0.05) read from the
+             `reassigns` and `auctions` counters;
+24. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -244,7 +271,8 @@ def design(n: int, seed: int) -> torch.Tensor:
     (points,), adj = _group(n, seed)
     cfg = trials.TrialConfig(formation=f"simform{n}", device="cuda")
     spec = formations.FormationSpec("A", points, adj, None)
-    return trials._dispatch_gains(cfg, spec, n, device=torch.device("cuda"))
+    return trials._dispatch_gains(cfg, spec, n,
+                                  device=torch.device("cuda"))[0]
 
 
 def problem(n: int, seed: int, device, dtype, start_min_dist: float,
@@ -455,7 +483,7 @@ def _ab_ms(new, prev, reps: int) -> tuple[float, float]:
 
 
 def _masses(plan):
-    return [torch.exp(torch.logsumexp(plan, dim=d)) for d in (0, 1)]
+    return [torch.exp(torch.logsumexp(plan, dim=d)) for d in (-2, -1)]
 
 
 def _check_sinkhorn(label, cost, tau, iters, launches_expected,
@@ -472,7 +500,7 @@ def _check_sinkhorn(label, cost, tau, iters, launches_expected,
     err = (plan - ref).abs().max().item()
     marg = max((a - b).abs().max().item()
                for a, b in zip(_masses(plan), _masses(ref)))
-    info = {"check": label, "n": cost.shape[0], "launches": launches,
+    info = {"check": label, "shape": list(cost.shape), "launches": launches,
             "max_abs_err": err, "mass_err_vs_plain": marg}
     if not (excess <= 5e-5 and marg <= 1e-4
             and launches == launches_expected):
@@ -487,7 +515,7 @@ def _check_flood(label, packed, comm) -> dict:
     merged, launches = _counted("flood_merge",
                                 lambda: ops.flood_merge(packed, comm))
     ref = ops.flood_merge_plain(packed, comm, block=64)
-    info = {"check": label, "n": packed.shape[0], "w": packed.shape[1],
+    info = {"check": label, "shape": list(packed.shape),
             "launches": launches, "bit_identical": torch.equal(merged, ref),
             "baseline_identical": torch.equal(_flood_bytemask(packed, comm),
                                               ref)}
@@ -504,10 +532,11 @@ def _check_rounding(label, plan, max_rounds=None) -> dict:
     (perm, rounds), launches = _counted(
         "round_dominant", lambda: ops.round_dominant(plan, max_rounds))
     ref, ref_rounds = ops.round_dominant_plain(plan, max_rounds)
-    info = {"check": label, "n": plan.shape[0], "max_rounds": max_rounds,
-            "launches": launches, "rounds": int(rounds),
+    info = {"check": label, "shape": list(plan.shape),
+            "max_rounds": max_rounds, "launches": launches,
+            "rounds": rounds.tolist(),
             "bit_identical": bool(torch.equal(perm, ref)
-                                  and int(rounds) == int(ref_rounds)),
+                                  and torch.equal(rounds, ref_rounds)),
             "assigned": int((perm >= 0).sum())}
     if not (info["bit_identical"] and launches == K2_LAUNCHES_PER_CALL):
         raise AssertionError(f"K2 edge check failed: {info}")
@@ -1562,6 +1591,14 @@ def phase_slice_auction(seed: int) -> dict:
     return info
 
 
+def _as_asked(out, kw):
+    """A probe's telemetry solve returned as its caller asked: the stats
+    dropped unless the caller wanted them too (a telemetered trial)."""
+    if kw.get("telemetry"):
+        return out
+    return out[:-1] if len(out) > 2 else out[0]
+
+
 class _TrialProbe:
     """Wraps the harness's `sim.rollout`, `gains.solve_gains` and
     `TrialFSM._next_state` for one trial (the harness itself is not
@@ -1663,7 +1700,7 @@ class _TrialProbe:
                                   "residual": out[-1].residual,
                                   "gains": out[0], "points": points,
                                   "adj": np.asarray(adj)})
-            return out[:-1] if len(out) > 2 else out[0]
+            return _as_asked(out, kw)
 
         def _next_state(fsm, state, reset=True):
             probe.transitions.append((supervisor.NAMES[state],
@@ -1699,6 +1736,13 @@ def _fly_trial(cfg, profile_chunks=()):
 
 def _mean(xs):
     return float(np.mean(xs)) if xs else None
+
+
+def _row_digest(row) -> str:
+    """A CSV row's digest (its n distances are too long to print)."""
+    import hashlib
+
+    return hashlib.sha256(np.asarray(row, np.float64).tobytes()).hexdigest()
 
 
 def phase_trial(seed: int) -> dict:
@@ -1799,6 +1843,7 @@ def _check_trial(cfg, profile_chunks=(6, 12)) -> dict:
         "seed": cfg.seed, "dtype": cfg.dtype,
         "trial_timeout": cfg.trial_timeout,
         "verdict": trials.NAMES[fsm.state], "transitions": probe.transitions,
+        "times": fsm.times, "csv_digest": _row_digest(fsm.csv_row(0)),
         "chunks": len(chunks), "ticks": ticks,
         "simulated_seconds": ticks * cfg.control_dt, "wall_seconds": wall,
         "profiler_seconds": probe.profiler_seconds,
@@ -2188,7 +2233,7 @@ class _WaveProbe:
             probe.designs.append({"ms": (time.perf_counter() - t0) * 1e3,
                                   "iters": out[-1].iters, "gains": out[0],
                                   "points": points, "adj": np.asarray(adj)})
-            return out[:-1] if len(out) > 2 else out[0]
+            return _as_asked(out, kw)
 
         def _to(fsm, state, reset=True):
             probe.transitions.setdefault(id(fsm), []).append(
@@ -2282,6 +2327,7 @@ def phase_trial_batch(seed: int, serial: dict | None,
         "chunk_ticks": cfg.chunk_ticks, "trial_timeout": cfg.trial_timeout,
         "verdicts": [trials.NAMES[f.state] for f in fsms],
         "paths": paths, "dispatch_ticks": dispatch_ticks,
+        "csv_digests": [_row_digest(f.csv_row(t)) for t, f in zip(idx, fsms)],
         "completed": stats["trials_completed"],
         "chunks": len(chunks), "ticks": ticks, "trial_ticks": trial_ticks,
         "compactions": compactions,
@@ -2811,6 +2857,694 @@ def phase_trial_scenarios(seed: int, trial_batch: dict | None) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# invariants, device counters and recordings (`analysis.invariants`,
+# `telemetry.device`, `harness.review`): the checked and counted paths
+
+# a NaN pose at this tick of the checked slice (after the tick-120 auction,
+# before the rollout's end: no solver sees it)
+CHECK_NAN_TICK = 150
+# the stale alive mask of `checks_faults`: the fault grid's 0.5-dropout row
+STALE_ROW = (0.5, 0.0)
+# the reference's churn/lag curve (`benchmarks/pipeline_rate.py`
+# `churn_rows`)
+CHURN_N, CHURN_TICKS, CHURN_EPS = 24, 2400, (0.0, 0.05)
+# its committed rows (float64 on the CPU), one per `CHURN_EPS`: churn and
+# valid auctions are held exactly, the lag to within CHURN_LAG_ATOL
+CHURN_REFERENCE = ({"assign_eps": 0.0, "auctions": 40, "churn_rate": 0.125,
+                    "lag_rms_m": 0.745},
+                   {"assign_eps": 0.05, "auctions": 40, "churn_rate": 0.025,
+                    "lag_rms_m": 0.869})
+CHURN_LAG_ATOL = 0.01
+
+
+def _with_carries(state, batch=None):
+    """``state`` with a clean invariant carry and zeroed counters."""
+    from aclswarm_torch.analysis import invariants as invlib
+    from aclswarm_torch.telemetry import device as devtel
+
+    return dataclasses.replace(
+        state, inv=invlib.init_invariants(batch, state.swarm.q.device),
+        tel=devtel.init_telemetry(batch, state.swarm.q.dtype,
+                                  state.swarm.q.device))
+
+
+def _cat_metrics(parts):
+    """`StepMetrics` of consecutive rollouts joined on the time axis."""
+    from aclswarm_torch.core import types
+    from aclswarm_torch.sim.engine import StepMetrics
+
+    return StepMetrics(**{k: None if getattr(parts[0], k) is None
+                          else types.tree_map(lambda *xs: torch.cat(xs),
+                                              *[getattr(m, k) for m in parts])
+                          for k in vars(parts[0])})
+
+
+def _first(codes, tick0: int = 0) -> list | None:
+    """(tick, contract id) of the first violation in a (T,) code stack
+    whose first tick is ``tick0``."""
+    from aclswarm_torch.analysis import invariants as invlib
+
+    hit = invlib.first_violation(codes.cpu().numpy(), tick0)
+    return None if hit is None else [hit[0], hit[1].id]
+
+
+@contextlib.contextmanager
+def _patched(mod, name, fn):
+    original = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield original
+    finally:
+        setattr(mod, name, original)
+
+
+def _path_kernel_inputs(run) -> dict:
+    """``run()`` with the first inputs the path hands each kernel's wrapper
+    kept (cloned), with the launches that call made."""
+    from aclswarm_torch import ops
+
+    seen = {}
+    with contextlib.ExitStack() as stack:
+        for name in ("sinkhorn_log", "round_dominant", "flood_merge"):
+            def keep(*args, _name=name, _wrapped=getattr(ops, name)):
+                before = ops.LAUNCHES[_name]
+                out = _wrapped(*args)
+                seen.setdefault(_name, (
+                    [a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args], ops.LAUNCHES[_name] - before))
+                return out
+            stack.enter_context(_patched(ops, name, keep))
+        run()
+    missing = {"sinkhorn_log", "round_dominant", "flood_merge"} - set(seen)
+    if missing:
+        raise AssertionError(f"the path launched no {sorted(missing)}")
+    return seen
+
+
+def _hold_path_kernels(label, run, rtol=0.0) -> dict:
+    """K1, K2 and K3 against their plain versions on the inputs the path
+    hands them in ``run()`` (`_check_sinkhorn`, `_check_rounding`,
+    `_check_flood`: K1 within 5e-5 + ``rtol`` |plain| with masses within
+    1e-4 of the plain version's, K2 and K3 bit for bit), each launched as
+    often as the path launched it."""
+    seen = _path_kernel_inputs(run)
+    (cost, tau, iters), k1_launches = seen["sinkhorn_log"]
+    (plan, *rounds_cap), _ = seen["round_dominant"]
+    (packed, comm, *_), _ = seen["flood_merge"]
+    return {"k1": _check_sinkhorn(f"{label}: K1", cost, tau, iters,
+                                  k1_launches, rtol),
+            "k2": _check_rounding(f"{label}: K2", plan, *rounds_cap),
+            "k3": _check_flood(f"{label}: K3", packed, comm)}
+
+
+def _roll_pieces(state, formation, gains, sparams, cfg, bounds):
+    """One rollout cut at ``bounds`` (ticks); returns the state at each
+    cut, the final state, the joined metrics and the synchronized
+    seconds."""
+    from aclswarm_torch import sim
+
+    cuts, parts = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a, b in zip(bounds, bounds[1:]):
+        cuts.append(state)
+        state, m = sim.rollout(state, formation, gains, sparams, cfg, b - a)
+        parts.append(m)
+    torch.cuda.synchronize()
+    return cuts, state, _cat_metrics(parts), time.perf_counter() - t0
+
+
+def _nan_inputs(ticks: int, n: int, dtype):
+    """No command; a NaN joystick velocity on vehicle 0 at the first tick."""
+    from aclswarm_torch.sim.vehicle import ExternalInputs
+
+    dev = torch.device("cuda")
+    vel = torch.zeros((ticks, n, 3), dtype=dtype, device=dev)
+    active = torch.zeros((ticks, n), dtype=torch.bool, device=dev)
+    vel[0, 0] = float("nan")
+    active[0, 0] = True
+    return ExternalInputs(
+        cmd=torch.zeros((ticks,), dtype=torch.int32, device=dev),
+        joy_vel=vel, joy_yawrate=torch.zeros((ticks, n), dtype=dtype,
+                                             device=dev),
+        joy_active=active)
+
+
+def phase_checks(seed: int, slice_info: dict | None) -> dict:
+    """The slice (cell 1, 240 ticks) twice from one start: with
+    ``check_mode`` and ``telemetry`` off, then both on. Every code 0; q
+    and v2f bit-identical; the off run's kernel launches equal the
+    `slice` phase's; the counters equal their recomputation from the
+    metrics (auctions, reassigns and avoidance vehicle-ticks summed, no
+    Sinkhorn rounds, the largest estimate age seen, read tick by tick in
+    a third, unchecked run); ms and kernel launches per tick, on against
+    off; K1, K2 and K3 against their plain versions on the inputs the
+    checked run hands them at the tick-120 auction. Then four mutations
+    from the checked run's states, each tripping
+    its own contract at its own tick: a NaN pose at tick 150
+    (`state_finite`), a duplicated row in K2's tick-120 permutation
+    (`assign_perm`; that auction is made a dispatch's first, which the
+    hysteresis never vetoes), an asymmetric adjacency (`adj_sym` at tick
+    0), K1's tick-120 plan with its mass doubled (`sinkhorn_marginal`)."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.assignment import sinkhorn
+
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = problem(
+        N, seed, dev, torch.float32, 2 * SUITE["init_radius"])
+    cfgs = {"off": _slice_cfg(),
+            "on": _slice_cfg(check_mode="on", telemetry="on"),
+            "check_mode": _slice_cfg(check_mode="on"),
+            "telemetry": _slice_cfg(telemetry="on")}
+    starts = {k: state if k == "off" else _with_carries(state)
+              for k in cfgs}
+    for k in cfgs:                                      # warm-up
+        sim.rollout(starts[k], formation, gains, sparams, cfgs[k], 2)
+    bounds = (0, cfgs["on"].assign_every, CHECK_NAN_TICK, TICKS)
+    runs = {}
+    for k in ("off", "on"):
+        ops.reset_launches()
+        cuts, final, metrics, seconds = _roll_pieces(
+            starts[k], formation, gains, sparams, cfgs[k], bounds)
+        runs[k] = dict(cuts=cuts, final=final, metrics=metrics,
+                       ms_per_tick=seconds / TICKS * 1e3,
+                       launches=dict(ops.LAUNCHES))
+    off, on = runs["off"], runs["on"]
+    same = all(torch.equal(getattr(off["metrics"], k),
+                           getattr(on["metrics"], k))
+               for k in ("q", "v2f", "distcmd_norm", "ca_active",
+                         "reassigned", "auctioned", "assign_valid")) \
+        and torch.equal(off["final"].swarm.q, on["final"].swarm.q) \
+        and torch.equal(off["final"].loc.age, on["final"].loc.age)
+    m, tel = on["metrics"], on["final"].tel
+
+    # the largest age seen, tick by tick, in an unchecked run
+    s, ages = state, []
+    for _ in range(TICKS):
+        s, _ = sim.step(s, formation, gains, sparams, cfgs["off"])
+        ages.append(torch.amax(s.loc.age))
+    host = {"auctions": int(m.auctioned.sum()),
+            "assign_rounds": 0,
+            "reassigns": int(m.reassigned.sum()),
+            "ca_ticks": int(m.ca_active.sum()),
+            "flood_stale_max": int(torch.stack(ages).max())}
+    counters = {f: int(getattr(tel, f)) for f in host}
+
+    # launches per tick under the profiler, one auction and 39 more ticks
+    def traced(k):
+        def run(ticks):
+            sim.rollout(starts[k], formation, gains, sparams, cfgs[k],
+                        ticks)
+        _, by_name, _ = _traced_window(run, 40)
+        return sum(v[0] for v in by_name.values()) / 40
+
+    launches_per_tick = {k: traced(k) for k in cfgs}
+    # each mode alone, for the record
+    alone_ms = {}
+    for k in ("check_mode", "telemetry"):
+        _, _, _, seconds = _roll_pieces(starts[k], formation, gains, sparams,
+                                        cfgs[k], (0, TICKS))
+        alone_ms[k] = seconds / TICKS * 1e3
+
+    # the mutations, from the checked run's states at ticks 0, 120, 150
+    at0, at120, at150 = on["cuts"]
+    held = _hold_path_kernels("checks: tick 120", lambda: sim.rollout(
+        at120, formation, gains, sparams, cfgs["on"], 1))
+    mutations = {}
+    _, mm = sim.rollout(at150, formation, gains, sparams, cfgs["on"], 5,
+                        _nan_inputs(5, N, torch.float32))
+    mutations["nan_pose"] = [_first(mm.inv_code, CHECK_NAN_TICK),
+                             [CHECK_NAN_TICK, "state_finite"]]
+    first120 = dataclasses.replace(
+        at120, first_auction=torch.ones((), dtype=torch.bool, device=dev))
+
+    def duplicated(plan, max_rounds=None):
+        v = ops.round_dominant(plan, max_rounds)[0].clone()
+        v[..., 1] = v[..., 0]
+        return v
+
+    with _patched(sinkhorn, "round_dominant", duplicated):
+        _, mm = sim.rollout(first120, formation, gains, sparams,
+                            cfgs["on"], 1)
+    mutations["duplicate_row"] = [_first(mm.inv_code, bounds[1]),
+                                  [bounds[1], "assign_perm"]]
+    adj = formation.adjmat.clone()
+    adj[0, 1] = 1.0 - adj[0, 1]
+    _, mm = sim.rollout(at0, dataclasses.replace(formation, adjmat=adj),
+                        gains, sparams, cfgs["on"], 2)
+    mutations["asymmetric_adjacency"] = [_first(mm.inv_code),
+                                         [0, "adj_sym"]]
+    log = sinkhorn.sinkhorn_log
+    with _patched(sinkhorn, "sinkhorn_log",
+                  lambda *a, **k: log(*a, **k) + math.log(2.0)):
+        _, mm = sim.rollout(at120, formation, gains, sparams, cfgs["on"],
+                            1)
+    mutations["doubled_plan_mass"] = [_first(mm.inv_code, bounds[1]),
+                                      [bounds[1], "sinkhorn_marginal"]]
+
+    slice_launches = None if slice_info is None else {
+        k: slice_info["launches"][k] for k in off["launches"]}
+    info = {"phase": "checks", "n": N, "ticks": TICKS, "dtype": "float32",
+            "launches": on["launches"],
+            "codes_clean": not bool(m.inv_code.any()),
+            "first_violation": _first(m.inv_code),
+            "q_v2f_bit_identical": same,
+            "counters": counters, "counters_from_metrics": host,
+            "admm": {"iters": int(tel.admm_iters),
+                     "residual": float(tel.admm_residual)},
+            "launches_off": off["launches"], "launches_on": on["launches"],
+            "launches_slice_phase": slice_launches,
+            "ms_per_tick": {"off": off["ms_per_tick"],
+                            "on": on["ms_per_tick"], **alone_ms},
+            "kernel_launches_per_tick": launches_per_tick,
+            "kernels_vs_plain": held, "mutations": mutations}
+    emit(info)
+    ok = (info["codes_clean"] and same and counters == host
+          and all(on["launches"].values())
+          and off["launches"] == on["launches"]
+          and (slice_launches is None or off["launches"] == slice_launches)
+          and all(got == want for got, want in mutations.values()))
+    if not ok:
+        raise AssertionError(f"checks failed: {info}")
+    return info
+
+
+def phase_checks_faults(seed: int) -> dict:
+    """The `faults` phase's batch (the fault grid, B=8, 360 ticks) with
+    both modes off and on from one start: every trial clean, q and v2f
+    bit-identical, each trial's counters equal their recomputation from
+    its metrics; ms per batched tick, on against off; K1, K2 and K3 against
+    their plain versions on the inputs the checked batch hands them at the
+    tick-120 auction. Then a one-tick-stale
+    alive mask injected into the 0.5-dropout trial alone, from tick 58:
+    `mask_consistency` at that trial's drop tick 60, every other trial
+    clean."""
+    from aclswarm_torch import faults, ops, sim
+    from aclswarm_torch.sim import engine
+
+    dev, B = torch.device("cuda"), len(FAULT_GRID)
+    scheds = [faults.sample_schedule(seed * 1000 + i, N, dropout_frac=df,
+                                     drop_tick=FAULT_DROP,
+                                     rejoin_tick=FAULT_REJOIN, link_loss=pl,
+                                     device=dev, dtype=torch.float32)
+              for i, (df, pl) in enumerate(FAULT_GRID)]
+    bstate, bform, gains, sparams = _batch_of(seed, B, faults=scheds)
+    cfgs = {"off": _slice_cfg(),
+            "on": _slice_cfg(check_mode="on", telemetry="on")}
+    starts = {"off": bstate, "on": _with_carries(bstate, B)}
+    for k in cfgs:                                      # warm-up
+        sim.batched_rollout(starts[k], bform, gains, sparams, cfgs[k], 2)
+    cut, t_auc = FAULT_DROP - 2, _slice_cfg().assign_every
+    runs = {}
+    for k in ("off", "on"):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        states, parts = [starts[k]], []
+        for a, b in ((0, cut), (cut, t_auc), (t_auc, FAULT_TICKS)):
+            s, m = sim.batched_rollout(states[-1], bform, gains, sparams,
+                                       cfgs[k], b - a, None, a)
+            states.append(s)
+            parts.append(m)
+        torch.cuda.synchronize()
+        runs[k] = dict(mid=states[1], at_auction=states[2],
+                       final=states[3], metrics=_cat_metrics(parts),
+                       ms=(time.perf_counter() - t0) / FAULT_TICKS * 1e3,
+                       launches=dict(ops.LAUNCHES))
+    off, on = runs["off"]["metrics"], runs["on"]["metrics"]
+    same = all(torch.equal(getattr(off, k), getattr(on, k))
+               for k in ("q", "v2f", "reassigned", "auctioned", "alive"))
+    tel = runs["on"]["final"].tel
+    host = {"auctions": on.auctioned.sum(0).tolist(),
+            "reassigns": on.reassigned.sum(0).tolist(),
+            "ca_ticks": on.ca_active.sum((0, 2)).tolist()}
+    counters = {f: getattr(tel, f).tolist() for f in host}
+    clean = [_first(on.inv_code[:, b]) for b in range(B)]
+    # masked costs: 5e-5 plus 2^-22 |plain| (as `faults`)
+    held = _hold_path_kernels(
+        "checks_faults: tick 120", lambda: sim.batched_rollout(
+            runs["on"]["at_auction"], bform, gains, sparams, cfgs["on"], 1,
+            None, t_auc), rtol=2.0**-22)
+
+    stale_b = FAULT_GRID.index(STALE_ROW)
+    only = torch.zeros(B, dtype=torch.bool, device=dev)
+    only[stale_b] = True
+    fresh = engine.faultlib.alive_at
+
+    def stale(sched, tick):
+        return torch.where(only[:, None], fresh(sched, tick - 1),
+                           fresh(sched, tick))
+
+    with _patched(engine.faultlib, "alive_at", stale):
+        _, mm = sim.batched_rollout(runs["on"]["mid"], bform, gains,
+                                    sparams, cfgs["on"], 5, None, cut)
+    stale_hits = [_first(mm.inv_code[:, b], cut) for b in range(B)]
+    want = [None] * B
+    want[stale_b] = [FAULT_DROP, "mask_consistency"]
+    info = {"phase": "checks_faults", "n": N, "batch": B,
+            "ticks": FAULT_TICKS, "grid": FAULT_GRID,
+            "launches": runs["on"]["launches"],
+            "launches_off": runs["off"]["launches"],
+            "first_violations": clean, "q_v2f_bit_identical": same,
+            "counters": counters, "counters_from_metrics": host,
+            "flood_stale_max": tel.flood_stale_max.tolist(),
+            "ms_per_batched_tick": {"off": runs["off"]["ms"],
+                                    "on": runs["on"]["ms"]},
+            "stale_mask_trial": stale_b,
+            "stale_mask_from_tick": cut,
+            "stale_mask_first_violations": stale_hits,
+            "kernels_vs_plain": held}
+    emit(info)
+    if not (all(c is None for c in clean) and same and counters == host
+            and all(runs["on"]["launches"].values())
+            and runs["on"]["launches"] == runs["off"]["launches"]
+            and stale_hits == want):
+        raise AssertionError(f"checks_faults failed: {info}")
+    return info
+
+
+class _HostReads:
+    """Counts the device-to-host reads Python makes of card tensors: the
+    `Tensor` methods that copy to the host (`cpu`, `to` a host device,
+    `item`, `tolist`, and the conversions to bool, int and float), while
+    installed. Reads that ATen makes inside an operation (a linear-algebra
+    error check) are not seen."""
+
+    def __init__(self):
+        self.count = 0
+
+    def install(self, stack):
+        reads = self
+        for name in ("cpu", "to", "item", "tolist", "__bool__", "__int__",
+                     "__float__"):
+            original = getattr(torch.Tensor, name)
+
+            def counted(t, *a, _original=original, **k):
+                out = _original(t, *a, **k)
+                if t.is_cuda and not (isinstance(out, torch.Tensor)
+                                      and out.is_cuda):
+                    reads.count += 1
+                return out
+
+            setattr(torch.Tensor, name, counted)
+            stack.callback(setattr, torch.Tensor, name, original)
+
+
+def phase_trial_checked(seed: int, trial_info: dict | None) -> dict:
+    """The `trial` configuration (cell 4) through `run_trials` with
+    ``check_mode``, ``telemetry``, ``telemetry_dump``, ``profile_dir``
+    (chunk 3, a hover chunk) and ``record_dir`` on: the verdict, path,
+    times and CSV row of the `trial` phase's unchecked run; `review` of the
+    recording reaches the live FSM's state and times; the dumped trial
+    counters equal the carry's; the trace file is not empty; the
+    device-to-host reads Python makes per chunk stay within
+    `CHUNK_READS` + `AUCTION_READS` per auction tick (counted by wrapping
+    the reading methods, not from the profiler, which drops records);
+    simulated seconds per wall second, on against off."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from aclswarm_torch import ops, sim, telemetry
+    from aclswarm_torch.harness import review, trials
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = trials.TrialConfig(
+            **dict(TRIAL_ROW, trial_timeout=TRIAL_TIMEOUT_CUT), seed=seed,
+            trials=1, verbose=False, device="cuda", dtype="float32",
+            check_mode="on", telemetry="on",
+            telemetry_dump=f"{tmp}/tel.jsonl", profile_dir=f"{tmp}/prof",
+            profile_chunk=3, record_dir=f"{tmp}/rec", out=f"{tmp}/t.csv")
+        telemetry.reset_registry()
+        probe = _TrialProbe()
+        reads = _HostReads()
+        per_chunk = []
+        fsms = []
+        record_s = []
+        write = review.record
+
+        def timed_record(*a, **k):
+            t0 = time.perf_counter()
+            out = write(*a, **k)
+            record_s.append(time.perf_counter() - t0)
+            return out
+
+        with contextlib.ExitStack() as stack:
+            probe.install(stack)
+            probe_rollout, run_trial = sim.rollout, trials.run_trial
+
+            def rollout(*a, **k):
+                per_chunk.append(reads.count)
+                return probe_rollout(*a, **k)
+
+            def trial(*a, **k):
+                fsms.append(run_trial(*a, **k))
+                return fsms[-1]
+
+            stack.enter_context(_patched(sim, "rollout", rollout))
+            stack.enter_context(_patched(trials, "run_trial", trial))
+            stack.enter_context(_patched(review, "record", timed_record))
+            reads.install(stack)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            trials.run_trials(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+        (fsm,) = fsms
+        dumped = {}
+        for line in Path(cfg.telemetry_dump).read_text().splitlines():
+            row = json.loads(line)
+            if row["name"].startswith("trial_") and row["kind"] == "counter":
+                dumped[row["name"]] = row["value"]
+        tel = probe.final_state.tel
+        carry = {f"trial_{f}_total": int(getattr(tel, f)) for f in
+                 ("auctions", "assign_rounds", "reassigns", "ca_ticks")}
+        carry = {k: v for k, v in carry.items() if v}
+        replay = review.review(f"{cfg.record_dir}/trial_0.npz",
+                               n_formations=fsm.n_formations,
+                               takeoff_alt=float(
+                                   trials._trial_sparams(cfg).takeoff_alt))
+        traces = [p.stat().st_size for p in Path(cfg.profile_dir).iterdir()]
+    chunks = probe.chunks
+    per_chunk.append(reads.count)
+    # reads from a chunk's start to the next chunk's: its rollout and the
+    # host's work after it; a dispatch's design reads its stop flags
+    dispatched = {c["chunk"] for c in chunks if c["chunk"] and
+                  c["tick0"] == 0}
+    reads_per_chunk = [b - a for a, b in zip(per_chunk, per_chunk[1:])]
+    bounded = [r <= CHUNK_READS + AUCTION_READS * c["auctions"]
+               for c, r in zip(chunks, reads_per_chunk)
+               if c["chunk"] + 1 not in dispatched]
+    ticks = sum(c["ticks"] for c in chunks)
+    # the probe's own profiler (the dispatch window) is not the trial's
+    rate = ticks * cfg.control_dt / (wall - probe.profiler_seconds)
+    off = None if trial_info is None else {
+        "verdict": trial_info["verdict"],
+        "transitions": [tuple(t) for t in trial_info["transitions"]],
+        "times": trial_info["times"], "csv_digest": trial_info["csv_digest"],
+        "simulated_seconds_per_wall_second":
+            trial_info["simulated_seconds"]
+            / trial_info["wall_seconds_less_profiler"]}
+    info = {"phase": "trial_checked", "formation": cfg.formation, "n": N,
+            "seed": seed, "verdict": trials.NAMES[fsm.state],
+            "launches": launches,
+            "transitions": probe.transitions, "times": fsm.times,
+            "csv_digest": _row_digest(fsm.csv_row(0)),
+            "replay": {"verdict": trials.NAMES[replay.state],
+                       "ticks": replay.tick_count, "times": replay.times},
+            "dumped_counters": dumped, "carry_counters": carry,
+            "admm": {"iters": int(tel.admm_iters),
+                     "residual": float(tel.admm_residual)},
+            "trace_bytes": traces, "chunks": len(chunks),
+            "record_write_seconds": record_s,
+            "profiled_chunk": {k: chunks[cfg.profile_chunk].get(k) for k in
+                               ("ms", "host_ms", "ticks")},
+            "chunk_ms": [round(c["ms"], 3) for c in chunks],
+            "host_reads_per_chunk": reads_per_chunk,
+            "dispatch_chunks": sorted(dispatched),
+            "ticks": ticks, "wall_seconds": wall,
+            "probe_profiler_seconds": probe.profiler_seconds,
+            "simulated_seconds_per_wall_second": rate,
+            "unchecked_trial_phase": off}
+    emit(info)
+    ok = (fsm.done and replay.state == fsm.state
+          and replay.tick_count == fsm.tick_count
+          and replay.times == fsm.times and dumped == carry
+          and carry.get("trial_auctions_total", 0) >= 2
+          and int(tel.admm_iters) > 0 and traces and all(traces)
+          and all(launches.values())
+          and bounded and all(bounded))
+    if off is not None:
+        ok = ok and (off["verdict"] == info["verdict"]
+                     and off["transitions"] == [tuple(t) for t in
+                                                probe.transitions]
+                     and off["times"] == fsm.times
+                     and off["csv_digest"] == info["csv_digest"])
+    if not ok:
+        raise AssertionError(f"trial_checked failed: {info}")
+    return info
+
+
+def phase_trial_batch_checked(seed: int, trial_batch: dict | None) -> dict:
+    """The `trial_batch` wave (B=5, chunk_ticks 120, the 14 s cut) with
+    ``check_mode`` and ``telemetry`` on: the verdicts, paths and CSV rows
+    of `trial_batch`'s unchecked wave, every live trial's counters
+    published under its own index, trial-seconds per wall second against
+    `trial_batch`'s."""
+    import tempfile
+
+    from aclswarm_torch import ops
+    from aclswarm_torch.harness import trials
+    from aclswarm_torch.telemetry import device as devtel
+
+    row = dict(TRIAL_ROW, chunk_ticks=BATCH_CHUNK,
+               trial_timeout=TRIAL_TIMEOUT_CUT)
+    published = []
+    publish = devtel.ChunkPublisher.publish
+
+    def record(self, key, tel):
+        published.append(key)
+        return publish(self, key, tel)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = trials.TrialConfig(**row, seed=seed, trials=BATCH, batch=BATCH,
+                                 verbose=False, device="cuda",
+                                 dtype="float32", out=f"{tmp}/wave.csv",
+                                 check_mode="on", telemetry="on")
+        probe = _WaveProbe()
+        with contextlib.ExitStack() as stack:
+            probe.install(stack)
+            stack.enter_context(_patched(devtel.ChunkPublisher, "publish",
+                                         record))
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            stats = trials.run_trials(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+    ((idx, fsms),) = probe.waves
+    trial_ticks = sum(c["ticks"] * c["batch"] for c in probe.chunks)
+    info = {"phase": "trial_batch_checked", "batch": BATCH, "trials": idx,
+            "launches": launches,
+            "verdicts": [trials.NAMES[f.state] for f in fsms],
+            "paths": [probe.transitions.get(id(f), []) for f in fsms],
+            "csv_digests": [_row_digest(f.csv_row(t))
+                            for t, f in zip(idx, fsms)],
+            "completed": stats["trials_completed"],
+            "published_per_trial": [published.count(t) for t in idx],
+            "wall_seconds": wall,
+            "trial_seconds_per_wall_second":
+                trial_ticks * cfg.control_dt / wall,
+            "unchecked_trial_seconds_per_wall_second":
+                None if trial_batch is None
+                else trial_batch["trial_seconds_per_wall_second"]}
+    emit(info)
+    ok = (all(f.done for f in fsms) and all(info["published_per_trial"])
+          and all(launches.values()))
+    if trial_batch is not None:
+        ok = ok and all(info[k] == trial_batch[k]
+                        for k in ("verdicts", "paths", "csv_digests"))
+    if not ok:
+        raise AssertionError(f"trial_batch_checked failed: {info}")
+    return info
+
+
+def phase_churn(seed: int) -> dict:
+    """The reference's churn/lag curve (`benchmarks/pipeline_rate.py`
+    `churn_rows`, n=24, 2400 ticks) on the card in
+    float32: CBAA every 30 ticks under `goal_drift` (speed 0.08 m/s,
+    re-matching every 60 ticks) on a full-graph circle with designed
+    gains; assign_eps 0 without warm tables (the baseline row) and 0.05
+    with them. Churn = the `reassigns` counter over the `auctions`
+    counter; also the valid auctions and the lag (the shape error against
+    the drifted formation every 30 ticks after the onset). Held to the
+    reference's committed rows (`CHURN_REFERENCE`): churn 0.125 and 0.025
+    and 40/40 valid auctions exactly, the lag within 0.01 m. The
+    seed is the benchmark's own (formation 21, start 3, scenario 5)."""
+    from aclswarm_torch import gains as gainslib
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.core import geometry
+    from aclswarm_torch.core import perm as permutil
+    from aclswarm_torch.core import types
+    from aclswarm_torch.scenarios import registry as scenreg
+
+    dev, n, ticks = torch.device("cuda"), CHURN_N, CHURN_TICKS
+    rng = np.random.default_rng(21)
+    radius = max(4.0, n / (2 * np.pi))
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    pts = np.stack([radius * np.cos(ang), radius * np.sin(ang),
+                    2.0 + 0.35 * rng.standard_normal(n)], axis=1)
+    adj = np.ones((n, n)) - np.eye(n)
+    g = gainslib.solve_gains(pts.astype(np.float32), adj, max_nonedges=1,
+                             device=dev)
+    form = types.make_formation(pts, adj, g, device=dev,
+                                dtype=torch.float32)
+    sp = types.SafetyParams(bounds_min=(-200.0, -200.0, 0.0),
+                            bounds_max=(200.0, 200.0, 50.0))
+    rng = np.random.default_rng(3)
+    q0 = pts + rng.normal(scale=1.5, size=(n, 3)) * [1, 1, 0.2]
+    q0[:, 2] = np.maximum(q0[:, 2], 0.5)
+    assign_every, rematch_every, speed = 30, 60, 0.08
+    scen = scenreg.sample("goal_drift", 5, n, horizon=ticks,
+                          params={"drift.speed": speed,
+                                  "drift.rematch_every": rematch_every},
+                          device=dev, dtype=torch.float32)
+    drift_vel = scen.drift_vel.cpu().numpy()
+    drift_tick = int(scen.drift_tick)
+    rows = []
+    ops.reset_launches()
+    for eps in CHURN_EPS:
+        warm = eps > 0
+        cfg = sim.SimConfig(assignment="cbaa", assign_every=assign_every,
+                            assign_eps=eps, telemetry="on")
+        st = sim.init_state(q0, scenario=scen, cbaa_warm=warm,
+                            telemetry=True, device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, m = sim.rollout(st, form, types.ControlGains(), sp, cfg,
+                               ticks)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        errs = []
+        for t in range(drift_tick, ticks, assign_every):
+            pts_t = torch.as_tensor(pts + drift_vel * ((t - drift_tick)
+                                                       * 0.01),
+                                    dtype=torch.float32, device=dev)
+            q_form = permutil.veh_to_formation_order(m.q[t], m.v2f[t])
+            resid = (q_form - geometry.align(pts_t, q_form, d=2)).cpu()
+            resid[:, 2] -= resid[:, 2].mean()
+            errs.append(float(torch.sqrt(torch.mean(
+                torch.sum(resid ** 2, -1)))))
+        tel = final.tel
+        auctions, reassigns = int(tel.auctions), int(tel.reassigns)
+        rows.append({"assign_eps": eps, "warm_tables": warm,
+                     "auctions": auctions, "reassigns": reassigns,
+                     "valid_auctions": int((m.auctioned
+                                            & m.assign_valid).sum()),
+                     "churn_rate": reassigns / max(auctions, 1),
+                     "reassigned_ticks": int(m.reassigned.sum()),
+                     "assign_rounds": int(tel.assign_rounds),
+                     "lag_rms_m": float(np.mean(errs)),
+                     "ms_per_tick": seconds / ticks * 1e3})
+    info = {"phase": "churn", "n": n, "ticks": ticks, "dtype": "float32",
+            "launches": dict(ops.LAUNCHES),
+            "assign_every": assign_every, "rematch_every": rematch_every,
+            "drift_speed": speed, "rows": rows,
+            "reference_rows": CHURN_REFERENCE,
+            "lag_tolerance_m": CHURN_LAG_ATOL}
+    emit(info)
+    if not all(r["reassigns"] == r["reassigned_ticks"]
+               and r["auctions"] == r["valid_auctions"] == ref["auctions"]
+               and r["churn_rate"] == ref["churn_rate"]
+               and abs(r["lag_rms_m"] - ref["lag_rms_m"]) <= CHURN_LAG_ATOL
+               for r, ref in zip(rows, CHURN_REFERENCE)):
+        raise AssertionError(f"churn failed: {info}")
+    return info
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2839,7 +3573,8 @@ def main(argv=None) -> int:
                  "slice_auction": phase_slice_auction,
                  "trial": phase_trial, "batch_kernels": phase_batch_kernels,
                  "slice_batch": phase_slice_batch, "faults": phase_faults,
-                 "slice_scenarios": phase_slice_scenarios}
+                 "slice_scenarios": phase_slice_scenarios,
+                 "checks_faults": phase_checks_faults, "churn": phase_churn}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
@@ -2849,6 +3584,15 @@ def main(argv=None) -> int:
             elif name == "trial_scenarios":
                 done[name] = timed(name, phase_trial_scenarios, args.seed,
                                    done.get("trial_batch"))
+            elif name == "checks":
+                done[name] = timed(name, phase_checks, args.seed,
+                                   done.get("slice"))
+            elif name == "trial_checked":
+                done[name] = timed(name, phase_trial_checked, args.seed,
+                                   done.get("trial"))
+            elif name == "trial_batch_checked":
+                done[name] = timed(name, phase_trial_batch_checked,
+                                   args.seed, done.get("trial_batch"))
             else:
                 done[name] = timed(name, table[name], args.seed)
         print("chip_smoke: partial run (--phases), no result line",
@@ -2873,6 +3617,12 @@ def main(argv=None) -> int:
     fl = timed("faults", phase_faults, args.seed)
     ss = timed("slice_scenarios", phase_slice_scenarios, args.seed)
     ts = timed("trial_scenarios", phase_trial_scenarios, args.seed, tb)
+    ck = timed("checks", phase_checks, args.seed, sl)
+    ckf = timed("checks_faults", phase_checks_faults, args.seed)
+    tc = timed("trial_checked", phase_trial_checked, args.seed, tr)
+    tbc = timed("trial_batch_checked", phase_trial_batch_checked, args.seed,
+                tb)
+    ch = timed("churn", phase_churn, args.seed)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -2913,7 +3663,12 @@ def main(argv=None) -> int:
                    "trial_batch": tb["launches"][name],
                    "faults": fl["launches"][name],
                    "slice_scenarios": ss["launches"][name],
-                   "trial_scenarios": ts["launches"][name]},
+                   "trial_scenarios": ts["launches"][name],
+                   "checks": ck["launches"][name],
+                   "checks_faults": ckf["launches"][name],
+                   "trial_checked": tc["launches"][name],
+                   "trial_batch_checked": tbc["launches"][name],
+                   "churn": ch["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -14,6 +14,8 @@ from aclswarm_torch.assignment import sinkhorn
 from aclswarm_tpu.assignment import sinkhorn as jsinkhorn
 from aclswarm_tpu.faults import masking
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 ATOL = 1e-10
 _j_assign = jax.jit(jsinkhorn.sinkhorn_assign,
                     static_argnames=("rounding", "refine_sweeps", "n_iters"))

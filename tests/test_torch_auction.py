@@ -22,6 +22,8 @@ from aclswarm_tpu.assignment import auction as jauction
 from aclswarm_tpu.assignment.lapjv import lapjv
 from aclswarm_tpu.faults import masking as jmasking
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 SIZES = [1, 2, 6, 33, 100]
 
 

@@ -47,6 +47,8 @@ from aclswarm_tpu.core.types import make_formation as jmake_formation
 from aclswarm_tpu.harness import supervisor as jsup
 from aclswarm_tpu.sim import summary as jsum
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 ATOL = 1e-9
 TICKS_AT_ATOL = 60     # floats held at ATOL through here (see above)
 FINAL_ATOL = 1e-4

@@ -30,6 +30,8 @@ from aclswarm_tpu.assignment import cbaa_ref
 from aclswarm_tpu.core import geometry as jgeometry
 from aclswarm_tpu.sim import localization as jloclib
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 F64 = torch.float64
 INT_FIELDS = ("v2f", "f2v", "valid", "who", "rounds")
 

@@ -18,6 +18,8 @@ from aclswarm_tpu.control import colavoid as jcolavoid
 from aclswarm_tpu.core import types as jtypes
 from aclswarm_tpu.sim import vehicle as jvehicle
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 ATOL = 1e-10
 # the reference side jitted: its op-by-op eager dispatch dominates runtime
 _j_colavoid = jax.jit(jcontrol.collision_avoidance,

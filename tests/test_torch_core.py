@@ -13,6 +13,8 @@ from aclswarm_tpu.core import geometry as jgeometry
 from aclswarm_tpu.core import perm as jperm
 from aclswarm_tpu.core import types as jtypes
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 F64 = dict(device="cpu", dtype=torch.float64)
 ATOL = 1e-10
 

@@ -37,6 +37,8 @@ from aclswarm_tpu.core.types import make_formation as jmake_formation
 from aclswarm_tpu.harness import formgen as jformgen
 from aclswarm_tpu.sim.vehicle import CMD_GO, ExternalInputs as JInputs
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 N, TICKS, ATOL = 24, 40, 1e-8
 # Not every seed can pass at this tolerance: where an agent has fewer than
 # k vehicles in range and vehicle 0 is one of them, the k-pruned
@@ -206,24 +208,48 @@ def test_formgen_matches_reference():
                                   min_dist=3.0, k=2) == ref
 
 
-# ids as they were while the list also held 'auction', 'cbaa' and
-# cbaa_warm (now `test_ported_modes_run`): reports stay comparable
-@pytest.mark.parametrize("cfg_kw,init_kw,match", [
-    (dict(assignment="none", check_mode="on"), {}, "invariants"),
-    (dict(assignment="none", telemetry="on"), {}, "telemetry"),
-    (None, dict(checks=True), "invariants"),
-    (None, dict(telemetry=True), "telemetry"),
-], ids=["cfg_kw2-init_kw2-invariants", "cfg_kw3-init_kw3-telemetry",
-        "None-init_kw6-invariants", "None-init_kw7-telemetry"])
-def test_unported_modes_raise(cfg_kw, init_kw, match):
-    q0 = np.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match=match):
-        state = sim.init_state(q0, device="cpu", **init_kw)
-        jform, jsp, jcg, _ = _problem()
-        sim.step(state, convert.formation_from_numpy(_np(jform), "cpu"),
-                 convert.control_gains_from_numpy(_np(jcg)),
-                 convert.safety_params_from_numpy(_np(jsp)),
-                 sim.SimConfig(**cfg_kw))
+@pytest.mark.parametrize("cfg_kw,init_kw", [
+    (dict(check_mode="on"), dict(checks=True)),
+    (dict(telemetry="on"), dict(telemetry=True)),
+    (dict(check_mode="on"), dict(checks=True, telemetry=True)),
+    (dict(telemetry="on"), dict(checks=True, telemetry=True)),
+], ids=["check_mode", "telemetry", "checks_carried", "telemetry_carried"])
+def test_checked_and_counted_modes_run(cfg_kw, init_kw):
+    """The modes and carries that used to raise: one auction tick each on
+    the CPU (the default configuration on a six-vehicle ring). A clean
+    tick records no violation and the counters count its auction; a carry
+    the configuration does not use rides along untouched; a mode without
+    its carry is refused."""
+    n = 6
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    pts = np.stack([3 * np.cos(ang), 3 * np.sin(ang), np.full(n, 2.0)], 1)
+    cpu64 = dict(device="cpu", dtype=torch.float64)
+    form = make_formation(pts, np.ones((n, n)) - np.eye(n),
+                          np.eye(n)[:, :, None, None] * np.eye(3) * 0.01,
+                          **cpu64)
+    q0 = np.random.default_rng(1).normal(size=(n, 3)) * 2.0
+    q0[:, 2] = 2.0
+    from aclswarm_torch.core.types import ControlGains, SafetyParams
+    args = (form, ControlGains(),
+            SafetyParams(bounds_min=(-50.0, -50.0, 0.0),
+                         bounds_max=(50.0, 50.0, 10.0)),
+            sim.SimConfig(**cfg_kw))
+    state = sim.init_state(q0, **cpu64, **init_kw)
+    new, m = sim.step(state, *args)
+    assert bool(m.auctioned) and sorted(new.v2f.tolist()) == list(range(n))
+    if "check_mode" in cfg_kw:
+        assert int(m.inv_code) == 0 and int(new.inv.tick) == -1
+        assert m.tel is None
+    else:
+        assert m.inv_code is None
+        assert int(m.tel.auctions) == 1 and int(new.tel.auctions) == 1
+        assert int(m.tel.assign_rounds) > 0     # the auction LAP's rounds
+    if "checks" in init_kw and "check_mode" not in cfg_kw:
+        assert new.inv is state.inv
+    if "telemetry" in init_kw and "telemetry" not in cfg_kw:
+        assert new.tel is state.tel
+    with pytest.raises(ValueError, match="checks=True|telemetry=True"):
+        sim.step(sim.init_state(q0, **cpu64), *args)
 
 
 @pytest.mark.parametrize("cfg_kw,init_kw", [

@@ -44,6 +44,8 @@ from aclswarm_tpu.core.types import SafetyParams as JSafetyParams
 from aclswarm_tpu.core.types import make_formation as jmake_formation
 from aclswarm_tpu.sim import summary as jsum
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 CPU64 = dict(device="cpu", dtype=torch.float64)
 ATOL, TICKS_AT_ATOL = 1e-9, 60
 EXACT = ("v2f", "mode", "auctioned", "assign_valid", "reassigned",

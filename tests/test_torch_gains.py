@@ -38,6 +38,8 @@ from aclswarm_tpu.harness import formgen
 from test_gains import (GOLD_FC, GOLD_NC, GOLD_SQUARE_PTS, fc_adj,
                         nine_agent_case)
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 CPU = dict(device="cpu")
 ATOL = 1e-12
 
@@ -546,17 +548,34 @@ def test_params_cross_by_field():
         reference.AdmmParams())
 
 
+# ids as they were while the list also held check_mode="on" (now
+# `test_check_mode_on_runs`): reports stay comparable
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(check_mode="on"), NotImplementedError, "invariants"),
     (dict(check_mode="sometimes"), ValueError, "check_mode"),
     (dict(max_nonedges=1), ValueError, "bucket"),
     (dict(params=tg.AdmmParams(psd_method="newton", newton_scale="x")),
      ValueError, "newton_scale"),
-])
+], ids=["kw1-ValueError-check_mode", "kw2-ValueError-bucket",
+        "kw3-ValueError-newton_scale"])
 def test_refusals(kw, exc, match):
     p, adj = nine_agent_case()
     with pytest.raises(exc, match=match):
         tg.solve_gains(p, adj, **kw, **CPU)
+
+
+def test_check_mode_on_runs():
+    """``check_mode='on'`` (which used to raise) checks the
+    `admm_residual` contract on a clean design: the gains equal the
+    unchecked ones bit for bit, with and without telemetry and a carry.
+    `tests/test_torch_invariants.py` trips it against the reference."""
+    p, adj = nine_agent_case()
+    off = tg.solve_gains(p, adj, **CPU)
+    assert torch.equal(tg.solve_gains(p, adj, check_mode="on", **CPU), off)
+    carry = tg.init_carry(9, tg.planar_of(p), dtype=torch.float64,
+                          device="cpu")
+    g, new, st = tg.solve_gains(p, adj, check_mode="on", telemetry=True,
+                                carry=carry, **CPU)
+    assert torch.equal(g, off) and st.iters > 0 and st.residual > 0
 
 
 def test_without_device_needs_the_card(monkeypatch):

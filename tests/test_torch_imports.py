@@ -10,6 +10,8 @@ import torch
 
 from aclswarm_torch import sim
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "aclswarm_tpu")
 FILES = sorted((ROOT / "aclswarm_torch").rglob("*.py")) \
@@ -26,7 +28,16 @@ def _imported(path: Path) -> set[str]:
     return names
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def _file_id(path: Path) -> str:
+    """The file's name; under the analysis and telemetry subpackages its
+    path in the package, so a shared name (`registry.py`, `__init__.py`)
+    leaves the other files' ids as they were."""
+    if path.parent.name in ("analysis", "telemetry"):
+        return f"{path.parent.name}/{path.name}"
+    return path.name
+
+
+@pytest.mark.parametrize("path", FILES, ids=_file_id)
 def test_no_reference_imports(path):
     assert not _imported(path) & set(FORBIDDEN), path
 
@@ -38,7 +49,19 @@ def test_scan_covers_the_package():
             "masking.py", "admm.py", "params.py", "trials.py",
             "supervisor.py", "formations.py", "checkpoint.py", "crash.py",
             "config.py", "summary.py", "prng.py", "schedule.py",
-            "timeline.py", "registry.py"} <= names
+            "timeline.py", "registry.py", "invariants.py", "device.py",
+            "spans.py", "locks.py", "review.py", "rosbag1.py"} <= names
+    for sub in ("analysis", "telemetry"):
+        assert ROOT / "aclswarm_torch" / sub / "__init__.py" in FILES
+
+
+def test_telemetry_package_init_stays_stdlib_only():
+    """As the reference's: importing `aclswarm_torch.telemetry` pulls in
+    neither torch nor numpy (the device counters are imported
+    explicitly)."""
+    pkg = ROOT / "aclswarm_torch" / "telemetry"
+    for name in ("__init__.py", "registry.py", "spans.py", "locks.py"):
+        assert not _imported(pkg / name) & {"torch", "numpy"}, name
 
 
 def test_init_state_without_device_needs_the_card(monkeypatch):

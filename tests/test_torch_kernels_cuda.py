@@ -33,6 +33,8 @@ from aclswarm_torch.harness import formgen
 from aclswarm_torch.ops.flood import SENTINEL
 from aclswarm_torch.sim.localization import AGE_CAP
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 pytestmark = pytest.mark.cuda
 N = 1000
 
@@ -546,3 +548,46 @@ def test_kernels_on_a_faulted_fleet(card):
     merged = ops.flood_merge(packed, comm.contiguous())
     assert torch.equal(merged, ops.flood_merge_plain(packed, comm, block=64))
     assert (merged[~alive] == SENTINEL).all()
+
+
+def test_checked_slice_on_the_card(card):
+    """The Sinkhorn + flooded slice at n=64 with ``check_mode`` and
+    ``telemetry`` on, on the card: K1, K2 and K3 launch on the checked
+    path, every code is 0, q and v2f equal the unchecked card run bit for
+    bit, and the counters equal the CPU run's."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.core.types import (ControlGains, SafetyParams,
+                                           make_formation)
+    from aclswarm_torch.harness import formgen as fg
+
+    n = 64
+    group = fg.generate_group(n, seed=3, l=40.0, w=40.0, h=3.0,
+                              min_dist=3.0, k=1)
+    pts = np.asarray(group["formations"][0]["points"])
+    adj = np.asarray(group["adjmat"], float)
+    rng = np.random.default_rng(3)
+    gains = rng.normal(size=(n, n, 3, 3)) * 0.01
+    q0 = rng.uniform(-30, 30, (n, 3))
+    q0[:, 2] = 2.0
+    sp = SafetyParams(bounds_min=(-100, -100, 0), bounds_max=(100, 100, 20))
+    runs = {}
+    for dev, on in ((card, "off"), (card, "on"), ("cpu", "on")):
+        cfg = sim.SimConfig(assignment="sinkhorn", localization="flooded",
+                            flood_phases=2, assign_every=10, check_mode=on,
+                            telemetry=on)
+        st = sim.init_state(q0, localization=True, checks=on == "on",
+                            telemetry=on == "on", device=dev)
+        form = make_formation(pts, adj, gains, device=dev)
+        ops.reset_launches()
+        final, m = sim.rollout(st, form, ControlGains(), sp, cfg, 30)
+        runs[(str(dev), on)] = (final, m, dict(ops.LAUNCHES))
+    off_final, off_m, _ = runs[(str(card), "off")]
+    on_final, on_m, launches = runs[(str(card), "on")]
+    cpu_final, _, _ = runs[("cpu", "on")]
+    assert launches == {"sinkhorn_log": 3, "round_dominant": 3,
+                        "flood_merge": 30}
+    assert not on_m.inv_code.any()
+    assert torch.equal(on_m.q, off_m.q) and torch.equal(on_m.v2f, off_m.v2f)
+    for f in ("auctions", "assign_rounds", "reassigns", "flood_stale_max"):
+        assert int(getattr(on_final.tel, f)) \
+            == int(getattr(cpu_final.tel, f)), f

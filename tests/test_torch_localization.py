@@ -11,6 +11,8 @@ import jax.numpy as jnp
 from aclswarm_torch.sim import localization as loc
 from aclswarm_tpu.sim import localization as jloc
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 _j_flood = jax.jit(jloc.flood, static_argnames=("target_block", "merge_impl",
                                                 "stripe"))
 

@@ -23,6 +23,8 @@ from aclswarm_tpu.assignment.sinkhorn import round_dominant as round_ref
 from aclswarm_tpu.ops import round_dominant_pallas, sinkhorn_log_pallas
 from aclswarm_tpu.ops.flood_pallas import SENTINEL, flood_merge_pallas
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 
 @pytest.mark.parametrize("n", [5, 64, 130])
 def test_sinkhorn_plain_matches_pallas(n):

@@ -29,6 +29,8 @@ from jax._src import prng as jprng
 
 from aclswarm_torch.core import prng
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 SHAPES = [(), (7,), (5, 3), (1000,)]
 KEYS = [(0, 0), (0, 42), (3653403231, 2735729615), (0xFFFFFFFF, 1)]
 ULP_TOL = {torch.float32: 4, torch.float64: 8}

@@ -50,6 +50,8 @@ from aclswarm_tpu.scenarios import timeline as jtl
 from aclswarm_tpu.sim import localization as jloc
 from aclswarm_tpu.sim import summary as jsum
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 CPU64 = dict(device="cpu", dtype=torch.float64)
 N, T, ASSIGN_EVERY = 6, 130, 60
 # the port-only parity runs: two auctions (ticks 0 and 60) are enough to

@@ -36,6 +36,8 @@ from test_torch_scenarios import (CPU64, EXACT, N, PORT_FIELDS, T,
                                   _assert_matches_reference, _cfg, _np,
                                   _port, _problem, _stack, _with)
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 
 @pytest.mark.slow   # as the reference marks its own
 def test_heterogeneous_scenarios_batched_matches_serial():

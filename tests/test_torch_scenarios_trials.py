@@ -29,6 +29,8 @@ from aclswarm_tpu.harness import trials as jtrials
 from test_torch_trials import (CPU64, SIMFORM, _assert_rows_equal,
                                _jax_recorder, _port_recorder, _state_leaves)
 
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
+
 
 def test_run_trials_with_scenario_matches_reference(tmp_path, monkeypatch):
     kw = dict(formation="swarm6_3d", seed=1, dynamics="doubleint",

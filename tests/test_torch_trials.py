@@ -19,6 +19,14 @@ thousands of ticks). The cases:
 4. the same with `warm_gains=True`: the carry is threaded, and the second
    dispatch takes fewer ADMM iterations, in both packages alike.
 
+Cases 1 and 3 fly with every observability field on (``check_mode``,
+``telemetry``, ``telemetry_dump``, ``record_dir`` in both packages,
+``profile_dir`` in the port's): besides the above, the counters published at each chunk
+boundary are equal (integers exact, ``admm_residual`` at rtol 1e-12), the
+dumped trial counters are equal, the recordings are equal (positions and
+|distcmd| at 1e-9, every other field exact) and each package's `review`
+of its own recording reaches the live trial's state, ticks and times.
+
 Seeds: the reference's own test seeds for the library groups
 (`tests/test_trials.py`: swarm4 seed 3, swarm6_3d seed 1); seed 1 for
 `simform8`, which completes inside the cut in both packages. Avoidance is
@@ -26,17 +34,17 @@ dense (`colavoid_neighbors=None`, the default at these sizes), which keeps
 the k-pruned avoidance's duplicate-sector coin flip (ROADMAP.md §3) off
 every path here.
 
-Port-only cases: checkpoint/resume after a scripted crash (same CSV row,
-same final `SimState` bits), a dtype mismatch refused, the codec's bytes
-against the reference's, the CLI, the fields that still raise, the
-library copy, the loader and generator against the reference's, and the
-supervisor stepped on scripted signals against the reference's.
+Port-only cases: checkpoint/resume after a scripted crash with the
+invariant and counter carries on (same CSV row, same final `SimState`
+bits), a dtype mismatch refused, the codec's bytes against the
+reference's, each observability field alone, and the scenario field.
+`test_torch_trials_library.py` holds `run_trials`, the CLI, the library,
+the loader, the generator and the supervisor against the reference's.
 
 Serial time of this file on one CPU host: ~100 s, most of it the port's
 trials (2-5 ms per tick of Python-dispatched tensor code).
 """
-import dataclasses
-import filecmp
+import json
 import os
 
 import numpy as np
@@ -49,18 +57,23 @@ import aclswarm_torch.sim as tsim_mod
 import aclswarm_tpu.sim as jsim_mod
 from aclswarm_torch import convert
 from aclswarm_torch import gains as tgains
-from aclswarm_torch.harness import formations as tformations
-from aclswarm_torch.harness import formgen as tformgen
+import aclswarm_torch.telemetry as ttel
+import aclswarm_tpu.telemetry as jtel
+from aclswarm_torch.analysis import invariants as tinv
+from aclswarm_torch.harness import review as treview
 from aclswarm_torch.harness import supervisor as tsup
 from aclswarm_torch.harness import trials as ttrials
 from aclswarm_torch.resilience import checkpoint as tckpt
 from aclswarm_torch.resilience import crash as tcrash
+from aclswarm_torch.telemetry import device as tdev
 from aclswarm_tpu import gains as jgains
-from aclswarm_tpu.harness import formations as jformations
-from aclswarm_tpu.harness import formgen as jformgen
+from aclswarm_tpu.harness import review as jreview
 from aclswarm_tpu.harness import supervisor as jsup
 from aclswarm_tpu.harness import trials as jtrials
 from aclswarm_tpu.resilience import checkpoint as jckpt
+from aclswarm_tpu.telemetry import device as jdev
+
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
 
 CPU64 = dict(device="cpu", dtype="float64")
 SIMFORM = dict(formation="simform8", seed=1, assignment="sinkhorn",
@@ -72,6 +85,8 @@ CASES = {
     "simform8_sinkhorn_flooded": SIMFORM,
     "simform8_sinkhorn_flooded_warm": dict(SIMFORM, warm_gains=True),
 }
+# the cases flown with every observability field on
+OBSERVED = ("swarm4", "simform8_sinkhorn_flooded")
 
 
 class Recorder:
@@ -130,13 +145,86 @@ def _assert_rows_equal(row_t, row_j, n):
     assert row_t[1 + n:] == row_j[1 + n:]
 
 
+def _published(monkeypatch, dev_mod) -> list:
+    """Every (trial, snapshot) one package's `ChunkPublisher` folds in."""
+    seen, publish = [], dev_mod.ChunkPublisher.publish
+
+    def _publish(self, key, tel):
+        seen.append((key, dict(tel)))
+        return publish(self, key, tel)
+
+    monkeypatch.setattr(dev_mod.ChunkPublisher, "publish", _publish)
+    return seen
+
+
+def _observed_fields(root, tag) -> dict:
+    """Every observability field; the reference's run skips the profiler
+    (its trace is no parity quantity, and its capture costs seconds)."""
+    fields = dict(check_mode="on", telemetry="on",
+                  telemetry_dump=str(root / f"{tag}.jsonl"),
+                  record_dir=str(root / f"rec_{tag}"))
+    if tag == "t":
+        fields["profile_dir"] = str(root / "prof_t")
+    return fields
+
+
+def _trial_counters(path) -> dict:
+    rows = [json.loads(line) for line in open(path)]
+    return {r["name"]: r["value"] for r in rows
+            if r["name"].startswith("trial_") and r["kind"] != "histogram"}
+
+
+def _assert_observed_equal(root, tfsm, jfsm, tpub, jpub):
+    assert [k for k, _ in tpub] == [k for k, _ in jpub] and tpub
+    for (_, a), (_, b) in zip(tpub, jpub):
+        np.testing.assert_allclose(a.pop("admm_residual"),
+                                   b.pop("admm_residual"), rtol=1e-12,
+                                   atol=0)
+        assert a == b
+    assert _trial_counters(root / "t.jsonl") \
+        == _trial_counters(root / "j.jsonl")
+    trec = np.load(root / "rec_t" / "trial_0.npz")
+    jrec = np.load(root / "rec_j" / "trial_0.npz")
+    assert sorted(trec.files) == sorted(jrec.files)
+    for k in trec.files:
+        if k in ("q", "distcmd_norm"):
+            np.testing.assert_allclose(trec[k], jrec[k], rtol=0, atol=1e-9)
+        else:
+            np.testing.assert_array_equal(trec[k], jrec[k], err_msg=k)
+    n_forms = len(tfsm.times)
+    tre = treview.review(str(root / "rec_t" / "trial_0.npz"), n_forms)
+    jre = jreview.review(str(root / "rec_j" / "trial_0.npz"), n_forms)
+    for live, replay, names in ((tfsm, tre, tsup.NAMES),
+                                (jfsm, jre, jsup.NAMES)):
+        assert names[replay.state] == names[live.state]
+        assert replay.tick_count == live.tick_count
+        assert replay.times == live.times
+    assert list(tre.times) == list(jre.times)
+    traces = list((root / "prof_t").glob("*.pt.trace.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_trial_matches_reference(case, monkeypatch):
+def test_trial_matches_reference(case, monkeypatch, tmp_path):
     kw = dict(CASES[case], verbose=False)
+    observed = case in OBSERVED
+    if observed:
+        ttel.reset_registry()
+        jtel.reset_registry()
+        tpub = _published(monkeypatch, tdev)
+        jpub = _published(monkeypatch, jdev)
     jrec = _jax_recorder(monkeypatch)
-    jfsm = jtrials.run_trial(jtrials.TrialConfig(**kw), 0)
+    jfsm = jtrials.run_trial(jtrials.TrialConfig(
+        **kw, **(_observed_fields(tmp_path, "j") if observed else {})), 0)
     trec = _port_recorder(monkeypatch)
-    tfsm = ttrials.run_trial(ttrials.TrialConfig(**kw, **CPU64), 0)
+    tfsm = ttrials.run_trial(ttrials.TrialConfig(
+        **kw, **CPU64, **(_observed_fields(tmp_path, "t") if observed
+                          else {})), 0)
+    if observed:
+        # the dump is `run_trials`' last step; a lone `run_trial` leaves it
+        ttel.get_registry().dump(tmp_path / "t.jsonl")
+        jtel.get_registry().dump(tmp_path / "j.jsonl")
+        _assert_observed_equal(tmp_path, tfsm, jfsm, tpub, jpub)
 
     assert tsup.NAMES[tfsm.state] == jsup.NAMES[jfsm.state]
     assert trec.transitions == jrec.transitions
@@ -153,29 +241,11 @@ def test_trial_matches_reference(case, monkeypatch):
         assert trec.admm_iters[1] < trec.admm_iters[0]
 
 
-def test_run_trials_matches_reference(tmp_path, monkeypatch):
-    """`run_trials` over two seeds of `simform6` (the reference's CLI
-    test group): the same stats and the same CSV."""
-    kw = dict(formation="simform6", trials=2, seed=2, verbose=False)
-    jstats = jtrials.run_trials(jtrials.TrialConfig(
-        **kw, out=str(tmp_path / "j.csv")))
-    tstats = ttrials.run_trials(ttrials.TrialConfig(
-        **kw, out=str(tmp_path / "t.csv"), **CPU64))
-    assert tstats.keys() == jstats.keys()
-    for k, v in jstats.items():
-        np.testing.assert_allclose(tstats[k], v, rtol=0, atol=1e-9,
-                                   err_msg=k)
-    jrows = np.loadtxt(tmp_path / "j.csv", delimiter=",", ndmin=2)
-    trows = np.loadtxt(tmp_path / "t.csv", delimiter=",", ndmin=2)
-    assert trows.shape == jrows.shape
-    for rt, rj in zip(trows, jrows):
-        _assert_rows_equal(rt.tolist(), rj.tolist(), 6)
-
-
 # ------------------------------------------------- checkpoint and resume
 
 RESUME = dict(SIMFORM, warm_gains=True, trial_timeout=12.5,
-              checkpoint_every=4, verbose=False, **CPU64)
+              checkpoint_every=4, check_mode="on", telemetry="on",
+              verbose=False, **CPU64)
 
 
 def _state_leaves(state) -> dict:
@@ -184,9 +254,10 @@ def _state_leaves(state) -> dict:
 
 def test_resume_after_crash_is_bit_identical(tmp_path, monkeypatch):
     """A scripted crash at chunk 24 (after the first dispatch, so the
-    gains cache and the warm carry ride the checkpoint), then a resume
-    from that checkpoint: the same CSV row and the same final `SimState`
-    bits as the uninterrupted trial."""
+    gains cache, the warm carry and the dispatch's solve in the counter
+    carry ride the checkpoint), then a resume from that checkpoint, both
+    the invariant and the counter carries on: the same CSV row and the
+    same final `SimState` bits as the uninterrupted trial."""
     rec = _port_recorder(monkeypatch)
     whole = ttrials.run_trial(ttrials.TrialConfig(**RESUME), 0)
     whole_state = rec.final_state
@@ -208,6 +279,7 @@ def test_resume_after_crash_is_bit_identical(tmp_path, monkeypatch):
     assert resumed.state == whole.state == tsup.TrialState.TERMINATE
     got, want = _state_leaves(rec.final_state), _state_leaves(whole_state)
     assert got.keys() == want.keys()
+    assert int(want["tel.admm_iters"]) > 0 and int(want["inv.code"]) == 0
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     # a finished trial leaves no interim checkpoint behind
@@ -280,65 +352,55 @@ def test_carry_payload_roundtrips_codec(tmp_path):
     assert torch.equal(g_live, g_back)
 
 
-# --------------------------------------------------------------- the CLI
+# ----------------------------------------- the observability fields alone
 
-def test_cli_runs_analyzes_and_saves_config(tmp_path, capsys):
-    out = tmp_path / "cli.csv"
-    rc = ttrials.main(["-f", "simform6", "-m", "1", "-s", "2", "-o",
-                       str(out), "--set", "verbose=false", "--set",
-                       "device=cpu", "--set", "dtype=float64"])
-    assert rc == 0 and out.exists()
-    rc = ttrials.main(["--analyze", str(out), "-n", "6", "-m", "1"])
-    assert rc == 0
-    assert "Completion: 100.00 % (1/1)" in capsys.readouterr().out
-
-    saved = tmp_path / "cfg.yaml"
-    assert ttrials.main(["-f", "simform6", "--set", "gain_scale=0.15",
-                         "--set", "device=cpu", "--save-config",
-                         str(saved)]) == 0
-    cfg = ttrials.TrialConfig(formation="simform6", gain_scale=0.15,
-                              device="cpu")
-    from aclswarm_torch.core import config as configlib
-    assert configlib.load_layers(ttrials.TrialConfig, file=saved) == cfg
-    again = configlib.load_layers(ttrials.TrialConfig, file=saved,
-                                  overrides=["dtype=float64", "seed=4"])
-    assert again == dataclasses.replace(cfg, dtype="float64", seed=4)
-    with pytest.raises(KeyError, match="unknown TrialConfig key"):
-        ttrials.main(["--set", "nonsense=1"])
-
-
-def test_config_layers_match_the_reference(tmp_path):
-    """Both packages resolve the same yaml + overrides to the same field
-    values (the port's config has two fields more)."""
-    from aclswarm_torch.core import config as tconfig
-    from aclswarm_tpu.core import config as jconfig
-    path = tmp_path / "c.yaml"
-    path.write_text("formation: simform10\nsim_fc: true\nkd: 0.01\n")
-    over = ["trials=3", "gain_scale=none", "warm_gains=yes", "tau=0.2"]
-    tc = tconfig.load_layers(ttrials.TrialConfig, file=path, overrides=over)
-    jc = jconfig.load_layers(jtrials.TrialConfig, file=path, overrides=over)
-    td = dataclasses.asdict(tc)
-    assert {k: td.pop(k) for k in ("device", "dtype")} \
-        == {"device": None, "dtype": "float32"}
-    assert td == dataclasses.asdict(jc)
-
-
-# ------------------------------------------------ fields that still raise
-
-@pytest.mark.parametrize("field,value,item", [
-    ("check_mode", "on", "item 12"),
-    ("telemetry", "on", "item 12"),
-    ("telemetry_dump", "m.jsonl", "item 12"),
-    ("profile_dir", "prof", "item 12"),
-    ("record_dir", "bags", "item 12"),
+@pytest.mark.parametrize("field,value", [
+    ("check_mode", "on"),
+    ("telemetry", "on"),
+    ("telemetry_dump", "m.jsonl"),
+    ("profile_dir", "prof"),
+    ("record_dir", "bags"),
 ])
-def test_unported_fields_raise(field, value, item):
-    cfg = ttrials.TrialConfig(formation="swarm4", verbose=False,
-                              **{field: value}, **CPU64)
-    for run in (lambda: ttrials.run_trial(cfg, 0),
-                lambda: ttrials.run_trials(cfg)):
-        with pytest.raises(NotImplementedError, match=item):
-            run()
+def test_observability_field_runs(field, value, tmp_path, monkeypatch):
+    """Each field that used to raise, alone, on a `swarm4` trial cut at
+    0.5 s (two chunks), and its effect: the codes checked at every chunk,
+    the counters published, the registry dumped, the chunk profiled, the
+    trial recorded and replayed to the same outcome."""
+    if value != "on":
+        value = str(tmp_path / value)
+    checked = []
+    raise_on = tinv.raise_on_violation
+    monkeypatch.setattr(tinv, "raise_on_violation",
+                        lambda codes, **kw: (checked.append(codes),
+                                             raise_on(codes, **kw)))
+    ttel.reset_registry()
+    cfg = ttrials.TrialConfig(formation="swarm4", seed=3, trial_timeout=0.5,
+                              verbose=False, **{field: value}, **CPU64)
+    if field == "telemetry_dump":      # `run_trials` writes it at the end
+        ttrials.run_trials(cfg)
+    else:
+        fsm = ttrials.run_trial(cfg, 0)
+    chunks = 2                       # the watchdog fires in the second
+    if field == "check_mode":
+        assert len(checked) == chunks
+        assert all(c.shape == (50,) and not c.any() for c in checked)
+    else:
+        assert not checked
+    snap = ttel.get_registry().snapshot()["metrics"]
+    assert ("trial_flood_stale_max_ticks" in snap) == (field == "telemetry")
+    if field == "telemetry_dump":
+        assert "spans_dropped_total" in open(value).read()
+    if field == "profile_dir":
+        (trace,) = os.listdir(value)
+        assert trace.endswith(".pt.trace.json")
+    if field == "record_dir":
+        assert os.listdir(value) == ["trial_0.npz"]
+        rec = treview.Recording(os.path.join(value, "trial_0.npz"))
+        assert rec.n_ticks == chunks * 50 and rec.n == 4
+        assert float(rec.meta["trial_timeout"]) == 0.5
+        replay = treview.review(os.path.join(value, "trial_0.npz"))
+        assert (replay.state, replay.tick_count) \
+            == (fsm.state, fsm.tick_count)
 
 
 def test_scenario_field_is_ported():
@@ -347,156 +409,8 @@ def test_scenario_field_is_ported():
     `tests/test_torch_scenarios_trials.py` flies scenarios."""
     cfg = ttrials.TrialConfig(formation="swarm4", verbose=False,
                               scenario="wind", **CPU64)
-    ttrials._check_ported(cfg)
+    ttrials._check_dtype(cfg)
     with pytest.raises(ValueError, match="unknown scenario family"):
         ttrials.run_trial(cfg, 0)
 
 
-# ------------------------------------------------ library, loader, formgen
-
-def test_library_copy_equals_the_reference():
-    assert tformations.DEFAULT_LIBRARY != jformations.DEFAULT_LIBRARY
-    assert filecmp.cmp(tformations.DEFAULT_LIBRARY,
-                       jformations.DEFAULT_LIBRARY, shallow=False)
-
-
-def _groups():
-    import yaml
-    with open(jformations.DEFAULT_LIBRARY) as f:
-        lib = yaml.safe_load(f)
-    return [k for k, v in lib.items() if isinstance(v, dict)]
-
-
-def _assert_specs_equal(tspecs, jspecs):
-    assert [s.name for s in tspecs] == [s.name for s in jspecs]
-    for t, j in zip(tspecs, jspecs):
-        for f in ("points", "adjmat"):
-            np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
-            assert getattr(t, f).dtype == getattr(j, f).dtype
-        assert (t.gains is None) == (j.gains is None)
-        if t.gains is not None:
-            np.testing.assert_array_equal(t.gains, j.gains)
-
-
-@pytest.mark.parametrize("group", _groups())
-def test_load_group_matches_reference(group):
-    _assert_specs_equal(tformations.load_group(None, group),
-                        jformations.load_group(None, group))
-
-
-def test_group_adjmat_override_and_fc_quirk(tmp_path):
-    """A group-level ``adjmat`` overrides every formation's own, and the
-    string ``fc`` forces full connectivity, in both packages."""
-    lib = tmp_path / "lib.yaml"
-    lib.write_text(
-        "g:\n  agents: 3\n  adjmat: fc\n  formations:\n"
-        "    - name: A\n      scale: 2.0\n"
-        "      points: [[0,0,0],[3,0,0],[0,3,0]]\n"
-        "      adjmat: [[0,1,0],[1,0,1],[0,1,0]]\n"
-        "h:\n  agents: 3\n  formations:\n"
-        "    - name: B\n      points: [[0,0,0],[3,0,0],[0,3,1]]\n"
-        "      adjmat: [[0,1,0],[1,0,1],[0,1,0]]\n")
-    for group in ("g", "h"):
-        _assert_specs_equal(tformations.load_group(lib, group),
-                            jformations.load_group(lib, group))
-    (spec,) = tformations.load_group(lib, "g")
-    np.testing.assert_array_equal(spec.adjmat, np.ones((3, 3)) - np.eye(3))
-    np.testing.assert_array_equal(spec.points[1], [6.0, 0.0, 0.0])
-    with pytest.raises(KeyError, match="not in"):
-        tformations.load_group(lib, "missing")
-    assert tformations.load_formation("B", lib, "h").name == "B"
-    form = spec.to_device(device="cpu", dtype=torch.float64)
-    assert form.gains.shape == (3, 3, 3, 3) and not form.gains.any()
-
-
-def test_feasibility_matches_reference():
-    stacked = dict(name="stack", points=np.array([[0.0, 0, 0], [0, 0, 2],
-                                                  [3, 0, 0]]),
-                   adjmat=np.ones((3, 3)) - np.eye(3), gains=None)
-    for mod in (tformations, jformations):
-        with pytest.raises(ValueError, match="permanent mutual collision"):
-            mod.check_feasible(mod.FormationSpec(**stacked), 1.2)
-    for spec in tformations.load_group(None, "swarm15"):
-        assert tformations.min_planar_separation(spec.points) \
-            == jformations.min_planar_separation(spec.points)
-
-
-@pytest.mark.parametrize("n,seed,fc", [(8, 1, False), (10, 7, False),
-                                       (12, 3, True), (4, 2, False)])
-def test_generate_specs_matches_reference(n, seed, fc):
-    kw = dict(l=15.0, w=15.0, h=2.0, min_dist=2.0, k=3, fc=fc)
-    tspecs = tformgen.generate_specs(n, seed=seed, **kw)
-    _assert_specs_equal(tspecs, jformgen.generate_specs(n, seed=seed, **kw))
-    for s in tspecs:
-        assert tformgen.rigidity_rank_2d(s.points, s.adjmat) \
-            == jformgen.rigidity_rank_2d(s.points, s.adjmat)
-        assert tformgen.is_rigid_2d(s.points, s.adjmat) \
-            == jformgen.is_rigid_2d(s.points, s.adjmat)
-
-
-# ------------------------------------------------------- the supervisor
-
-def _script(kind: str, n: int, dt: float):
-    """Per-tick (q, distcmd, ca, event, in_formation) signals of a scripted
-    trial: ground, takeoff, hover, then the formation phase that ``kind``
-    names; noise from a seed puts values on both sides of each threshold."""
-    rng = np.random.default_rng(len(kind))
-    ground, air = np.zeros((n, 3)), np.array([[0.0, 0.0, 1.0]] * n)
-    quiet, loud = np.zeros(n), np.full(n, 5.0)
-    no_ca, all_ca = np.zeros(n, bool), np.ones(n, bool)
-
-    def ticks(secs, q=air, dn=quiet, ca=no_ca, ev=False, inf=None):
-        return [(q, dn, ca, ev, inf)] * int(round(secs / dt))
-
-    def noisy(secs, p_event=0.1):
-        return [(air + rng.normal(0, 0.5, (n, 3)),
-                 np.abs(rng.normal(0.95, 0.1, n)), rng.random(n) < 0.9,
-                 bool(rng.random() < p_event), None)
-                for _ in range(int(round(secs / dt)))]
-
-    s = ticks(0.6, q=ground)
-    s += [(air + rng.normal(0, 0.02, (n, 3)), quiet, no_ca, False, None)
-          for _ in range(4)]
-    s += ticks(5.1) + ticks(0.1, ev=True)                 # -> FLYING
-    if kind == "happy":
-        s += noisy(3.0) + ticks(8.0) + noisy(3.0) + ticks(10.0)
-    elif kind == "timeout":
-        s[-1] = s[-2]
-        s += ticks(25.0)
-    elif kind == "gridlock":
-        s += ticks(2.2, dn=loud, ca=all_ca) + noisy(2.0, 0.0)
-        s += ticks(2.0, dn=loud, ca=all_ca) + ticks(10.0)
-    elif kind == "in_formation":
-        s += ticks(0.5, dn=loud, inf=False) + ticks(0.3, dn=loud, inf=True)
-        s += ticks(7.0)
-    elif kind == "watchdog":
-        s += ticks(45.0, dn=loud)
-    return s
-
-
-@pytest.mark.parametrize("kind", ["happy", "timeout", "gridlock",
-                                  "in_formation", "watchdog"])
-def test_trial_fsm_matches_reference(kind):
-    """Both FSMs stepped on the same signals agree on every action and
-    every field each tick; the port's FSM snapshotted mid-way and restored
-    into a fresh one continues identically."""
-    n, dt, n_form = 3, 0.1, 2 if kind == "happy" else 1
-    ctor = dict(n_vehicles=n, n_formations=n_form, takeoff_alt=1.0, dt=dt,
-                trial_timeout=40.0)
-    t_fsm, j_fsm = tsup.TrialFSM(**ctor), jsup.TrialFSM(**ctor)
-    script = _script(kind, n, dt)
-    half = len(script) // 2
-    for i, (q, dn, ca, ev, inf) in enumerate(script):
-        if i == half:
-            snap = tckpt.loads(tckpt.dumps(t_fsm.snapshot(), {}))[0]
-            t_fsm = tsup.TrialFSM(**ctor).restore(snap)
-        assert t_fsm.step(q, dn, ca, ev, inf) == j_fsm.step(q, dn, ca, ev,
-                                                            inf), i
-        for f in ("state", "timer_ticks", "tick_count", "curr_formation_idx",
-                  "received_assignment", "is_logging", "times",
-                  "time_avoidance", "assignments"):
-            assert getattr(t_fsm, f) == getattr(j_fsm, f), (i, f)
-        np.testing.assert_array_equal(t_fsm.dist, j_fsm.dist)
-    assert t_fsm.done and j_fsm.done
-    assert t_fsm.csv_row(5) == j_fsm.csv_row(5)
-    assert tsup.NAMES == jsup.NAMES

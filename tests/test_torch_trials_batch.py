@@ -21,6 +21,7 @@ preconditions raise.
 """
 import numpy as np
 import pytest
+import torch
 
 from aclswarm_torch import convert
 from aclswarm_torch.harness import supervisor as tsup
@@ -30,6 +31,8 @@ from aclswarm_torch.resilience import crash as tcrash
 from aclswarm_torch.sim import summary as tsum
 from aclswarm_tpu.harness import supervisor as jsup
 from aclswarm_tpu.harness import trials as jtrials
+
+torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
 
 CPU64 = dict(device="cpu", dtype="float64")
 WAVE = dict(formation="simform8", seed=1, assignment="sinkhorn",
@@ -67,11 +70,30 @@ class _Rollouts:
         monkeypatch.setattr(tsum, "batched_rollout_summary", _run)
 
 
+def _published(monkeypatch, dev_mod) -> list:
+    seen, publish = [], dev_mod.ChunkPublisher.publish
+    monkeypatch.setattr(dev_mod.ChunkPublisher, "publish",
+                        lambda self, key, tel: (seen.append((key, tel)),
+                                                publish(self, key, tel)))
+    return seen
+
+
 @pytest.mark.parametrize("trials", [[0, 1], [2, 3]],
                          ids=["same_chunk", "compacted"])
 def test_wave_matches_reference(trials, monkeypatch):
+    """The compacted wave flies with ``check_mode`` and ``telemetry`` on
+    in both drivers: besides the outcomes and rows, every live trial's
+    counters published at every chunk boundary, under its own index, are
+    the reference's (integers exactly, ``admm_residual`` at rtol
+    1e-12)."""
+    from aclswarm_torch.telemetry import device as tdev
+    from aclswarm_tpu.telemetry import device as jdev
+
     rec = _Rollouts(monkeypatch)
     cfg = dict(WAVE, batch=2, trials=4)
+    if trials == [2, 3]:
+        cfg.update(check_mode="on", telemetry="on")
+    tpub, jpub = _published(monkeypatch, tdev), _published(monkeypatch, jdev)
     port = ttrials.run_trial_batch(ttrials.TrialConfig(**cfg, **CPU64),
                                    trials)
     ref = jtrials.run_trial_batch(jtrials.TrialConfig(**cfg), trials)
@@ -79,6 +101,15 @@ def test_wave_matches_reference(trials, monkeypatch):
         assert _outcome(a, tsup.NAMES) == _outcome(b, jsup.NAMES)
         assert a.completed and b.completed
         _assert_rows_equal(a.csv_row(trials[t]), b.csv_row(trials[t]))
+    assert [k for k, _ in tpub] == [k for k, _ in jpub]
+    assert bool(tpub) == (trials == [2, 3])
+    for (_, a), (_, b) in zip(tpub, jpub):
+        a, b = dict(a), dict(b)
+        np.testing.assert_allclose(a.pop("admm_residual"),
+                                   b.pop("admm_residual"), rtol=1e-12)
+        assert a == b
+    if tpub:
+        assert tpub[-1][1]["auctions"] > 0 and tpub[-1][1]["admm_iters"] > 0
     if trials == [2, 3]:
         # trial 2 finishes at tick 3322, trial 3 in the next chunk
         assert rec.sizes[0] == 2 and rec.sizes[-1] == 1
@@ -158,15 +189,28 @@ def test_cli_runs_batched_waves(tmp_path, capsys):
     assert np.loadtxt(out, delimiter=",", ndmin=2).shape[0] == 3
 
 
-def test_batch_is_ported_and_the_rest_still_raises():
-    """``batch`` > 1 no longer raises; the unported fields still name their
-    item for a batched configuration too."""
-    ttrials._check_ported(ttrials.TrialConfig(batch=2, **CPU64))
-    cfg = ttrials.TrialConfig(formation="simform8", batch=2, trials=2,
-                              chunk_ticks=120, check_mode="on",
-                              verbose=False, **CPU64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttrials.run_trials(cfg)
+def test_batched_checks_and_counters_run(monkeypatch):
+    """``check_mode='on'`` and ``telemetry='on'`` (which used to raise for
+    a batch too) run through `run_trials` with batch=2: a clean wave
+    raises nothing and publishes each trial's counters under its own
+    index, as many auctions as the wave's chunks held."""
+    from aclswarm_torch.telemetry import device as tdev
+
+    ttrials._check_dtype(ttrials.TrialConfig(batch=2, **CPU64))
+    seen = []
+    publish = tdev.ChunkPublisher.publish
+    monkeypatch.setattr(tdev.ChunkPublisher, "publish",
+                        lambda self, key, tel: (seen.append((key, tel)),
+                                                publish(self, key, tel)))
+    cfg = ttrials.TrialConfig(**dict(WAVE, trial_timeout=3.0), batch=2,
+                              trials=2, check_mode="on", telemetry="on",
+                              **CPU64)
+    ttrials.run_trials(cfg)
+    assert [k for k, _ in seen] == [0, 1] * (len(seen) // 2)
+    assert len(seen) >= 4
+    for key, tel in seen[-2:]:
+        assert tel["flood_stale_max"] > 0 and tel["ca_ticks"] >= 0
+        assert tel["auctions"] == tel["reassigns"] == 0    # pre-dispatch
 
 
 @pytest.mark.parametrize("bad,match", [
