@@ -20,6 +20,9 @@ import torch
 
 from aclswarm_torch.core.types import SafetyParams
 
+# the largest (rows, 2m, m) sector test built at once (`_agents`)
+COVER_ELEMS = 1 << 28
+
 
 def _smallest_k_indices(d: torch.Tensor, k: int) -> torch.Tensor:
     """Per-row indices of the k smallest entries, lowest index first on
@@ -79,9 +82,20 @@ def _agents(qij_xy: torch.Tensor, active: torch.Tensor, vel: torch.Tensor,
     edges = torch.cat([theta - alpha, theta + alpha], dim=1)         # (n, 2m)
     edge_active = torch.cat([active, active], dim=1)
     own = torch.eye(m, dtype=torch.bool, device=theta.device).repeat(2, 1)
-    covered = (~own[None] & active[:, None, :]
-               & (torch.abs(wrap_to_pi(edges[:, :, None] - theta[:, None, :]))
-                  < alpha[:, None, :])).any(dim=2)
+    # the (n, 2m, m) sector test is the one cubic tensor: at n=m=1000 it
+    # is 2e9 elements a trial, which XLA fuses into its `any` and eager
+    # torch would materialize (8 GB a float temporary), so it runs in row
+    # blocks of at most COVER_ELEMS elements — exact, as a row's `any`
+    # reads no other row
+    def covered_rows(r: slice) -> torch.Tensor:
+        return (~own[None] & active[r, None, :]
+                & (torch.abs(wrap_to_pi(edges[r, :, None]
+                                        - theta[r, None, :]))
+                   < alpha[r, None, :])).any(dim=2)
+
+    rows, block = theta.shape[0], max(1, COVER_ELEMS // (2 * m * m))
+    covered = (covered_rows(slice(None)) if rows <= block else torch.cat(
+        [covered_rows(slice(i, i + block)) for i in range(0, rows, block)]))
     free = edge_active & ~covered
 
     # nearest free edge on the LINEARIZED axis (the reference's

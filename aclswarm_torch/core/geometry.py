@@ -6,8 +6,10 @@ import (`aclswarm_torch/__init__.py`), the counterpart of the reference's
 ``precision="highest"``.
 
 `cdist`, `cdist_fast`, `arun` and `align` also take a batch of trials, the
-clouds ``(B, n, 3)``: one rigid alignment per trial, with a batched SVD and
-determinant. Their matrix products are taken trial by trial (`_mm`).
+clouds ``(B, n, 3)``. Their matrix products and the alignment's sums over
+the n rows are taken trial by trial (`_mm`, `_moments`), and a 2-D
+rotation comes in closed form, element by element (`_rotation2`): a batch
+equals its serial runs bit for bit on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -52,6 +54,51 @@ def cdist_fast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                   - 2.0 * _mm(a, b.mT), min=0.0))
 
 
+def _moments(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None,
+             d: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One trial's weighted means of ``p`` and ``q`` over the first ``d``
+    coordinates and their (d, d) cross-covariance."""
+    if w is None:
+        w = torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
+    w = w.to(p.dtype)
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)[..., None]
+    ps, qs = p[..., :d], q[..., :d]
+    mu_p = torch.sum(w[..., None] * ps, dim=-2) / wsum
+    mu_q = torch.sum(w[..., None] * qs, dim=-2) / wsum
+    pc, qc = ps - mu_p[..., None, :], qs - mu_q[..., None, :]
+    sigma = _mm((qc * w[..., None]).mT, pc) / wsum[..., None]
+    return sigma, mu_p, mu_q
+
+
+def _rotation2(sigma: torch.Tensor) -> torch.Tensor:
+    """The proper rotation R maximizing tr(R^T sigma) for ([...,] 2, 2)
+    cross-covariances: the angle atan2(s10 - s01, s00 + s11), its cosine
+    and sine taken as quotients by the norm. It is the rotation an SVD
+    with the determinant correction returns, computed element by element:
+    no batch rounds otherwise than its members, and nothing is read back
+    from the card. A zero covariance gives I."""
+    a = sigma[..., 0, 0] + sigma[..., 1, 1]
+    b = sigma[..., 1, 0] - sigma[..., 0, 1]
+    r = torch.sqrt(a * a + b * b)
+    some = r > 0
+    r = torch.where(some, r, torch.ones_like(r))
+    c = torch.where(some, a / r, torch.ones_like(r))
+    s = torch.where(some, b / r, torch.zeros_like(r))
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def _rotation_svd(sigma: torch.Tensor) -> torch.Tensor:
+    """The proper rotation maximizing tr(R^T sigma) for ([...,] d, d)
+    cross-covariances, from their SVD with the determinant sign
+    correction (reflection guard), as Eigen::umeyama."""
+    U, _, Vt = torch.linalg.svd(sigma)
+    sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    S = torch.cat([torch.ones_like(U[..., 0, 1:]), sign[..., None]], dim=-1)
+    return _mm(U * S[..., None, :], Vt)
+
+
 def arun(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None,
          d: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted rigid alignment: (R, t) minimizing sum w ||q - (R p + t)||^2
@@ -60,25 +107,18 @@ def arun(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None,
     leading axis of ``p``, ``q`` (and ``w``) is a batch of trials."""
     dtype, dev = p.dtype, p.device
     lead = p.shape[:-2]
-    if w is None:
-        w = torch.ones(p.shape[:-1], dtype=dtype, device=dev)
-    w = w.to(dtype)
-    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)[..., None]
+    if p.ndim > 2:
+        # the sums over the n rows trial by trial: on the card a batch's
+        # reduction rounds otherwise than a lone trial's, and the
+        # auction's near-ties turn those last bits into another
+        # assignment; a batch must equal its serial runs
+        sigma, mu_p, mu_q = (torch.stack(x) for x in zip(*(
+            _moments(p[b], q[b], None if w is None else w[b], d)
+            for b in range(p.shape[0]))))
+    else:
+        sigma, mu_p, mu_q = _moments(p, q, w, d)
 
-    ps, qs = p[..., :d], q[..., :d]
-    mu_p = torch.sum(w[..., None] * ps, dim=-2) / wsum
-    mu_q = torch.sum(w[..., None] * qs, dim=-2) / wsum
-    pc, qc = ps - mu_p[..., None, :], qs - mu_q[..., None, :]
-    # (d, d) cross-covariance
-    sigma = _mm((qc * w[..., None]).mT, pc) / wsum[..., None]
-
-    U, _, Vt = torch.linalg.svd(sigma)
-    # determinant sign correction (reflection guard), as Eigen::umeyama
-    sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
-    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
-    S = torch.cat([torch.ones(lead + (d - 1,), dtype=dtype, device=dev),
-                   sign[..., None]], dim=-1)
-    Rd = _mm(U * S[..., None, :], Vt)
+    Rd = _rotation2(sigma) if d == 2 else _rotation_svd(sigma)
     td = mu_q - _mm(Rd, mu_p)
 
     R = torch.eye(3, dtype=dtype, device=dev).expand(lead + (3, 3)).clone()
@@ -112,7 +152,9 @@ def align_formation_local(q_veh: torch.Tensor, p: torch.Tensor,
     The reference maps `align` over agents; here the n weighted `arun`
     problems (d=2) are one batch: weighted centroids, an (n, 2, 2) stack of
     cross-covariances, one batched SVD, the determinant sign fix. The z
-    axis passes through (R=I, t=0 there), as `arun` embeds it."""
+    axis passes through (R=I, t=0 there), as `arun` embeds it. A batch of
+    trials calls it trial by trial (CBAA runs so in `sim.engine`), so a
+    batch equals its serial runs here too."""
     from aclswarm_torch.core import perm as permutil
 
     n = adjmat.shape[0]

@@ -18,8 +18,11 @@ one CSV row each in the reference schema.
 
 The trial runs on ``TrialConfig.device`` (None = the card, which must be
 present) in ``TrialConfig.dtype``. The host reads the chunk's signals in
-two device-to-host copies per chunk, never per tick. A chunk that fails
-on the device raises: there is no CPU re-run.
+two device-to-host copies per chunk, never per tick. Each chunk's
+rollout runs under a `ChunkExecutor`: a transient device failure is
+retried, and one that outlives its retries is recorded and raised — there
+is no CPU re-run. The executor's record rides each FSM as ``execution``
+and the summary as ``resilience``, keyed as the reference keys them.
 
 With ``batch`` > 1 the trials fly in waves of ``batch`` (`run_trial_batch`):
 one batched rollout per chunk advances every trial of the wave with one
@@ -67,6 +70,7 @@ import argparse
 import contextlib
 import csv
 import dataclasses
+import logging
 import re
 import sys
 from pathlib import Path
@@ -92,6 +96,7 @@ from aclswarm_torch.harness.supervisor import (BUFFER_SECONDS, NAMES,
                                                SummaryTrialFSM, TrialFSM)
 from aclswarm_torch.resilience import checkpoint as ckptlib
 from aclswarm_torch.resilience.crash import maybe_crash
+from aclswarm_torch.resilience.executor import ChunkExecutor
 from aclswarm_torch.sim import summary as sumlib
 from aclswarm_torch.sim.vehicle import CMD_GO, ExternalInputs
 from aclswarm_torch.telemetry import device as devtel
@@ -493,6 +498,8 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
     if tel_on:
         publisher = devtel.ChunkPublisher(get_registry(), prefix="trial")
 
+    # transient device failures retry per chunk (`resilience.executor`)
+    execu = ChunkExecutor(log=logging.getLogger("aclswarm_torch.trials"))
     ckpt_dir = cfg.checkpoint_dir
     if ckpt_dir is not None and cfg.record_dir is not None:
         raise ValueError("checkpoint_dir with record_dir is unsupported: "
@@ -531,9 +538,10 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
         if fsm.done:
             break
         with _profiler(cfg, chunk_idx, dev):
-            state, metrics = sim.rollout(state, cur_formation, cgains,
-                                         sparams, cur_cfg, chunk,
-                                         inputs[pending_go])
+            state, metrics = execu.run(
+                lambda: sim.rollout(state, cur_formation, cgains, sparams,
+                                    cur_cfg, chunk, inputs[pending_go]),
+                stage=f"trial{trial_idx}:chunk{chunk_idx}")
         pending_go = False
         host = _host_signals(metrics, record=cfg.record_dir is not None)
         if cfg.record_dir is not None:
@@ -622,8 +630,7 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
         # finished: interim checkpoints are dead weight; the done-marker
         # (`run_trials`) carries the result
         ckptlib.clear_checkpoints(ckpt_dir, stem)
-    # the reference's executor records CPU re-runs here; the port has none
-    fsm.execution = {}
+    fsm.execution = execu.row_fields()
 
     if cfg.record_dir is not None and recorded:
         from aclswarm_torch.harness import review
@@ -758,6 +765,8 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
 
     if tel_on:
         publisher = devtel.ChunkPublisher(get_registry(), prefix="trial")
+    # transient device failures retry per chunk (`resilience.executor`)
+    execu = ChunkExecutor(log=logging.getLogger("aclswarm_torch.trials"))
     ckpt_dir = cfg.checkpoint_dir
     stem = f"wave{trial_indices[0]:05d}_b{B}"
     if ckpt_dir is not None:
@@ -829,10 +838,12 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
                                dtype)
         pending_go = [False] * bc
         with _profiler(cfg, chunk_idx, dev):
-            bstate, scarry, summ = sumlib.batched_rollout_summary(
-                bstate, scarry, bform, cgains, sparams, fly_cfg, chunk,
-                inputs, 0, window=window,
-                takeoff_alt=float(sparams.takeoff_alt))
+            bstate, scarry, summ = execu.run(
+                lambda: sumlib.batched_rollout_summary(
+                    bstate, scarry, bform, cgains, sparams, fly_cfg, chunk,
+                    inputs, 0, window=window,
+                    takeoff_alt=float(sparams.takeoff_alt)),
+                stage=f"wave{trial_indices[0]}:chunk{chunk_idx}")
         # the chunk's host reads: two copies for the whole wave
         host = sumlib.to_host(summ)
         if checks:
@@ -922,7 +933,7 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
     if ckpt_dir is not None and all(f.done for f in all_fsms):
         ckptlib.clear_checkpoints(ckpt_dir, stem)
     for f in all_fsms:
-        f.execution = {}
+        f.execution = execu.row_fields()
     return all_fsms
 
 
@@ -1048,10 +1059,20 @@ def run_trials(cfg: TrialConfig) -> dict:
     n = None
     ckpt = cfg.checkpoint_dir is not None
     appended_ids = _csv_trial_ids(cfg.out) if ckpt else set()
+    exec_meta: dict = {}
+
+    def _note_execution(fsm):
+        ex = getattr(fsm, "execution", None)
+        if ex:
+            exec_meta["retries"] = exec_meta.get("retries", 0) \
+                + ex.get("retries", 0)
+            exec_meta.setdefault("execution_failures", []).extend(
+                ex.get("execution_failures", []))
 
     def _log_and_append(t, fsm, replayed=False):
         nonlocal n
         n = fsm.n
+        _note_execution(fsm)
         if cfg.verbose:
             times = ", ".join(f"{x:.2f}" for x in fsm.times)
             replay = " [resumed]" if replayed else ""
@@ -1089,6 +1110,8 @@ def run_trials(cfg: TrialConfig) -> dict:
         stats = analyze(np.asarray(rows, dtype=np.float64), n, cfg.trials)
     else:
         stats = analyze(np.empty((0, 0)), n or 0, cfg.trials)
+    if exec_meta:
+        stats["resilience"] = exec_meta
     if cfg.telemetry_dump:
         get_registry().dump(cfg.telemetry_dump)
         if cfg.verbose:

@@ -11,7 +11,8 @@ machines without ``nvcc``.
 
 Every pointer and the stream cross the boundary as ``ctypes.c_void_p``;
 each entry point returns ``cudaGetLastError()`` and `launch` raises on a
-non-zero code. `LAUNCHES` counts the kernel launches each wrapper made.
+non-zero code. `LAUNCHES` counts the kernel launches each wrapper made
+(`count_launch`, under a lock: serve workers launch from several threads).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -55,12 +57,21 @@ _ENTRY = {
 
 # kernel launches per wrapper since the last `reset_launches`
 LAUNCHES = {"sinkhorn_log": 0, "round_dominant": 0, "flood_merge": 0}
+_LAUNCHES_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str, k: int = 1) -> None:
+    """Add ``k`` launches to wrapper ``name``'s count (thread-safe)."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += k
 
 
 def nvcc() -> str:
@@ -128,16 +139,19 @@ def build() -> dict:
 
 
 def _lib() -> ctypes.CDLL:
+    """The loaded library, built on first use; one thread builds and
+    loads it while any other waits."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build()["library"])
-        for symbol, argtypes in _ENTRY.items():
-            fn = getattr(lib, symbol)
-            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build()["library"])
+            for symbol, argtypes in _ENTRY.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
 
 
 def check(t, what: str, dtype, shape: tuple) -> None:

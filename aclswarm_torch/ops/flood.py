@@ -57,5 +57,5 @@ def flood_merge(packed: torch.Tensor, comm: torch.Tensor,
     # bool is one byte {0, 1}: the kernel reads the mask as uint8
     _build.launch("flood_merge_launch", packed.device, packed.data_ptr(),
                   comm.data_ptr(), out.data_ptr(), batch, n, w)
-    _build.LAUNCHES["flood_merge"] += 1
+    _build.count_launch("flood_merge")
     return out

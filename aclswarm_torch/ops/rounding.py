@@ -110,5 +110,5 @@ def round_dominant(plan_log: torch.Tensor, max_rounds: int | None = None
     if plan_log.device.type == "cpu":
         return round_dominant_plain(plan_log, max_rounds)
     out, rounds, _, launched = launch(plan_log, max_rounds)
-    _build.LAUNCHES["round_dominant"] += launched
+    _build.count_launch("round_dominant", launched)
     return out, rounds

@@ -61,5 +61,5 @@ def sinkhorn_log(cost: torch.Tensor, tau: float = 0.03,
                       cost.data_ptr(), out.data_ptr(), f.data_ptr(),
                       g.data_ptr(), batch, n, float(tau), int(n_iters),
                       -math.log(n), ctypes.byref(launched))
-    _build.LAUNCHES["sinkhorn_log"] += launched.value
+    _build.count_launch("sinkhorn_log", launched.value)
     return out

@@ -27,6 +27,13 @@ validates an expected subset and raises `CheckpointMismatch`; truncated or
 corrupted files raise `CheckpointCorrupt`. Writes are atomic (tmp +
 `os.replace`) with bounded retention.
 
+Two more shapes of the same frames serve the serving layer
+(`aclswarm_torch.serve`): `append_frame` / `read_frame_log` keep an
+append-only log of frames whose torn trailing record (a crash mid-append)
+reads as a clean end, and `tree_arrays` / `restore_tree` carry any
+container of tensors (a serve request's `SimState` row) as a flat list of
+arrays, restored onto a template's device and dtypes.
+
 `SimState` crosses as `convert.sim_state_to_numpy`'s nested dict and
 comes back through `restore_state`, every leaf checked against the
 resuming run's own state (`check_leaves`; ``batch_flex`` lets a batched
@@ -37,6 +44,7 @@ ticks, bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -202,6 +210,65 @@ def loads(buf: bytes, path="<bytes>") -> tuple[Any, dict]:
 
 
 # ---------------------------------------------------------------------------
+# append-only frame log (torn-tail tolerant)
+
+_LOG_LEN = struct.Struct("<I")      # per-record length prefix
+
+
+def append_frame(path, payload, manifest: dict, fh=None) -> None:
+    """Append one length-prefixed frame to an append-only log. Not atomic:
+    a crash mid-append leaves a torn trailing record, which
+    `read_frame_log` reads as a clean end. ``fh`` (an append-mode binary
+    file object) spares a high-rate writer the open and close per record;
+    the record is flushed to the OS before returning either way."""
+    frame = dumps(payload, manifest)
+    record = _LOG_LEN.pack(len(frame)) + frame
+    if fh is not None:
+        fh.write(record)
+        fh.flush()
+        return
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "ab") as f:
+        f.write(record)
+
+
+def read_frame_log(path) -> tuple[list, bool]:
+    """Every frame of an append-only log: ``(frames, torn_tail)``, frames
+    a list of ``(payload, manifest)``. A truncated or CRC-failing trailing
+    record is dropped and reported as ``torn_tail=True``; a corrupt record
+    with more data after it cannot be a torn append and raises
+    `CheckpointCorrupt`."""
+    path = Path(path)
+    try:
+        buf = path.read_bytes()
+    except OSError as e:
+        raise CheckpointCorrupt(path, f"unreadable ({e})") from e
+    frames: list = []
+    off, n = 0, len(buf)
+    while off < n:
+        if n - off < _LOG_LEN.size:
+            return frames, True          # torn length prefix at the tail
+        (flen,) = _LOG_LEN.unpack_from(buf, off)
+        start = off + _LOG_LEN.size
+        end = start + flen
+        if end > n:
+            return frames, True          # truncated trailing frame
+        try:
+            frames.append(loads(buf[start:end], f"{path}@{off}"))
+        except CheckpointError as e:
+            if end == n:
+                return frames, True      # CRC-failing trailing frame
+            raise CheckpointCorrupt(
+                path, f"corrupt non-trailing record at offset {off} "
+                      f"({getattr(e, 'detail', e)}) with "
+                      f"{n - end} byte(s) after it — not a torn append"
+            ) from e
+        off = end
+    return frames, False
+
+
+# ---------------------------------------------------------------------------
 # manifest helpers
 
 def code_version() -> str:
@@ -301,6 +368,108 @@ def restore_state(template, arrays: dict, *, batch_flex: bool = False,
                  batch_flex=batch_flex, path=path)
     return convert.sim_state_from_numpy(arrays, device=template.swarm.q.device,
                                         dtype=template.swarm.q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# container leaves <-> arrays (template-validated restore)
+
+def _flatten(tree, out: list) -> list:
+    """Leaves of a container tree in a fixed order: dataclass fields and
+    tuple items in order, dict values by key; tensors, numpy arrays and
+    host scalars are leaves, None drops out."""
+    if tree is None:
+        return out
+    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic, bool, int,
+                         float)):
+        out.append(tree)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            _flatten(getattr(tree, f.name), out)
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            _flatten(x, out)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], out)
+    else:
+        raise TypeError(f"unsupported container leaf {type(tree)!r}")
+    return out
+
+
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (bool, int)):
+        return np.asarray(x, np.bool_ if isinstance(x, bool) else np.int64)
+    return np.asarray(x)
+
+
+def tree_arrays(tree) -> list:
+    """Host copies of a container's leaves (tensors, numpy arrays and host
+    scalars such as a state's tick), in `restore_tree`'s order."""
+    return [_host_array(x) for x in _flatten(tree, [])]
+
+
+def _rebuild(template, it):
+    from aclswarm_torch.scenarios import timeline as scenlib
+
+    if template is None:
+        return None
+    if isinstance(template, torch.Tensor):
+        return torch.from_numpy(np.array(next(it))).to(template.device)
+    if isinstance(template, bool):
+        return bool(next(it))
+    if isinstance(template, int):
+        return int(next(it))
+    if isinstance(template, float):
+        return float(next(it))
+    if isinstance(template, (np.ndarray, np.generic)):
+        return np.array(next(it))
+    if dataclasses.is_dataclass(template):
+        if isinstance(template, scenlib.Scenario):
+            names = [f.name for f in dataclasses.fields(template)]
+            leaves = [next(it) for _ in names]
+            out = scenlib.Scenario(**{
+                k: torch.from_numpy(np.array(a)).to(
+                    getattr(template, k).device)
+                for k, a in zip(names, leaves)})
+            return scenlib.attach_host(out, dict(zip(names, leaves)))
+        return type(template)(**{
+            f.name: _rebuild(getattr(template, f.name), it)
+            for f in dataclasses.fields(template)})
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(_rebuild(x, it) for x in template))
+    if isinstance(template, (tuple, list)):
+        return type(template)(_rebuild(x, it) for x in template)
+    if isinstance(template, dict):
+        return {k: _rebuild(template[k], it) for k in sorted(template)}
+    raise TypeError(f"unsupported container leaf {type(template)!r}")
+
+
+def restore_tree(template, arrays: list, *, batch_flex: bool = False,
+                 path="<arrays>", what: str = "tree"):
+    """``template``'s container rebuilt from `tree_arrays`'s list, every
+    tensor on the template's device, every leaf checked against the
+    template's dtype and shape (``batch_flex`` relaxes axis 0 only). A
+    leaf that no longer lines up means the arrays predate a structural
+    change: `CheckpointMismatch`. Restored values equal the saved ones bit
+    for bit."""
+    want = tree_arrays(template)
+    if len(arrays) != len(want):
+        raise CheckpointMismatch(
+            path, [(f"{what}.n_leaves", len(want), len(arrays))])
+    bad = []
+    for i, (t, a) in enumerate(zip(want, arrays)):
+        a = np.asarray(a)
+        if t.dtype != a.dtype:
+            bad.append((f"{what}[{i}].dtype", str(t.dtype), str(a.dtype)))
+        elif t.shape != a.shape and not (
+                batch_flex and t.ndim == a.ndim >= 1
+                and t.shape[1:] == a.shape[1:]):
+            bad.append((f"{what}[{i}].shape", t.shape, a.shape))
+    if bad:
+        raise CheckpointMismatch(path, bad)
+    return _rebuild(template, iter(arrays))
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ it does nothing, armed it kills the run exactly once. It exists to prove
 resume: kill a run at a chosen chunk, resume from the checkpoint, and
 compare with an uninterrupted run.
 
-Arming: in-process with `arm(CrashPlan(...))`, or across a process
+Arming: in-process with `arm(CrashPlan(...))` (`arm_many` for several), or across a process
 boundary with the ``ACLSWARM_CRASH`` environment variable
 (``site:boundary[:kind]``, comma-separated for several plans, e.g.
 ``trial:3:kill`` for a trial run from the command line). Each plan is
@@ -67,9 +67,15 @@ _plan_lock = threading.Lock()
 
 def arm(plan: Optional[CrashPlan]) -> None:
     """Install (or with None, clear) the in-process crash plan."""
+    arm_many([] if plan is None else [plan])
+
+
+def arm_many(plans: List[CrashPlan]) -> None:
+    """Install several one-shot plans at once (an empty list clears
+    them); each is consumed independently."""
     global _armed
     with _plan_lock:
-        _armed = [] if plan is None else [plan]
+        _armed = list(plans)
 
 
 def _consume(site: str, boundary: int) -> Optional[CrashPlan]:

@@ -194,6 +194,13 @@ def host_view(scen: Scenario) -> dict:
     return host
 
 
+def attach_host(scen: Scenario, leaves: dict) -> Scenario:
+    """Give ``scen`` the host copy of its onsets from ``leaves`` (host
+    arrays of its own fields, by name), with no device read."""
+    scen._host = _host_leaves(lambda k: np.asarray(leaves[k]))
+    return scen
+
+
 def stack_host(scens: list, out: Scenario) -> Scenario:
     """Give the stacked ``out`` the stacked host copies of ``scens``."""
     views = [host_view(s) for s in scens]

@@ -9,16 +9,23 @@ drivers use).
 - device chunk counters (`telemetry.device`, imported explicitly — it
   pulls in torch): the `ChunkTelemetry` carry of the rollout and the
   `ChunkPublisher` that folds its chunk-boundary snapshots into the
-  registry.
+  registry;
+- the serving layer's trace ids and lifecycle-event stream
+  (`telemetry.lifecycle`, a copy of the reference's).
 
 This package __init__ stays stdlib-only, as the reference's does. The
-reference's serving-side tiers (lifecycle, postmortem, time series, SLOs,
-watch) are not ported.
+reference's postmortem, time-series, SLO and watch tiers are not ported
+yet.
 """
+from aclswarm_torch.telemetry.lifecycle import (LifecycleLog, TraceContext,
+                                                make_event, mint_trace_id)
 from aclswarm_torch.telemetry.registry import (Counter, Gauge, Histogram,
                                                MetricsRegistry, get_registry,
                                                reset_registry)
-from aclswarm_torch.telemetry.spans import FlightRecorder, Span
+from aclswarm_torch.telemetry.spans import (FlightRecorder, Span,
+                                            install_crash_dump)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "get_registry", "reset_registry", "FlightRecorder", "Span"]
+           "get_registry", "reset_registry", "FlightRecorder", "Span",
+           "install_crash_dump", "LifecycleLog", "TraceContext",
+           "make_event", "mint_trace_id"]

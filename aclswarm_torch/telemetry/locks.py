@@ -1,25 +1,32 @@
 """Order-checked locks: the part of `aclswarm_tpu/utils/locks.py` that the
-metrics registry uses.
+metrics registry and the serving tier use.
 
 Every lock belongs to a family with a rank, and the protocol is "acquire
-in strictly increasing rank order". The registry's table lock ranks
-below its per-metric leaf locks, so a metric is never locked while a
-thread holds another metric's lock. The check runs only when armed
-(``ACLSWARM_LOCK_DEBUG=1`` at import, or `arm()`); a violation raises
-`LockOrderViolation`. The reference's hold/wait histograms and its
-cross-thread nesting graph serve its serving tier and are not copied.
+in strictly increasing rank order": the service lock (20) may nest the
+worker pool's (40) and any telemetry lock, never the other way round; the
+registry's table lock ranks below its per-metric leaf locks, so a metric
+is never locked while a thread holds another metric's lock. The check
+runs only when armed (``ACLSWARM_LOCK_DEBUG=1`` at import, or `arm()`); a
+violation raises `LockOrderViolation`. A lock built with ``registry=``
+feeds ``lock_wait_s{name=<family>}`` (time blocked acquiring) and
+``lock_hold_s{name=<family>}`` (time held) into that `MetricsRegistry`.
+The reference's cross-thread nesting graph (cycle detection between
+unranked families) is not copied: every family the port locks is ranked.
 """
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Optional
 
 __all__ = ["LockOrderViolation", "OrderedLock", "DEFAULT_RANKS", "arm",
            "disarm", "debug_armed", "held_families"]
 
-# the reference's ranks of the telemetry families
+# the reference's ranks of the families the port locks
 DEFAULT_RANKS: dict[str, int] = {
+    "serve.service": 20,        # the service lock (jobs, stats, staging)
+    "serve.pool": 40,           # worker-pool lifecycle lock
     "telemetry.registry": 80,   # metric get-or-create table
     "telemetry.spans": 85,      # flight-recorder ring
     "telemetry.metric": 90,     # leaf per-metric locks (innermost)
@@ -74,12 +81,24 @@ class LockOrderViolation(RuntimeError):
 
 
 class OrderedLock:
-    """Drop-in `threading.Lock` with the rank check. Non-reentrant."""
+    """Drop-in `threading.Lock` with the rank check and, with
+    ``registry=``, hold and wait histograms. Non-reentrant. The registry's
+    own metric locks take no registry (a lock observing itself into a
+    histogram it guards would recurse)."""
 
-    def __init__(self, family: str, *, rank: Optional[int] = None):
+    def __init__(self, family: str, *, rank: Optional[int] = None,
+                 registry=None):
         self.family = family
         self.rank = rank if rank is not None else DEFAULT_RANKS.get(family)
         self._inner = threading.Lock()
+        self._wait_hist = self._hold_hist = None
+        if registry is not None:
+            labels = {"name": family}
+            self._wait_hist = registry.histogram("lock_wait_s",
+                                                 labels=labels)
+            self._hold_hist = registry.histogram("lock_hold_s",
+                                                 labels=labels)
+        self._t_acquired = 0.0
 
     def _check(self) -> None:
         stack = _held_stack()
@@ -102,12 +121,22 @@ class OrderedLock:
         armed = _armed
         if armed:
             self._check()
-        ok = self._inner.acquire(blocking, timeout)
-        if ok and armed:
-            _held_stack().append(self)
+        if self._wait_hist is not None:
+            t0 = time.perf_counter()
+            ok = self._inner.acquire(blocking, timeout)
+            if ok:
+                self._wait_hist.observe(time.perf_counter() - t0)
+        else:
+            ok = self._inner.acquire(blocking, timeout)
+        if ok:
+            self._t_acquired = time.perf_counter()
+            if armed:
+                _held_stack().append(self)
         return ok
 
     def release(self) -> None:
+        if self._hold_hist is not None:
+            self._hold_hist.observe(time.perf_counter() - self._t_acquired)
         stack = getattr(_tls, "stack", None)
         if stack:
             for i in range(len(stack) - 1, -1, -1):

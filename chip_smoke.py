@@ -148,7 +148,29 @@ and prints no result line:
 23. churn — the reference's churn/lag curve (n=24, CBAA under
              `goal_drift`, 2400 ticks, assign_eps 0 and 0.05) read from the
              `reassigns` and `auctions` counters;
-24. the `kernels` line, then the result line. Each kernel row carries the
+24. serve  — a journaled one-worker `SwarmService` (`max_batch=4`, staged
+             and pipelined, float32) serves eight n=1000 Sinkhorn
+             rollouts of two tenants (`simform1000`'s points, 120 ticks
+             in chunks of 20, two faulted), one n=1000 `assign` and one
+             `simform1000` `gains` design: all complete; the rollouts
+             equal a `staging=False` service's bit for bit; every K1
+             and K2 call of the served run (the 4-row rollout rounds,
+             the faulted rows' masked costs among them, and the assign)
+             against its plain version; each rollout bit-identical to
+             the same request served alone (digests, q, final `v2f`);
+             requests per second, ms per round, each round stage's
+             share, launches, peak memory;
+25. serve_preempt — one slot, a one-chunk quantum: two contending
+             rollouts preempted through the codec every chunk, equal to
+             their uncontended runs (`serve`'s lone serves) bit for bit;
+26. serve_failover — two workers, the rollout bucket's owner killed at
+             its round 2: one migration, bit-identical to the uncontended
+             run;
+27. serve_recovery — `python -m aclswarm_torch.serve.smoke --n 1000`:
+             the serving process SIGKILLed at round 3, its journal
+             recovered by a second process, zero losses, a bit-identical
+             digest;
+28. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -232,9 +254,9 @@ TRIAL_ROW = dict(
 # auctions after it
 TRIAL_TIMEOUT_CUT = 14.0
 # device-to-host copies a trial chunk may make: the FSM's signals
-# (`trials._host_signals`), and per auction tick the global alignment's
-# (`geometry.align` makes two on the card: a (2, 2) SVD, two determinants)
-CHUNK_READS, AUCTION_READS = 2, 2
+# (`trials._host_signals`); an auction tick adds none (`geometry.align`
+# takes its rotation in closed form on the card)
+CHUNK_READS = 2
 # a wave of batched trials: the simform1000_flooded row's five trials
 BATCH = 5
 # K1's residency waves for a batch of n=1000 solves on a 132-SM H100:
@@ -1875,10 +1897,8 @@ def _check_trial(cfg, profile_chunks=(6, 12)) -> dict:
         "peak_memory_bytes": peak, "finite": finite,
         "v2f_valid": bool(permutil.is_valid(final.v2f))}
     emit(info)
-    # two copies per chunk (`trials._host_signals`), plus the alignment's
-    # per auction tick
+    # two copies per chunk (`trials._host_signals`)
     reads_ok = [w["host_reads"] <= CHUNK_READS
-                + AUCTION_READS * chunks[k]["auctions"]
                 for k, w in probe.windows.items() if k != "dispatch"]
     ok = (states[:4] == ["TAKING_OFF", "HOVERING", "WAITING_ON_ASSIGNMENT",
                          "FLYING"]
@@ -2362,8 +2382,8 @@ def phase_trial_batch(seed: int, serial: dict | None,
         "trial0_equals_serial_phase": paths[0] == serial_path,
         "serial_phase_chunk_ticks": TRIAL_ROW["chunk_ticks"]}
     emit(info)
-    reads_ok = [w["host_reads"] <= CHUNK_READS + AUCTION_READS
-                * chunks[k]["auctions"] for k, w in probe.windows.items()]
+    reads_ok = [w["host_reads"] <= CHUNK_READS
+                for w in probe.windows.values()]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ok = (all(f.done for f in fsms) and len(fsms) == BATCH
           and v["no_positive"] and v["kernel_ok"]
@@ -2919,39 +2939,41 @@ def _patched(mod, name, fn):
         setattr(mod, name, original)
 
 
-def _path_kernel_inputs(run) -> dict:
-    """``run()`` with the first inputs the path hands each kernel's wrapper
-    kept (cloned), with the launches that call made."""
+def _path_kernel_calls(run, names=("sinkhorn_log", "round_dominant",
+                                    "flood_merge")) -> dict:
+    """``run()`` with the inputs of every call the path makes to each
+    kernel wrapper of ``names`` kept (cloned on the card), each beside the
+    launches that call made."""
     from aclswarm_torch import ops
 
     seen = {}
     with contextlib.ExitStack() as stack:
-        for name in ("sinkhorn_log", "round_dominant", "flood_merge"):
+        for name in names:
             def keep(*args, _name=name, _wrapped=getattr(ops, name)):
                 before = ops.LAUNCHES[_name]
                 out = _wrapped(*args)
-                seen.setdefault(_name, (
+                seen.setdefault(_name, []).append((
                     [a.clone() if isinstance(a, torch.Tensor) else a
                      for a in args], ops.LAUNCHES[_name] - before))
                 return out
             stack.enter_context(_patched(ops, name, keep))
         run()
-    missing = {"sinkhorn_log", "round_dominant", "flood_merge"} - set(seen)
+    missing = set(names) - set(seen)
     if missing:
         raise AssertionError(f"the path launched no {sorted(missing)}")
     return seen
 
 
 def _hold_path_kernels(label, run, rtol=0.0) -> dict:
-    """K1, K2 and K3 against their plain versions on the inputs the path
-    hands them in ``run()`` (`_check_sinkhorn`, `_check_rounding`,
+    """K1, K2 and K3 against their plain versions on the first inputs the
+    path hands them in ``run()`` (`_check_sinkhorn`, `_check_rounding`,
     `_check_flood`: K1 within 5e-5 + ``rtol`` |plain| with masses within
     1e-4 of the plain version's, K2 and K3 bit for bit), each launched as
     often as the path launched it."""
-    seen = _path_kernel_inputs(run)
-    (cost, tau, iters), k1_launches = seen["sinkhorn_log"]
-    (plan, *rounds_cap), _ = seen["round_dominant"]
-    (packed, comm, *_), _ = seen["flood_merge"]
+    seen = _path_kernel_calls(run)
+    (cost, tau, iters), k1_launches = seen["sinkhorn_log"][0]
+    (plan, *rounds_cap), _ = seen["round_dominant"][0]
+    (packed, comm, *_), _ = seen["flood_merge"][0]
     return {"k1": _check_sinkhorn(f"{label}: K1", cost, tau, iters,
                                   k1_launches, rtol),
             "k2": _check_rounding(f"{label}: K2", plan, *rounds_cap),
@@ -3259,7 +3281,7 @@ def phase_trial_checked(seed: int, trial_info: dict | None) -> dict:
     recording reaches the live FSM's state and times; the dumped trial
     counters equal the carry's; the trace file is not empty; the
     device-to-host reads Python makes per chunk stay within
-    `CHUNK_READS` + `AUCTION_READS` per auction tick (counted by wrapping
+    `CHUNK_READS` (counted by wrapping
     the reading methods, not from the profiler, which drops records);
     simulated seconds per wall second, on against off."""
     import json
@@ -3334,8 +3356,7 @@ def phase_trial_checked(seed: int, trial_info: dict | None) -> dict:
     dispatched = {c["chunk"] for c in chunks if c["chunk"] and
                   c["tick0"] == 0}
     reads_per_chunk = [b - a for a, b in zip(per_chunk, per_chunk[1:])]
-    bounded = [r <= CHUNK_READS + AUCTION_READS * c["auctions"]
-               for c, r in zip(chunks, reads_per_chunk)
+    bounded = [r <= CHUNK_READS for c, r in zip(chunks, reads_per_chunk)
                if c["chunk"] + 1 not in dispatched]
     ticks = sum(c["ticks"] for c in chunks)
     # the probe's own profiler (the dispatch window) is not the trial's
@@ -3545,6 +3566,359 @@ def phase_churn(seed: int) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# the serving layer (`aclswarm_torch.serve`) at n=1000
+
+SERVE_ROLLOUT = dict(n=N, ticks=120, chunk_ticks=20, assign_every=20,
+                     assignment="sinkhorn")
+# the rollouts fly `simform1000`'s points (shipped in the request): the
+# serve default formation is a radius-3 circle whose 1000 points lie 1.9
+# cm apart, a generator of near-tied assignments (PERF.md §6)
+SERVE_FAULTS = dict(dropout_frac=0.1, drop_tick=30, rejoin_tick=90)
+SERVE_FAULTED = (1, 6)         # which of the eight rollouts carry faults
+SERVE_STAGES = ("pack", "stack", "dispatch", "device_sync", "unpack",
+                "resolve")
+
+
+@functools.lru_cache(maxsize=None)
+def _simform_spec(seed: int):
+    """`simform1000`'s first formation, read through the trial driver's
+    formation loader in the suite's boxes."""
+    from aclswarm_torch.harness import trials
+
+    cfg = trials.TrialConfig(formation=f"simform{N}", device="cuda",
+                             sim_l=SUITE["sim_l"], sim_w=SUITE["sim_w"],
+                             sim_h=SUITE["sim_h"],
+                             sim_min_dist=SUITE["sim_min_dist"])
+    return trials._formations_for_trial(cfg, seed)[0]
+
+
+def _serve_rollouts(seed: int) -> list:
+    """The eight n=1000 Sinkhorn rollout requests of two tenants, flying
+    `simform1000`'s points: (kind, params, tenant, request_id)."""
+    points = _simform_spec(seed).points
+    out = []
+    for i in range(8):
+        p = dict(SERVE_ROLLOUT, seed=seed + i, points=points)
+        if i in SERVE_FAULTED:
+            p["faults"] = dict(SERVE_FAULTS)
+        out.append(("rollout", p, "ab"[i % 2], f"roll{i}"))
+    return out
+
+
+def _serve_singles(seed: int) -> list:
+    """The n=1000 `assign` (Sinkhorn: K1, K2) and the `gains` design of
+    `simform1000`'s points and graph, from a third tenant."""
+    spec = _simform_spec(seed)
+    return [("assign", {"n": N, "seed": seed, "solver": "sinkhorn"}, "c",
+             "assign"),
+            ("gains", {"n": N, "points": spec.points,
+                       "adjmat": spec.adjmat}, "c", "gains")]
+
+
+def _serve(reqs, **cfg):
+    """``reqs`` through one `SwarmService` on the card: every result by
+    id, the wall seconds from the first submit to each result, and the
+    service (closed)."""
+    from aclswarm_torch.serve import ServiceConfig, SwarmService
+
+    svc = SwarmService(ServiceConfig(**cfg), start=False)
+    t0 = time.perf_counter()
+    tickets = {rid: svc.submit(k, p, tenant=t, request_id=rid)
+               for k, p, t, rid in reqs}
+    svc.start()
+    results, walls = {}, {}
+    for rid, tk in tickets.items():
+        results[rid] = tk.result(timeout=600)
+        walls[rid] = time.perf_counter() - t0
+    svc.close()
+    bad = {rid: (r.status, r.error) for rid, r in results.items()
+           if not r.ok}
+    if bad:
+        raise AssertionError(f"serve: requests did not complete: {bad}")
+    return results, walls, svc
+
+
+def _round_stats(svc) -> dict:
+    """Rollout rounds of one service from its spans: count, ms per round,
+    mean batch, each stage's share of the round time."""
+    rounds = [sp for sp in svc.telemetry.recorder.spans()
+              if sp.name == "serve.round"
+              and sp.attrs.get("bucket") == "rollout"]
+    total = sum(sp.dur_s for sp in rounds)
+    stages = {st: svc.telemetry.histogram(
+        f"span_serve.round.{st}_s").to_row()["sum"] for st in SERVE_STAGES}
+    return {"rollout_rounds": len(rounds),
+            "ms_per_round": total / max(1, len(rounds)) * 1e3,
+            "mean_batch": sum(sp.attrs["batch"] for sp in rounds)
+            / max(1, len(rounds)),
+            "stage_share": {k: v / total for k, v in stages.items()},
+            "rounds_all": svc.stats["rounds"]}
+
+
+def _same_digests(label, got: dict, want: dict) -> None:
+    for rid, w in want.items():
+        g = got[rid]
+        if not (g.value["digest"] == w.value["digest"]
+                and g.value["chunk_digests"] == w.value["chunk_digests"]
+                and np.array_equal(g.value["q"], w.value["q"])):
+            raise AssertionError(
+                f"{label}: {rid} digest {g.value['digest']:#x} != "
+                f"{w.value['digest']:#x}")
+
+
+def _final_rows(calls: list, q: np.ndarray):
+    """The v2f of the batch row whose final positions are ``q`` bit for
+    bit, among the recorded `batched_rollout` outputs of one run."""
+    for q_dev, v2f_dev in calls:
+        qs = q_dev.cpu().numpy()
+        for b in range(len(qs)):
+            if np.array_equal(qs[b], q):
+                return v2f_dev[b].cpu().numpy()
+    raise AssertionError("serve: no recorded batch row ends at the "
+                         "result's positions")
+
+
+@contextlib.contextmanager
+def _recorded_rollouts(calls: list):
+    """`sim.batched_rollout` with each call's final positions and `v2f`
+    appended to ``calls`` (the service's results carry no `v2f`)."""
+    from aclswarm_torch import sim
+
+    real = sim.batched_rollout
+
+    def recording(*a, **kw):
+        out, m = real(*a, **kw)
+        calls.append((out.swarm.q, out.v2f))
+        return out, m
+
+    with _patched(sim, "batched_rollout", recording):
+        yield
+
+
+def _serve_alone(rolls: list) -> tuple[dict, dict, dict]:
+    """Each rollout request served alone (`max_batch=1`, its own service):
+    the results, each one's recorded batch outputs and seconds."""
+    results, calls, seconds = {}, {}, {}
+    for r in rolls:
+        calls[r[3]] = []
+        t0 = time.perf_counter()
+        with _recorded_rollouts(calls[r[3]]):
+            results.update(_serve([r], max_batch=1)[0])
+        seconds[r[3]] = time.perf_counter() - t0
+    return results, calls, seconds
+
+
+def _served_kernels(held: dict) -> dict:
+    """Every K1 and K2 call of a served run against its plain version:
+    K1 within 5e-5 + 2^-22 |plain| on a batch (the faulted rows' masked
+    costs, as `faults`) and 5e-5 on a lone plan, masses within 1e-4; K2
+    bit for bit. A summary per kernel."""
+    k1 = [_check_sinkhorn(f"serve: K1 call {i}", cost, tau, iters, launches,
+                          0.0 if cost.ndim == 2 else 2.0**-22)
+          for i, ((cost, tau, iters), launches)
+          in enumerate(held["sinkhorn_log"])]
+    k2 = [_check_rounding(f"serve: K2 call {i}", plan, *cap)
+          for i, ((plan, *cap), _) in enumerate(held["round_dominant"])]
+    return {"k1": {"calls": len(k1),
+                   "shapes": sorted({tuple(c["shape"]) for c in k1}),
+                   "launches": sum(c["launches"] for c in k1),
+                   "max_abs_err": max(c["max_abs_err"] for c in k1),
+                   "mass_err_vs_plain": max(c["mass_err_vs_plain"]
+                                            for c in k1)},
+            "k2": {"calls": len(k2),
+                   "shapes": sorted({tuple(c["shape"]) for c in k2}),
+                   "bit_identical": all(c["bit_identical"] for c in k2),
+                   "max_rounds": max(int(np.max(c["rounds"]))
+                                     for c in k2)}}
+
+
+def phase_serve(seed: int) -> dict:
+    """A journaled single-worker `SwarmService` (max_batch=4, staged and
+    pipelined, float32) serves eight n=1000 Sinkhorn rollouts of two
+    tenants (seeds S..S+7, two faulted), one n=1000 `assign` and one
+    `simform1000` `gains` design. Held: all complete; the rollouts equal
+    a ``staging=False`` service's bit for bit; every K1 and K2 call of the
+    served run, on the inputs the path handed it (the 4-row rollout
+    rounds, the faulted rows' masked costs among them, and the assign),
+    against its plain version (`_served_kernels`); each rollout equal to
+    the same request served alone (max_batch=1) bit for bit: digest, every
+    chunk's digest, q and the final `v2f`. Reported: requests per second,
+    ms per rollout round, rounds, mean batch, each round stage's share,
+    launches, peak memory. Returns the lone serves too, which
+    `serve_preempt` and `serve_failover` take as their uncontended runs."""
+    import tempfile
+
+    from aclswarm_torch import ops
+
+    rolls = _serve_rollouts(seed)
+    reqs = rolls + _serve_singles(seed)
+    calls, served = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, _recorded_rollouts(calls):
+        ops.reset_launches()
+        held = _path_kernel_calls(
+            lambda: served.update(zip(("res", "walls", "svc"), _serve(
+                reqs, max_batch=4, journal_dir=tmp))),
+            ("sinkhorn_log", "round_dominant"))
+        launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, walls, svc = served["res"], served["walls"], served["svc"]
+    wall = max(walls.values())
+    roll_wall = max(walls[r[3]] for r in rolls)
+    info = {"phase": "serve", "n": N, "dtype": "float32", "max_batch": 4,
+            "requests": len(reqs), "launches": launches,
+            "wall_s": wall, "requests_per_s": len(reqs) / wall,
+            "rollout_wall_s": roll_wall,
+            "rollouts_per_s": len(rolls) / roll_wall,
+            "single_s": {rid: walls[rid] for rid in ("assign", "gains")},
+            "peak_gb": peak_gb,
+            # the kernel inputs kept for the checks below live on the card
+            # through the run and count in its peak
+            "held_inputs_gb": sum(a.nbytes for kept in held.values()
+                                  for args, _ in kept for a in args
+                                  if isinstance(a, torch.Tensor)) / 1e9,
+            **_round_stats(svc), "preempted": svc.stats["preempted"],
+            "chunks": svc.stats["chunks"]}
+    emit(info)
+    if not (launches["sinkhorn_log"] > 0 and launches["round_dominant"] > 0
+            and launches["flood_merge"] == 0):
+        raise AssertionError(f"serve launches: {launches}")
+
+    kernels = _served_kernels(held)
+    del held
+    if not any(len(s) == 3 and s[0] == 4 for s in kernels["k1"]["shapes"]):
+        raise AssertionError(f"serve: no 4-row K1 call held: {kernels}")
+
+    # the pack-at-round-time path, same rollouts, same batches
+    legacy, lwalls, lsvc = _serve(rolls, max_batch=4, staging=False)
+    _same_digests("serve: staged vs staging=False",
+                  res, {r[3]: legacy[r[3]] for r in rolls})
+    legacy_info = {"rollout_wall_s": max(lwalls.values()),
+                   **_round_stats(lsvc)}
+
+    # each rollout against the same request served alone, bit for bit
+    alone, alone_calls, alone_s = _serve_alone(rolls)
+    _same_digests("serve: batched vs alone", res, alone)
+    solo = {rid: bool(np.array_equal(
+        _final_rows(calls, res[rid].value["q"]),
+        _final_rows(alone_calls[rid], alone[rid].value["q"])))
+        for _, _, _, rid in rolls}
+    out = {"phase": "serve_checks", "legacy": legacy_info,
+           "kernels": kernels, "alone_v2f_equal": solo,
+           "alone_s": alone_s,
+           "gains_shape": list(res["gains"].value["gains"].shape)}
+    emit(out)
+    if not all(solo.values()):
+        raise AssertionError(f"serve: final v2f differ from alone: {solo}")
+    g = res["gains"].value["gains"]
+    if g.shape != (3 * N, 3 * N) or not np.isfinite(g).all():
+        raise AssertionError(f"serve: gains {g.shape}")
+    info.update(out)
+    return {**info, "alone": alone}
+
+
+def _alone(seed: int, serve: dict | None, ids) -> tuple[dict, float]:
+    """The uncontended runs of the rollouts ``ids`` (by index) and their
+    seconds: `serve`'s lone serves, or served alone here."""
+    rolls = [r for i, r in enumerate(_serve_rollouts(seed)) if i in ids]
+    if serve is None:
+        want, _, seconds = _serve_alone(rolls)
+    else:
+        want = {r[3]: serve["alone"][r[3]] for r in rolls}
+        seconds = {r[3]: serve["alone_s"][r[3]] for r in rolls}
+    return want, sum(seconds.values())
+
+
+def phase_serve_preempt(seed: int, serve: dict | None) -> dict:
+    """One batch slot, a one-chunk quantum: two contending n=1000 Sinkhorn
+    rollouts (one faulted) are preempted through the checkpoint codec at
+    every chunk and finish bit-identical to each served uncontended
+    (max_batch=1, alone: `serve`'s lone serves)."""
+    from aclswarm_torch import ops
+
+    rolls = [r for i, r in enumerate(_serve_rollouts(seed)) if i in (0, 1)]
+    want, alone_s = _alone(seed, serve, (0, 1))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got, _, svc = _serve(rolls, max_batch=1, quantum_chunks=1)
+    contended_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    info = {"phase": "serve_preempt", "launches": launches,
+            "preemptions": {rid: r.preemptions for rid, r in got.items()},
+            "uncontended_s": alone_s, "contended_s": contended_s,
+            **_round_stats(svc)}
+    emit(info)
+    if not all(r.preemptions > 0 for r in got.values()):
+        raise AssertionError(f"serve_preempt: no preemption: {info}")
+    _same_digests("serve_preempt", got, want)
+    return info
+
+
+def phase_serve_failover(seed: int, serve: dict | None) -> dict:
+    """Two workers; a worker-targeted `CrashPlan` kills the owner of the
+    rollout bucket at its round 2 (one chunk checkpointed, the next in
+    flight). Zero losses; the rollout migrates through the checkpoint
+    codec and ends bit-identical to its uncontended run (`serve`'s lone
+    serve)."""
+    import tempfile
+
+    from aclswarm_torch import ops
+    from aclswarm_torch.resilience import crash
+    from aclswarm_torch.serve import bucket_of, place_slot
+
+    roll = _serve_rollouts(seed)[0]
+    want, _ = _alone(seed, serve, (0,))
+    slot = place_slot(bucket_of("rollout", roll[1]), [0, 1])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    crash.arm(crash.CrashPlan(f"serve.w{slot}", 2, "raise"))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            got, _, svc = _serve([roll], workers=2, max_batch=1,
+                                 quantum_chunks=8, journal_dir=tmp,
+                                 supervise_poll_s=0.02, rejoin_base_s=0.3)
+    finally:
+        crash.arm(None)
+    info = {"phase": "serve_failover", "launches": dict(ops.LAUNCHES),
+            "seconds": time.perf_counter() - t0, "killed_worker": slot,
+            "failovers": got[roll[3]].failovers,
+            "service_failovers": svc.stats["failovers"],
+            "requeued": svc.stats["requeued"]}
+    emit(info)
+    if got[roll[3]].failovers < 1 or svc.stats["requeued"] < 1:
+        raise AssertionError(f"serve_failover: no migration: {info}")
+    _same_digests("serve_failover", got, want)
+    return info
+
+
+def phase_serve_recovery(seed: int) -> dict:
+    """`python -m aclswarm_torch.serve.smoke --n 1000` on the card (its
+    rollout assigns by Sinkhorn): the child SIGKILLed at serve round 3 with a
+    chunk durable and the next in flight, a second child recovering the
+    journal, zero losses and a bit-identical final digest against an
+    uninterrupted run."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "aclswarm_torch.serve.smoke",
+                        "--n", str(N)],
+                       capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    line = next((json.loads(ln) for ln in r.stdout.splitlines()
+                 if ln.startswith('{"serve_smoke"')), None)
+    if r.returncode != 0 or "PASS" not in r.stdout or line is None:
+        raise AssertionError(f"serve_recovery failed (exit {r.returncode})"
+                             f":\n{r.stdout}\n{r.stderr[-4000:]}")
+    launches = {k: sum(part.get(k, 0) for part in line["launches"].values())
+                for k in ("sinkhorn_log", "round_dominant", "flood_merge")}
+    info = {"phase": "serve_recovery", "seconds": seconds,
+            "launches": launches, "smoke": line}
+    emit(info)
+    if not launches["sinkhorn_log"] or launches["flood_merge"]:
+        raise AssertionError(f"serve_recovery launches: {launches}")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3574,7 +3948,9 @@ def main(argv=None) -> int:
                  "trial": phase_trial, "batch_kernels": phase_batch_kernels,
                  "slice_batch": phase_slice_batch, "faults": phase_faults,
                  "slice_scenarios": phase_slice_scenarios,
-                 "checks_faults": phase_checks_faults, "churn": phase_churn}
+                 "checks_faults": phase_checks_faults, "churn": phase_churn,
+                 "serve": phase_serve,
+                 "serve_recovery": phase_serve_recovery}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
@@ -3593,6 +3969,10 @@ def main(argv=None) -> int:
             elif name == "trial_batch_checked":
                 done[name] = timed(name, phase_trial_batch_checked,
                                    args.seed, done.get("trial_batch"))
+            elif name in ("serve_preempt", "serve_failover"):
+                fn = {"serve_preempt": phase_serve_preempt,
+                      "serve_failover": phase_serve_failover}[name]
+                done[name] = timed(name, fn, args.seed, done.get("serve"))
             else:
                 done[name] = timed(name, table[name], args.seed)
         print("chip_smoke: partial run (--phases), no result line",
@@ -3623,6 +4003,10 @@ def main(argv=None) -> int:
     tbc = timed("trial_batch_checked", phase_trial_batch_checked, args.seed,
                 tb)
     ch = timed("churn", phase_churn, args.seed)
+    sv = timed("serve", phase_serve, args.seed)
+    sp = timed("serve_preempt", phase_serve_preempt, args.seed, sv)
+    sf = timed("serve_failover", phase_serve_failover, args.seed, sv)
+    sr = timed("serve_recovery", phase_serve_recovery, args.seed)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -3668,7 +4052,11 @@ def main(argv=None) -> int:
                    "checks_faults": ckf["launches"][name],
                    "trial_checked": tc["launches"][name],
                    "trial_batch_checked": tbc["launches"][name],
-                   "churn": ch["launches"][name]},
+                   "churn": ch["launches"][name],
+                   "serve": sv["launches"][name],
+                   "serve_preempt": sp["launches"][name],
+                   "serve_failover": sf["launches"][name],
+                   "serve_recovery": sr["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

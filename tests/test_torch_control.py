@@ -307,3 +307,23 @@ def test_colavoid_duplicate_sector_coin_flip():
     v, _ = control.collision_avoidance(_t(q), _t(vel), sp, max_neighbors=2)
     differs = np.abs(v.numpy() - np.asarray(ref_v)).max(axis=1) > 1e-6
     assert differs.tolist() == [False, True, False, False]
+
+
+@pytest.mark.parametrize("cover_elems", [1, 2 * 18 * 18 * 5])
+def test_colavoid_row_blocks_are_exact(monkeypatch, cover_elems):
+    """The dense sector test runs in row blocks past `COVER_ELEMS`
+    (one row, then five rows a block here): the same bits as one block,
+    and the reference's result."""
+    from aclswarm_torch.control import colavoid as tcolavoid
+
+    rng = np.random.default_rng(7)
+    q = rng.uniform(-2.5, 2.5, size=(18, 3))
+    q[:, 2] = rng.uniform(0, 0.5, 18)
+    vel = rng.normal(size=(18, 3))
+    sp, _ = _params()
+    whole = control.collision_avoidance(_t(q), _t(vel), sp)
+    monkeypatch.setattr(tcolavoid, "COVER_ELEMS", cover_elems)
+    blocked = control.collision_avoidance(_t(q), _t(vel), sp)
+    assert torch.equal(whole[0], blocked[0])
+    assert torch.equal(whole[1], blocked[1])
+    assert _colavoid_both(q, vel).any()

@@ -124,11 +124,16 @@ def _cloud(kind, rng, n=12):
         q = q * np.array([-1.0, 1.0, 1.0])
     elif kind == "noisy":
         q = q + rng.normal(size=q.shape) * 0.1
+    elif kind == "coincident":
+        # every point at the origin: an exactly zero cross-covariance,
+        # R = I
+        p = np.zeros_like(p)
+        q = p + np.array([1.5, -2.0, 0.5])
     return p, q
 
 
 @pytest.mark.parametrize("kind", ["rotated", "scrambled", "reflected",
-                                  "noisy"])
+                                  "noisy", "coincident"])
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_arun_and_align(kind, d, weighted):

@@ -29,10 +29,10 @@ def _imported(path: Path) -> set[str]:
 
 
 def _file_id(path: Path) -> str:
-    """The file's name; under the analysis and telemetry subpackages its
-    path in the package, so a shared name (`registry.py`, `__init__.py`)
-    leaves the other files' ids as they were."""
-    if path.parent.name in ("analysis", "telemetry"):
+    """The file's name; under the analysis, telemetry, serve and utils
+    subpackages its path in the package, so a shared name (`registry.py`,
+    `__init__.py`) leaves the other files' ids as they were."""
+    if path.parent.name in ("analysis", "telemetry", "serve", "utils"):
         return f"{path.parent.name}/{path.name}"
     return path.name
 
@@ -50,8 +50,11 @@ def test_scan_covers_the_package():
             "supervisor.py", "formations.py", "checkpoint.py", "crash.py",
             "config.py", "summary.py", "prng.py", "schedule.py",
             "timeline.py", "registry.py", "invariants.py", "device.py",
-            "spans.py", "locks.py", "review.py", "rosbag1.py"} <= names
-    for sub in ("analysis", "telemetry"):
+            "spans.py", "locks.py", "review.py", "rosbag1.py",
+            "executor.py", "retry.py", "lifecycle.py", "staging.py",
+            "service.py", "workers.py", "admission.py", "api.py",
+            "stats.py", "client.py", "smoke.py", "lapjv.py"} <= names
+    for sub in ("analysis", "telemetry", "serve", "utils"):
         assert ROOT / "aclswarm_torch" / sub / "__init__.py" in FILES
 
 
@@ -60,7 +63,8 @@ def test_telemetry_package_init_stays_stdlib_only():
     neither torch nor numpy (the device counters are imported
     explicitly)."""
     pkg = ROOT / "aclswarm_torch" / "telemetry"
-    for name in ("__init__.py", "registry.py", "spans.py", "locks.py"):
+    for name in ("__init__.py", "registry.py", "spans.py", "locks.py",
+                 "lifecycle.py"):
         assert not _imported(pkg / name) & {"torch", "numpy"}, name
 
 
@@ -98,3 +102,20 @@ def test_run_trial_batch_without_device_needs_the_card(monkeypatch):
         trials.run_trial_batch(cfg, [0, 1])
     with pytest.raises(RuntimeError, match="CUDA"):
         trials.run_trials(cfg)
+
+
+def test_service_without_device_needs_the_card(monkeypatch):
+    """`SwarmService(ServiceConfig())` with no card raises the
+    `resolve_device` error instead of serving on the CPU; asked for the
+    CPU, it serves there."""
+    from aclswarm_torch.serve import ServiceConfig, SwarmService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ServiceConfig().device is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SwarmService(ServiceConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SwarmService(ServiceConfig(), start=False)
+    svc = SwarmService(ServiceConfig(device="cpu"), start=False)
+    assert svc.device.type == "cpu" and svc.dtype == torch.float32
+    svc.close(drain=False)

@@ -386,9 +386,12 @@ class _OpCount(TorchDispatchMode):
 
 
 # ATen ops one `step` dispatches at n=8 on the CPU (float64), counted on
-# the engine before the sanitizer and the counters existed
-OPS_BEFORE = {"sinkhorn_flooded": 2391, "cbaa_faults": 1098,
-              "auction_fsm": 1801}
+# the engine before the sanitizer and the counters existed (2391, 1098,
+# 1801), plus 13 where the step aligns the formation with `geometry.align`
+# since its 2-D rotation is taken in closed form (66 ops a call, the SVD's
+# 53)
+OPS_BEFORE = {"sinkhorn_flooded": 2391 + 13, "cbaa_faults": 1098,
+              "auction_fsm": 1801 + 13}
 
 
 @pytest.mark.parametrize("case", list(OPS_BEFORE))

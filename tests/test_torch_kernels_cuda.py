@@ -591,3 +591,49 @@ def test_checked_slice_on_the_card(card):
     for f in ("auctions", "assign_rounds", "reassigns", "flood_stale_max"):
         assert int(getattr(on_final.tel, f)) \
             == int(getattr(cpu_final.tel, f)), f
+
+
+def test_served_assign_kernels_equal_their_plain_versions(card):
+    """K1 and K2 on a served n=1000 ``assign`` request (`SwarmService` on
+    the card, float32, ``solver="sinkhorn"``): the inputs the request
+    hands each wrapper, held against the plain versions (K1 atol 5e-5 and
+    marginals 1e-4; K2 bit-identical), one launch each; the served
+    permutation is a permutation."""
+    from aclswarm_torch import ops
+    from aclswarm_torch.serve import ServiceConfig, SwarmService
+
+    seen = {}
+    wrapped = {name: getattr(ops, name)
+               for name in ("sinkhorn_log", "round_dominant")}
+
+    def keep(name):
+        def fn(*args):
+            seen.setdefault(name, [a.clone() if isinstance(a, torch.Tensor)
+                                   else a for a in args])
+            return wrapped[name](*args)
+        return fn
+
+    ops.reset_launches()
+    svc = SwarmService(ServiceConfig(max_batch=4))
+    try:
+        for name in wrapped:
+            setattr(ops, name, keep(name))
+        res = svc.submit("assign", {"n": N, "seed": 3,
+                                    "solver": "sinkhorn"}).result(300)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+        svc.close()
+    assert res.ok and sorted(res.value["perm"]) == list(range(N))
+    assert ops.LAUNCHES == {"sinkhorn_log": 1, "round_dominant": 1,
+                            "flood_merge": 0}
+    cost, tau, iters = seen["sinkhorn_log"]
+    plan = ops.sinkhorn_log(cost, tau, iters)
+    ref = ops.sinkhorn_log_plain(cost, tau, iters)
+    assert (plan - ref).abs().max().item() <= 5e-5
+    for a, b in zip(_masses(plan), _masses(ref)):
+        assert (a - b).abs().max().item() <= 1e-4
+    (plan_in, *cap) = seen["round_dominant"]
+    perm, rounds = ops.round_dominant(plan_in, *cap)
+    ref_perm, ref_rounds = ops.round_dominant_plain(plan_in, *cap)
+    assert torch.equal(perm, ref_perm) and torch.equal(rounds, ref_rounds)

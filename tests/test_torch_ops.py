@@ -324,3 +324,68 @@ def test_sources_and_build_rule():
     for symbol in (*_build._ENTRY, "kernel_error_string"):
         assert sum(f" {symbol}(" in t for t in texts) == 1, symbol
     assert _build.lib_path().parent == _build.BUILD_DIR
+
+
+def test_launch_counter_is_exact_under_threads():
+    """Serve workers launch from several threads: the locked count loses
+    no increment (8 threads x 10,000)."""
+    import threading
+
+    _build.reset_launches()
+    barrier = threading.Barrier(8)
+
+    def bump():
+        barrier.wait()
+        for _ in range(10_000):
+            _build.count_launch("flood_merge")
+
+    threads = [threading.Thread(target=bump) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert ops.LAUNCHES["flood_merge"] == 80_000
+    _build.count_launch("sinkhorn_log", 3)
+    assert ops.LAUNCHES["sinkhorn_log"] == 3
+    _build.reset_launches()
+    assert set(ops.LAUNCHES.values()) == {0}
+
+
+def test_library_builds_and_loads_once_under_threads(monkeypatch):
+    """Eight threads asking for the library at once: one build, one load,
+    one library object for all."""
+    import threading
+    import time
+
+    builds, loads = [], []
+
+    def fake_build():
+        builds.append(1)
+        time.sleep(0.05)
+        return {"library": "fake.so"}
+
+    class FakeLib:
+        def __init__(self, path):
+            loads.append(path)
+
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    got, barrier = [], threading.Barrier(8)
+
+    def ask():
+        barrier.wait()
+        got.append(_build._lib())
+
+    threads = [threading.Thread(target=ask) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and loads == ["fake.so"]
+    assert len(got) == 8 and all(g is got[0] for g in got)
