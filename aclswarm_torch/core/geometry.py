@@ -76,10 +76,13 @@ def _rotation2(sigma: torch.Tensor) -> torch.Tensor:
     and sine taken as quotients by the norm. It is the rotation an SVD
     with the determinant correction returns, computed element by element:
     no batch rounds otherwise than its members, and nothing is read back
-    from the card. A zero covariance gives I."""
+    from the card. A zero covariance gives I. The norm's root is taken in
+    float64 and rounded once: the correctly rounded root on the card and
+    the CPU alike (the card's float32 `torch.sqrt` is not correctly
+    rounded)."""
     a = sigma[..., 0, 0] + sigma[..., 1, 1]
     b = sigma[..., 1, 0] - sigma[..., 0, 1]
-    r = torch.sqrt(a * a + b * b)
+    r = torch.sqrt((a * a + b * b).double()).to(a.dtype)
     some = r > 0
     r = torch.where(some, r, torch.ones_like(r))
     c = torch.where(some, a / r, torch.ones_like(r))
@@ -151,10 +154,13 @@ def align_formation_local(q_veh: torch.Tensor, p: torch.Tensor,
 
     The reference maps `align` over agents; here the n weighted `arun`
     problems (d=2) are one batch: weighted centroids, an (n, 2, 2) stack of
-    cross-covariances, one batched SVD, the determinant sign fix. The z
-    axis passes through (R=I, t=0 there), as `arun` embeds it. A batch of
-    trials calls it trial by trial (CBAA runs so in `sim.engine`), so a
-    batch equals its serial runs here too."""
+    cross-covariances, and each agent's rotation in closed form
+    (`_rotation2`, as `arun` takes it), element by element, so an agent's
+    rotation is its lone solve's bit for bit (a batched SVD rounds a batch
+    otherwise than its members). The z axis passes through (R=I, t=0
+    there), as `arun` embeds it. A batch of trials calls it trial by trial
+    (CBAA runs so in `sim.engine`), so a batch equals its serial runs here
+    too."""
     from aclswarm_torch.core import perm as permutil
 
     n = adjmat.shape[0]
@@ -174,11 +180,7 @@ def align_formation_local(q_veh: torch.Tensor, p: torch.Tensor,
     sigma = torch.einsum("vmi,vmj->vij", qc * w[:, :, None], pc) \
         / wsum[:, :, None]
 
-    U, _, Vt = torch.linalg.svd(sigma)
-    sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
-    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
-    S = torch.stack([torch.ones_like(sign), sign], dim=-1)          # (n, 2)
-    Rd = (U * S[:, None, :]) @ Vt
+    Rd = _rotation2(sigma)                                          # (n, 2, 2)
     td = mu_q - (Rd @ mu_p[:, :, None])[:, :, 0]
     xy = torch.einsum("md,vkd->vmk", ps, Rd) + td[:, None, :]
     return torch.cat([xy, p[None, :, 2:3].expand(n, n, 1)], dim=-1)

@@ -24,8 +24,9 @@ per request. Its contract is the reference's:
   pipelining, and each round's host read is one copy (`serve.staging`).
 
 The service runs on the CUDA card unless ``ServiceConfig(device="cpu")``
-asks for the CPU. The reference's process mode (router, procworker, wire
-and transports) and its traffic fleet are not ported yet.
+asks for the CPU. ``ServiceConfig(watch=True)`` runs the health tier
+(`telemetry.slo`) and the ``health`` kind reports its SLO verdicts. The
+reference's process mode (router, procworker) is not ported yet.
 """
 from aclswarm_torch.serve.api import (COMPLETED, FAILED, PREEMPTED, QUEUED,
                                       RUNNING, TERMINAL, TIMED_OUT,
@@ -44,3 +45,8 @@ __all__ = [
     "BUILTIN_KINDS", "ServiceConfig", "SwarmService", "ServeStats",
     "WorkerPool", "bucket_of", "place_slot",
 ]
+# WireServer / WireClient live in `aclswarm_torch.serve.wire` and are
+# imported from there directly, as in the reference: the shm transport
+# requires the native library (make -C native), which stays optional for
+# the core service. The TCP binding (`WireServer(tcp=...)`) and the
+# traffic fleet (`aclswarm_torch.serve.traffic`) are pure stdlib.

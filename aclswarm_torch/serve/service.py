@@ -40,8 +40,9 @@ The guarantees, as the reference states them:
 
 The service runs on one device in one dtype (``ServiceConfig.device``,
 None = the CUDA card, which raises when there is none; ``dtype``
-"float32", or "float64" for the CPU parity tests). The reference's live
-health tier (``watch=True``) is not ported yet and raises.
+"float32", or "float64" for the CPU parity tests). ``watch=True`` runs
+the health tier: a sampler over the service's registry, the SLO engine,
+and ``alert`` events in the journal (`telemetry.slo`).
 """
 from __future__ import annotations
 
@@ -90,8 +91,8 @@ _LEDGER_EVENTS = frozenset({"failover", "migrated", "poisoned", "alert"})
 class ServiceConfig:
     """Service-level knobs (per-request knobs live in the params): the
     reference's fields and defaults, plus ``device`` and ``dtype``.
-    ``cpu_fallback`` defaults to False and raises when True; ``watch``
-    raises when True (see the module docstring)."""
+    ``cpu_fallback`` defaults to False and raises when True (see the
+    module docstring)."""
 
     max_queue_per_tenant: int = 8     # admission cap per tenant
     max_queue_total: int = 32         # admission cap across tenants
@@ -142,10 +143,18 @@ class ServiceConfig:
     # round's one host read). False = resolve each round before picking
     # the next. Requires staging; ignored when staging=False.
     pipeline: bool = True
-    # ---- the reference's live health tier (not ported: True raises) ----
+    # ---- the health tier (telemetry.timeseries/slo): time series over
+    # this service's registry and live SLO evaluation with a
+    # pending -> firing -> resolved alert machine. Off by default (a
+    # sampler thread per service would tax every short-lived test
+    # service). With a journal, history persists to
+    # <journal>/timeseries.log and alert transitions append to
+    # events.log as ``alert`` fleet events.
     watch: bool = False
-    watch_interval_s: float = 0.25
-    watch_capacity: int = 1024
+    watch_interval_s: float = 0.25    # sampler + SLO evaluation cadence
+    watch_capacity: int = 1024        # points retained per series
+    # SLO catalog override (tuple of telemetry.slo.SloSpec); None =
+    # telemetry.slo.default_slos(max_queue_total=cfg.max_queue_total)
     slos: Optional[tuple] = None
     # ---- the journal incarnation: every req/done frame and lifecycle
     # event is stamped with it, and a FENCE frame naming a newer one
@@ -525,11 +534,6 @@ class SwarmService:
 
     def __init__(self, cfg: ServiceConfig = ServiceConfig(), *,
                  start: bool = True, log=None):
-        if cfg.watch:
-            raise NotImplementedError(
-                "ServiceConfig(watch=True): the live health tier (time "
-                "series, SLOs, watch) belongs to the swarmwatch slice of "
-                "the port and is not ported yet")
         if cfg.cpu_fallback:
             raise NotImplementedError(
                 "ServiceConfig(cpu_fallback=True): the port never re-runs "
@@ -606,6 +610,23 @@ class SwarmService:
         # a service outage
         from aclswarm_torch.serve.workers import WorkerPool
         self._pool = WorkerPool(self, cfg)
+        # the health tier: built after the pool so the probe can read
+        # fleet liveness; alerts ride the journal's events.log (always
+        # journaled, _LEDGER_EVENTS), so the live surface and the
+        # postmortem share one stream
+        self.watch = None
+        if cfg.watch:
+            from aclswarm_torch.telemetry.slo import SwarmWatch, default_slos
+            specs = (list(cfg.slos) if cfg.slos is not None
+                     else default_slos(max_queue_total=cfg.max_queue_total))
+            self.watch = SwarmWatch(
+                self.telemetry, specs,
+                interval_s=cfg.watch_interval_s,
+                capacity=cfg.watch_capacity,
+                persist_path=(self._journal / "timeseries.log"
+                              if self._journal is not None else None),
+                emit=self._emit_alert, probe=self._watch_probe,
+                log=self.log)
         if start:
             self.start()
 
@@ -784,6 +805,10 @@ class SwarmService:
         from __init__ for admission-control tests and staged recovery
         drills (``start=False``)."""
         self._pool.start()
+        if self.watch is not None:
+            # after the fleet: the first sample must see live
+            # worker_up gauges, not a pre-spawn fleet of zeros
+            self.watch.start()
 
     @property
     def alive(self) -> bool:
@@ -842,6 +867,11 @@ class SwarmService:
                 timeout, len(pending), E_SHUTDOWN)
         for job in pending:
             self._finish(job, FAILED, error=err, journal=False)
+        if self.watch is not None:
+            # before the trace log closes: the sampler's final tick
+            # covers the shutdown edge, and a last alert transition
+            # still lands in events.log
+            self.watch.stop()
         if self._span_dump is not None:
             # clean close: final flush, then disarm the atexit/SIGTERM
             # hooks so long-lived test processes don't accumulate them
@@ -1790,10 +1820,11 @@ class SwarmService:
     def _do_health(self, params: dict):
         """Built-in ``health`` kind: the fleet-health surface as a
         request: worker liveness, queue and in-flight levels refreshed at
-        scrape time, and the service's promise counters. ``watch`` is
-        null: the reference's SLO engine is not ported yet."""
+        scrape time, the service's promise counters, and the SLO
+        verdicts and burn rates of the health tier (null when
+        ``cfg.watch`` is off)."""
         t = self.telemetry
-        self._refresh_gauges()         # a scrape reads NOW, not stale
+        self._watch_probe()            # a scrape reads NOW, not stale
         per_worker = {}
         for m in t.metrics():
             if m.name == "serve_worker_up" \
@@ -1806,8 +1837,9 @@ class SwarmService:
             "alive": bool(self.alive),
             "pid": os.getpid(),
             "incarnation": int(self.cfg.incarnation),
-            "watch_enabled": False,
-            "watch": None,
+            "watch_enabled": self.watch is not None,
+            "watch": (self.watch.health()
+                      if self.watch is not None else None),
             "workers": {
                 "total": int(t.gauge("serve_workers_total").value),
                 "up": int(t.gauge("serve_workers_up").value),
@@ -2255,12 +2287,19 @@ class SwarmService:
         throughput artifact reports keep their sampling cadence."""
         self.telemetry.gauge("serve_queue_depth").set(self._adm.pending())
 
-    def _refresh_gauges(self) -> None:
-        """Refresh the liveness gauges so a scrape reads CURRENT state,
-        not the last chunk boundary's."""
+    def _watch_probe(self) -> None:
+        """Sampler pre-tick hook (and the health scrape's): refresh the
+        liveness gauges so every sample reads CURRENT state, not the
+        last chunk boundary's."""
         self._sample_queue()
         self.telemetry.gauge("serve_inflight").set(
             self._pool.inflight_total())
+
+    def _emit_alert(self, ev: dict) -> None:
+        """Append one alert transition to the journal's events.log as a
+        fleet-scope ``alert`` record. Unjournaled services keep the
+        in-memory engine state only."""
+        self._journal_event("alert", None, **ev)
 
     def _attribute_device(self, jobs: list, span_s: float) -> None:
         """Per-tenant device-time cost accounting: one round's device

@@ -17,18 +17,27 @@ process mid-batch, recover, prove zero losses and a bit-identical resume.
                                          [--n N]
 
 ``--multiworker`` runs the worker-crash half instead: a 2-worker
-journaled service, the worker owning the rollout's bucket killed
-mid-batch by a worker-targeted `CrashPlan`, the orphaned rollout failed
-over to the surviving worker through the checkpoint codec — zero losses,
-the migrated resume bit-identical to an uncontended run, and the service
-serving throughout.
+journaled service with the health tier on (``watch=True``), the worker
+owning the rollout's bucket killed mid-batch by a worker-targeted
+`CrashPlan`, the orphaned rollout failed over to the surviving worker
+through the checkpoint codec — zero losses, the migrated resume
+bit-identical to an uncontended run, the service serving throughout, and
+the kill visible live: a ``worker_up`` alert fired on the ``health``
+surface and journaled, and ``watch --log`` over the persisted
+``timeseries.log`` replays the transitions the live engine journaled.
+
+``--postmortem`` kills a worker mid-rollout the same way, then rebuilds
+the migrated request's story from the journal alone
+(`telemetry.postmortem.reconstruct`): complete, gap-free, one trace id
+equal to the result's, a migration, chunk coverage equal to the
+result's, and the supervisor's "declared dead" span dump.
 
 Without ``--device`` everything runs on the CUDA card. ``--n`` sizes the
 rollout and the assignment (the gain design stays at n=5). The rollout
 assigns by Sinkhorn (the reference's smoke: the auction), so on the card
-it runs through K1 and K2; on the CPU their plain versions. The reference's
-``--postmortem`` and ``--procs`` drills belong to later slices of the
-port and exit with an error naming them.
+it runs through K1 and K2; on the CPU their plain versions. The
+reference's ``--procs`` drill belongs to a later slice of the port and
+exits with an error naming it.
 """
 from __future__ import annotations
 
@@ -48,6 +57,10 @@ from aclswarm_torch.resilience.crash import ENV_VAR, CrashPlan, arm
 from aclswarm_torch.serve import (ServiceConfig, SwarmService, bucket_of,
                                   place_slot)
 from aclswarm_torch.serve.service import _read_frame
+from aclswarm_torch.telemetry import postmortem
+from aclswarm_torch.telemetry.lifecycle import LifecycleLog
+from aclswarm_torch.telemetry.slo import default_slos
+from aclswarm_torch.telemetry.watch import replay_log
 
 # On the pipelined schedule (`_round_start` dispatches round k+1 before
 # round k resolves), round 1 dispatches the rollout's chunk 1, round 2
@@ -221,9 +234,14 @@ def run_multiworker(args) -> int:
     assert want.ok, want.error
 
     with _journal_dir("mw") as d:
+        # the health tier rides the drill: the kill below must surface
+        # on the live health surface, not just in the journal. Rejoin
+        # backoff > sampler interval, so the dead slot's gauge is
+        # sampled down at least once before the respawn flips it back.
         svc = SwarmService(_cfg(
             args, workers=2, max_batch=1, quantum_chunks=8, journal_dir=d,
-            supervise_poll_s=0.02, rejoin_base_s=0.3))
+            supervise_poll_s=0.02, rejoin_base_s=0.3,
+            watch=True, watch_interval_s=0.05))
         # kill the worker that OWNS the rollout bucket, at its round 2:
         # one chunk done and checkpointed, the next in flight. The
         # rollout goes in ALONE so the victim's round schedule is
@@ -248,8 +266,32 @@ def run_multiworker(args) -> int:
         alive_through = svc.alive
         health = svc.submit("health", {}, tenant="ops").result(60)
         svc.close()
-        if not health.ok or health.value["workers"]["total"] != 2:
+        if not health.ok or health.value["workers"]["total"] != 2 \
+                or not health.value.get("watch_enabled"):
             print(f"FAIL: health scrape unusable: {health.status}")
+            return 1
+        wu = (health.value.get("watch") or {}).get(
+            "verdicts", {}).get("worker_up", {})
+        if int(wu.get("fired", 0)) < 1:
+            print("FAIL: the worker kill never fired a worker_up alert "
+                  f"on the live health surface (verdict: {wu})")
+            return 1
+        rows, _ = LifecycleLog.read(Path(d) / "events.log")
+        live = [(r["slo"], r["labels"], r["state"]) for r in rows
+                if r.get("event") == "alert"]
+        if ("worker_up", f"{{worker={slot}}}", "firing") not in live:
+            print("FAIL: no worker_up firing alert record in the "
+                  f"journal's events.log (alerts: {live})")
+            return 1
+        # the postmortem twin: the persisted history, replayed through
+        # the same catalog, fires what the live engine journaled
+        replay = replay_log(Path(d) / "timeseries.log", specs=default_slos(
+            max_queue_total=svc.cfg.max_queue_total))
+        replayed = [(e["slo"], e["labels"], e["state"])
+                    for e in replay["transitions"]]
+        if replayed != live:
+            print(f"FAIL: watch --log replays {replayed}, the live "
+                  f"engine journaled {live}")
             return 1
         losses = [rid for rid, res in results.items()
                   if res.status != "completed"]
@@ -273,11 +315,93 @@ def run_multiworker(args) -> int:
             print("FAIL: service reported dead during a routine "
                   "worker failover")
             return 1
+    print(json.dumps({"serve_smoke": "multiworker", "n": args.n,
+                      "launches": dict(ops.LAUNCHES), "alerts": live,
+                      "seconds": round(time.time() - t0, 3)}))
     print("PASS: worker kill mid-batch lost nothing — 3/3 requests "
           f"terminal, rollout migrated off worker {slot} after "
           f"{roll_res.failovers} failover(s), resume bit-identical "
-          f"(digest {roll_res.value['digest']:#010x}), "
+          f"(digest {roll_res.value['digest']:#010x}); the health tier "
+          f"saw the kill live (worker_up fired {int(wu.get('fired', 0))}x "
+          f"on the health surface, {len(live)} journaled alert "
+          f"transition(s), replayed alike from timeseries.log), "
           f"{time.time() - t0:.1f}s")
+    return 0
+
+
+def run_postmortem(args) -> int:
+    """The postmortem drill: kill a worker mid-rollout, then prove the
+    migrated request's whole story reconstructs from the journal alone
+    — complete, causally ordered, gap-free — with the failover visible
+    in the per-stage latency breakdown."""
+    t0 = time.time()
+    roll = requests(args.n)[0]["params"]
+    with _journal_dir("pm") as d:
+        svc = SwarmService(_cfg(
+            args, workers=2, max_batch=1, quantum_chunks=8, journal_dir=d,
+            supervise_poll_s=0.02, rejoin_base_s=0.05))
+        slot = place_slot(bucket_of("rollout", roll), [0, 1])
+        arm(CrashPlan(f"serve.w{slot}", 2, "raise"))
+        res = svc.submit("rollout", roll, tenant="a",
+                         request_id="pm-roll").result(timeout=600)
+        arm(None)
+        svc.close()
+        if not res.ok or res.failovers < 1:
+            print(f"FAIL: expected a migrated completion, got "
+                  f"{res.status} (failovers={res.failovers})")
+            return 1
+
+        # reconstruction from disk alone: the service object above is
+        # deliberately not consulted
+        report = postmortem.reconstruct(d)
+        rep = report["requests"].get("pm-roll")
+        if rep is None:
+            print("FAIL: postmortem found no timeline for pm-roll")
+            return 1
+        problems = []
+        if not rep["complete"]:
+            problems.append("timeline incomplete")
+        if not rep["gap_free"]:
+            problems.append(f"timeline not gap-free: {rep['problems']}")
+        if rep["migrations"] < 1:
+            problems.append("no migrated event in the timeline")
+        if rep["trace_id"] != res.trace_id:
+            problems.append(
+                f"trace_id drift: result {res.trace_id!r} vs journal "
+                f"{rep['trace_id']!r}")
+        if rep["chunks"] != res.chunks:
+            problems.append(f"chunk coverage {rep['chunks']} != "
+                            f"result chunks {res.chunks}")
+        # the close() dump always writes the file — only a header whose
+        # reason names the worker death proves the supervisor flushed
+        # (the path a killed worker depends on)
+        dumpf = Path(d) / "spans_dump.jsonl"
+        headers = []
+        if dumpf.is_file():
+            headers = [json.loads(ln)
+                       for ln in dumpf.read_text().splitlines()
+                       if '"span_dump"' in ln]
+        if not any("declared dead" in h.get("span_dump", "")
+                   for h in headers):
+            problems.append(
+                "supervisor did not flush the span ring on the worker "
+                "death (no 'declared dead' dump header; saw "
+                f"{[h.get('span_dump') for h in headers]})")
+        if problems:
+            print("FAIL: " + "; ".join(problems))
+            return 1
+        st = rep["stages"]
+    print(json.dumps({"serve_smoke": "postmortem", "n": args.n,
+                      "launches": dict(ops.LAUNCHES), "stages": st,
+                      "events": rep["events"], "chunks": rep["chunks"],
+                      "seconds": round(time.time() - t0, 3)}))
+    print("PASS: killed worker %s mid-rollout; postmortem reconstructed "
+          "a complete, gap-free timeline from the journal alone — "
+          "%d events, %d chunks, %d migration(s), trace %s, stages "
+          "queue=%.3fs device=%.3fs failover_gap=%.3fs (%.1fs)"
+          % (slot, rep["events"], rep["chunks"], rep["migrations"],
+             rep["trace_id"], st["queue_wait_s"], st["device_s"],
+             st["failover_gap_s"], time.time() - t0))
     return 0
 
 
@@ -297,13 +421,11 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=5,
                     help="rollout and assignment size (default 5)")
     ap.add_argument("--postmortem", action="store_true",
-                    help="not ported yet (the swarmwatch slice)")
+                    help="postmortem drill (kill a worker mid-rollout, "
+                         "rebuild its timeline from the journal alone)")
     ap.add_argument("--procs", action="store_true",
                     help="not ported yet (the process-mode slice)")
     args = ap.parse_args(argv)
-    if args.postmortem:
-        ap.error("--postmortem needs the journal postmortem reader, part "
-                 "of the port's swarmwatch slice, not ported yet")
     if args.procs:
         ap.error("--procs needs the router and procworker processes, part "
                  "of the port's process-mode slice, not ported yet")
@@ -311,6 +433,8 @@ def main(argv=None) -> int:
         return child(args)
     if args.multiworker:
         return run_multiworker(args)
+    if args.postmortem:
+        return run_postmortem(args)
     return run_smoke(args)
 
 

@@ -11,21 +11,33 @@ drivers use).
   `ChunkPublisher` that folds its chunk-boundary snapshots into the
   registry;
 - the serving layer's trace ids and lifecycle-event stream
-  (`telemetry.lifecycle`, a copy of the reference's).
+  (`telemetry.lifecycle`) and the postmortem that rebuilds each
+  request's timeline from the journal alone (`telemetry.postmortem`,
+  ``python -m aclswarm_torch.telemetry.postmortem <journal> --all``);
+- the health tier: a bounded `TimeSeriesStore` fed by a cadenced
+  `Sampler` (persisted to ``timeseries.log``), a declarative SLO catalog
+  evaluated by a multi-window burn-rate engine with a
+  pending -> firing -> resolved alert machine (`telemetry.slo`), and the
+  `watch` CLI (``--tcp HOST:PORT`` or ``--log <timeseries.log>``).
 
-This package __init__ stays stdlib-only, as the reference's does. The
-reference's postmortem, time-series, SLO and watch tiers are not ported
-yet.
+Each is a copy of the reference's module. This package __init__ stays
+stdlib-only, as the reference's does.
 """
 from aclswarm_torch.telemetry.lifecycle import (LifecycleLog, TraceContext,
                                                 make_event, mint_trace_id)
 from aclswarm_torch.telemetry.registry import (Counter, Gauge, Histogram,
                                                MetricsRegistry, get_registry,
                                                reset_registry)
+from aclswarm_torch.telemetry.slo import (SloEngine, SloSpec, SwarmWatch,
+                                          default_slos)
 from aclswarm_torch.telemetry.spans import (FlightRecorder, Span,
                                             install_crash_dump)
+from aclswarm_torch.telemetry.timeseries import (Sampler, TimeSeriesStore,
+                                                 load_store)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry", "reset_registry", "FlightRecorder", "Span",
            "install_crash_dump", "LifecycleLog", "TraceContext",
-           "make_event", "mint_trace_id"]
+           "make_event", "mint_trace_id", "TimeSeriesStore", "Sampler",
+           "load_store", "SloSpec", "SloEngine", "SwarmWatch",
+           "default_slos"]

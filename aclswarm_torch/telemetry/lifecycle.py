@@ -89,8 +89,11 @@ EVENTS: dict[str, frozenset] = {
 # whole batch; the per-request half of the story is its `migrated` event)
 FLEET_EVENTS: dict[str, frozenset] = {
     "failover": frozenset({"worker", "reason", "orphans"}),   # + retired
-    # the reference's SLO alert transitions (its telemetry.slo; the
-    # port has no SLO engine yet and never emits one)
+    # telemetry.slo: one record per alert state-machine transition —
+    # state is "firing" or "resolved" ("pending" never emits: a flap
+    # that clears before its dwell is suppressed, not archived). labels
+    # partitions one SLO into independent alerts (worker_up fires per
+    # worker; fleet-scope SLOs use "").
     "alert": frozenset({"slo", "state", "labels"}),
     #                                   + burn_short, burn_long, value
 }

@@ -1,12 +1,12 @@
 """Host utilities (port of the parts of `aclswarm_tpu.utils` the port
-calls): the retry policy and failure records (`utils.retry`). The port
-logs through the standard `logging` module under ``aclswarm_torch.*``
-names in place of the reference's `utils.log`."""
+calls): logging (`utils.log`, the framework root logger ``aclswarm_torch``)
+and the retry policy, polling and failure records (`utils.retry`)."""
+from aclswarm_torch.utils.log import get_logger
 from aclswarm_torch.utils.retry import (ExecutionFailure, RetryCancelled,
                                         RetryPolicy, delay_for, jittered,
-                                        retry_after_delay, retry_call,
-                                        subprocess_output)
+                                        poll_until, retry_after_delay,
+                                        retry_call, subprocess_output)
 
-__all__ = ["ExecutionFailure", "RetryCancelled", "RetryPolicy", "delay_for",
-           "jittered", "retry_after_delay", "retry_call",
-           "subprocess_output"]
+__all__ = ["get_logger", "ExecutionFailure", "RetryCancelled",
+           "RetryPolicy", "delay_for", "jittered", "poll_until",
+           "retry_after_delay", "retry_call", "subprocess_output"]

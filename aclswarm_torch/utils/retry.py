@@ -11,11 +11,13 @@ call).
   holds, with a ``cancel`` event that ends the backoff at once;
 - `ExecutionFailure`: the record a driver attaches to its results when a
   stage failed after its retries;
+- `poll_until`: fixed-interval polling against a grace deadline, also
+  cancellable (the transports' backpressure wait);
 - `subprocess_output`: a probe in a throwaway subprocess with a time limit
   (`serve.client.probe_backend`).
 
-The reference's `poll_until`, `Watchdog` and `subprocess_probe` serve its
-transports and bench driver and are not copied.
+The reference's `Watchdog` and `subprocess_probe` serve its bench driver
+and are not copied.
 """
 from __future__ import annotations
 
@@ -153,6 +155,41 @@ def retry_call(fn: Callable, *args,
             else:
                 sleep(d)
     raise AssertionError("unreachable")       # pragma: no cover
+
+
+def poll_until(fn: Callable[[], bool], *, grace_s: float,
+               poll_s: float = 0.001,
+               sleep: Callable[[float], None] = time.sleep,
+               clock: Callable[[], float] = time.monotonic,
+               cancel: Optional[threading.Event] = None) -> bool:
+    """Fixed-interval poll of ``fn`` until it returns truthy or the grace
+    deadline passes. The backpressure shape (shm ring drain): the first
+    call is immediate, and the deadline bounds TOTAL wait — False means
+    the grace expired with ``fn`` still failing.
+
+    The deadline is computed once from the monotonic ``clock`` and every
+    sleep is capped to the remaining budget, so a poll interval larger
+    than what is left never overshoots the deadline. After the final
+    capped sleep ``fn`` gets one last immediate check before False.
+
+    ``cancel`` (optional) aborts the poll early with False; a set event
+    also cuts the in-flight inter-poll sleep short (event-based wait),
+    so a cancelled poller returns within one poll interval."""
+    deadline = clock() + grace_s
+    while True:
+        if cancel is not None and cancel.is_set():
+            return False
+        if fn():
+            return True
+        remaining = deadline - clock()
+        if remaining <= 0:
+            return False
+        step = min(poll_s, remaining)
+        if cancel is not None:
+            if cancel.wait(step):
+                return False
+        else:
+            sleep(step)
 
 
 def subprocess_output(code: str, timeout_s: float,

@@ -8,6 +8,8 @@ and prints no result line:
 
 1. device  — the card's name, count, and `nvidia-smi` name + power limit;
 2. build   — the CUDA kernels built from `aclswarm_torch/csrc/` with nvcc
+             and, beside them, the native wire library (`make -C
+             native`: the shm rings; its failure fails the run)
              (seconds, ptxas register/shared-memory lines) and the opcode
              counts of the two flood-merge kernels in the library's SASS
              (`cuobjdump -sass`), which show the DPX instruction K3's fold
@@ -158,8 +160,10 @@ and prints no result line:
              the faulted rows' masked costs among them, and the assign)
              against its plain version; each rollout bit-identical to
              the same request served alone (digests, q, final `v2f`);
-             requests per second, ms per round, each round stage's
-             share, launches, peak memory;
+             the postmortem of its journal (every request complete and
+             gap-free under its result's trace id and chunk count,
+             `--all` exit 0); requests per second, ms per round, each
+             round stage's share, launches, peak memory;
 25. serve_preempt — one slot, a one-chunk quantum: two contending
              rollouts preempted through the codec every chunk, equal to
              their uncontended runs (`serve`'s lone serves) bit for bit;
@@ -170,7 +174,21 @@ and prints no result line:
              the serving process SIGKILLed at round 3, its journal
              recovered by a second process, zero losses, a bit-identical
              digest;
-28. the `kernels` line, then the result line. Each kernel row carries the
+28. serve_wire — a journaled `max_batch=2` service with the health tier
+             behind one `WireServer` on TCP and shm: `serve`'s roll0
+             over TCP (dropped after its second chunk, reattached by
+             request id) and roll1 over shm, submitted together, each
+             equal to its lone serve bit for bit (digests, q, final
+             `v2f`); every K1 and K2 call against its plain version;
+             `stats` and `health` over each transport, `watch --tcp`
+             exit 0, the journal's postmortem; ms per round, the wire's
+             share of each request, frames and bytes per transport;
+29. serve_watch — `serve.smoke --postmortem --n 1000` and
+             `--multiworker --n 1000` side by side, both PASS (the
+             journal-only timeline of a migrated request; a worker kill
+             fired, journaled, on `health`, and replayed alike by
+             `watch --log`);
+30. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -434,12 +452,26 @@ def _sass_opcodes(library: str) -> dict:
 
 
 def phase_build() -> None:
+    """The kernels (`ops.build`: one nvcc per source, in parallel) and,
+    beside them, the native wire library (``make -C native``: the shm
+    rings the wire phases serve over). Either failing fails the run."""
     from aclswarm_torch import ops
+    from aclswarm_torch.interop import native
 
     t0 = time.perf_counter()
-    log = ops.build()
+    make = subprocess.Popen(
+        ["make", "-C", str(Path(__file__).resolve().parent / "native")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        log = ops.build()
+    finally:
+        make_out, _ = make.communicate(timeout=300)
+    if make.returncode != 0 or not native.available():
+        raise RuntimeError(f"make -C native failed (exit {make.returncode})"
+                           f":\n{make_out}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": log["library"], "cached": log["cached"],
+          "native_library": str(native._LIB_PATH),
           "ptxas": [ln for ln in log["ptxas"].splitlines()
                     if "registers" in ln or "Compiling entry" in ln],
           "sass": _sass_opcodes(log["library"])})
@@ -2662,8 +2694,9 @@ def phase_slice_scenarios(seed: int) -> dict:
     `sim.batched_rollout` of 240 ticks on the `simform1000_flooded`
     engine. Checks: every trial's `scen_event` fires; `no_scenario`
     equals ``scenario=None`` bit for bit on the card (B=2, 121 ticks);
-    uniform draws on the card equal the CPU's bit for bit (normal draws'
-    max |dz| reported). Timings as `faults`, and each axis draw alone."""
+    uniform and normal draws on the card equal the CPU's bit for bit (the
+    sensor noise, 3*10^6 normals, and a (1000, 3) draw). Timings as
+    `faults`, and each axis draw alone."""
     from aclswarm_torch import ops, scenarios, sim
     from aclswarm_torch.core import perm as permutil
     from aclswarm_torch.core import prng
@@ -2711,7 +2744,7 @@ def phase_slice_scenarios(seed: int) -> dict:
             mid.scenario, ticks_dev, N, q.dtype))}
     draws["noise"]["normals_per_call"] = B * N * N * 3
 
-    # card against CPU: uniforms bit for bit, normals reported
+    # card against CPU: uniforms and normals bit for bit
     key = prng.fold_in(mid.scenario.key, ticks_dev)
     uniform_equal = all(torch.equal(
         prng.uniform(key, shape, dt).cpu(),
@@ -2751,6 +2784,8 @@ def phase_slice_scenarios(seed: int) -> dict:
                                       "ca_active")) \
         and torch.equal(r0[0].loc.est, r1[0].loc.est)
 
+    normals_equal = normal_card_cpu == 0.0 and all(
+        dz[k]["elements_differing"] == 0 for k in ("noise", "gust"))
     auctions = -(-SCENARIO_TICKS // cfg.assign_every)
     info = {"phase": "slice_scenarios", "n": N, "batch": B,
             "ticks": SCENARIO_TICKS, "dtype": "float32", "families": names,
@@ -2758,12 +2793,13 @@ def phase_slice_scenarios(seed: int) -> dict:
             "launches": launches, "auctions": auctions, **traced,
             "axis_draws": draws, "uniform_card_equal_cpu": uniform_equal,
             "normal_max_abs_dz_card_vs_cpu": normal_card_cpu,
+            "normal_card_equal_cpu": normals_equal,
             "scenario_draw_max_abs_dz_card_vs_cpu": dz,
             "no_scenario_equal_none": no_scenario_equal,
             "v2f_permutations": perms, "finite": finite,
             "max_memory_allocated_bytes": peak}
     emit(info)
-    if not (all(e > 0 for e in events) and uniform_equal
+    if not (all(e > 0 for e in events) and uniform_equal and normals_equal
             and no_scenario_equal and perms and finite
             and launches["flood_merge"] == SCENARIO_TICKS
             and launches["round_dominant"] == auctions
@@ -3763,6 +3799,7 @@ def phase_serve(seed: int) -> dict:
                 reqs, max_batch=4, journal_dir=tmp))),
             ("sinkhorn_log", "round_dominant"))
         launches = dict(ops.LAUNCHES)
+        postmortem = _journal_postmortem("serve", tmp, served["res"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     res, walls, svc = served["res"], served["walls"], served["svc"]
     wall = max(walls.values())
@@ -3780,7 +3817,7 @@ def phase_serve(seed: int) -> dict:
                                   for args, _ in kept for a in args
                                   if isinstance(a, torch.Tensor)) / 1e9,
             **_round_stats(svc), "preempted": svc.stats["preempted"],
-            "chunks": svc.stats["chunks"]}
+            "chunks": svc.stats["chunks"], "postmortem": postmortem}
     emit(info)
     if not (launches["sinkhorn_log"] > 0 and launches["round_dominant"] > 0
             and launches["flood_merge"] == 0):
@@ -3816,7 +3853,9 @@ def phase_serve(seed: int) -> dict:
     if g.shape != (3 * N, 3 * N) or not np.isfinite(g).all():
         raise AssertionError(f"serve: gains {g.shape}")
     info.update(out)
-    return {**info, "alone": alone}
+    alone_v2f = {rid: _final_rows(alone_calls[rid], alone[rid].value["q"])
+                 for _, _, _, rid in rolls}
+    return {**info, "alone": alone, "alone_v2f": alone_v2f}
 
 
 def _alone(seed: int, serve: dict | None, ids) -> tuple[dict, float]:
@@ -3919,6 +3958,264 @@ def phase_serve_recovery(seed: int) -> dict:
     return info
 
 
+def _journal_postmortem(label: str, journal: str, results: dict) -> dict:
+    """`telemetry.postmortem` over a served journal, from disk alone: every
+    request of ``results`` complete and gap-free (chunk coverage without a
+    hole, duplicate executions bit-identical, the terminal event last),
+    under one trace id equal to its result's, with its result's chunk
+    count; and ``postmortem --all`` exits 0."""
+    import io
+
+    from aclswarm_torch.telemetry import postmortem
+
+    rep = postmortem.reconstruct(journal)
+    bad = {}
+    for rid, res in results.items():
+        row = rep["requests"].get(rid)
+        if row is None or not (row["complete"] and row["gap_free"]
+                               and row["trace_id"] == res.trace_id
+                               and row["chunks"] == res.chunks):
+            bad[rid] = row and {k: row[k] for k in (
+                "complete", "gap_free", "trace_id", "chunks", "problems")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_rc = postmortem.main([journal, "--all"])
+    out = {"requests": len(results), "reconstructed": rep["reconstructed"],
+           "complete": rep["complete"], "gap_free": rep["gap_free"],
+           "events": rep["events"], "torn_tail": rep["torn_tail"],
+           "duplicate_chunks": sum(r["duplicate_chunks"]
+                                   for r in rep["requests"].values()),
+           "all_exit": cli_rc}
+    if bad or cli_rc != 0:
+        raise AssertionError(f"{label}: postmortem failed: {bad} {out}")
+    return out
+
+
+@contextlib.contextmanager
+def _counted_frames(counts: dict):
+    """Every frame sent on a TCP or shm channel counted with its bytes,
+    by transport (both ends live in this process: each frame counts once,
+    at its sender)."""
+    from aclswarm_torch.interop import transport
+
+    def counting(cls, kind):
+        real = cls.send_bytes
+
+        def send(self, data, *a, **kw):
+            ok = real(self, data, *a, **kw)
+            if ok:
+                c = counts.setdefault(kind, {"frames": 0, "bytes": 0})
+                c["frames"] += 1
+                c["bytes"] += len(data)
+            return ok
+        return send
+
+    with _patched(transport.SocketChannel, "send_bytes",
+                  counting(transport.SocketChannel, "tcp")), \
+            _patched(transport.Channel, "send_bytes",
+                     counting(transport.Channel, "shm")):
+        yield
+
+
+def _wedge(client) -> None:
+    """The client stops reading and pinging, its socket left open: a
+    dropped client the server has not noticed yet (the reattach path)."""
+    client._stop.set()
+    client._thread.join(5)
+
+
+def phase_serve_wire(seed: int, serve: dict | None) -> dict:
+    """The wire front end on the card: one journaled `SwarmService`
+    (max_batch=2, staged, float32, the health tier on) behind one
+    `WireServer` on TCP (port 0) and on one shm channel at once. Two of
+    `serve`'s n=1000 rollouts (roll0 by a TCP `WireClient`, roll1, the
+    faulted one, by a shm `WireClient`) are submitted together before the
+    worker starts, so they share rounds. Held: each result equals its lone
+    serve from `serve` bit for bit (digest, every chunk's digest, q, the
+    final `v2f`); the TCP client drops after its second chunk, reattaches
+    by request id under its client id and gets that same result; a
+    `stats` and a `health` scrape over each transport; ``python -m
+    aclswarm_torch.telemetry.watch --tcp HOST:PORT`` exits 0; every K1
+    and K2 call against its plain version (`_served_kernels`); the
+    journal's postmortem. Reported: ms per round, the wire's share of each
+    request (submit-to-result wall less the service's accept-to-terminal
+    latency), frames and bytes per transport, launches."""
+    import tempfile
+    import uuid
+
+    from aclswarm_torch import ops
+    from aclswarm_torch.serve import ServiceConfig, SwarmService
+    from aclswarm_torch.serve.wire import WireClient, WireServer
+
+    rolls = [r for i, r in enumerate(_serve_rollouts(seed)) if i in (0, 1)]
+    (_, p_tcp, t_tcp, rid_tcp), (_, p_shm, t_shm, rid_shm) = rolls
+    if serve is None:
+        want, want_calls, _ = _serve_alone(rolls)
+        want_v2f = {rid: _final_rows(want_calls[rid], want[rid].value["q"])
+                    for rid in want}
+    else:
+        want = {r[3]: serve["alone"][r[3]] for r in rolls}
+        want_v2f = {r[3]: serve["alone_v2f"][r[3]] for r in rolls}
+    base = "asw-chipwire-" + uuid.uuid4().hex[:8]
+    calls, frames, walls, got, scrapes = [], {}, {}, {}, {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, _recorded_rollouts(calls), \
+            _counted_frames(frames):
+        svc = SwarmService(ServiceConfig(max_batch=2, journal_dir=tmp,
+                                         watch=True), start=False)
+        srv = WireServer(svc, base, tcp=("127.0.0.1", 0))
+        host, port = srv.tcp_address
+        tcp = WireClient(tcp=(host, port), tenant=t_tcp,
+                         client_id="chip-tcp", hello_timeout_s=60.0)
+        shm = WireClient(base, tenant=t_shm, hello_timeout_s=60.0)
+        clients = {"shm": shm}
+        try:
+            def drive():
+                t0 = time.perf_counter()
+                tk_tcp = tcp.submit("rollout", p_tcp, request_id=rid_tcp)
+                tk_shm = shm.submit("rollout", p_shm, request_id=rid_shm)
+                deadline = time.monotonic() + 120
+                while svc.stats["accepted"] < 2 \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                if svc.stats["accepted"] < 2:
+                    raise AssertionError("serve_wire: submits not accepted")
+                svc.start()
+                # the TCP client drops after its second chunk event ...
+                seen = [ev.payload["chunk"]
+                        for _, ev in zip(range(2),
+                                         tk_tcp.stream(timeout=600))]
+                if seen != [0, 1]:
+                    raise AssertionError(f"serve_wire: TCP events {seen}")
+                _wedge(tcp)
+                # ... and a new connection under its client id reattaches
+                clients["tcp"] = WireClient(
+                    tcp=(host, port), tenant=t_tcp, client_id="chip-tcp",
+                    hello_timeout_s=60.0)
+                got[rid_tcp] = clients["tcp"].submit(
+                    "rollout", p_tcp, request_id=rid_tcp).result(600)
+                walls[rid_tcp] = time.perf_counter() - t0
+                got[rid_shm] = tk_shm.result(timeout=600)
+                walls[rid_shm] = time.perf_counter() - t0
+            held = _path_kernel_calls(drive, ("sinkhorn_log",
+                                              "round_dominant"))
+            launches = dict(ops.LAUNCHES)
+            accepted = svc.stats["accepted"]      # one execution each
+            for label, cli in clients.items():
+                st = cli.submit("stats", {"format": "prometheus"}).result(120)
+                hl = cli.submit("health", {}).result(120)
+                scrapes[label] = {
+                    "stats_ok": st.ok and "serve_accepted_total"
+                    in st.value["text"],
+                    "health_ok": hl.ok and hl.value["watch_enabled"]
+                    and hl.value["workers"]["up"] == 1}
+            watch = subprocess.run(
+                [sys.executable, "-m", "aclswarm_torch.telemetry.watch",
+                 "--tcp", f"{host}:{port}"], capture_output=True,
+                text=True, timeout=120, cwd=Path(__file__).resolve().parent)
+            scrapes["watch_tcp_exit"] = watch.returncode
+        finally:
+            tcp._c2s.close()          # the wedged client's socket
+            for cli in clients.values():
+                cli.close()
+            srv.close()
+            svc.close()
+        postmortem = _journal_postmortem("serve_wire", tmp, got)
+    seconds = time.perf_counter() - t_phase
+    bad = {rid: (r.status, r.error) for rid, r in got.items() if not r.ok}
+    if bad:
+        raise AssertionError(f"serve_wire: requests failed: {bad}")
+    info = {"phase": "serve_wire", "n": N, "dtype": "float32",
+            "max_batch": 2, "seconds": seconds, "launches": launches,
+            **_round_stats(svc),
+            "wire_share": {rid: {"wall_s": walls[rid],
+                                 "service_s": got[rid].latency_s,
+                                 "wire_s": walls[rid] - got[rid].latency_s}
+                           for rid in got},
+            "frames": frames, "scrapes": scrapes,
+            "watch_tcp_stdout": watch.stdout[-2000:],
+            "watch_tcp_stderr": watch.stderr[-2000:],
+            "postmortem": postmortem,
+            "reattached": {"client_id": "chip-tcp", "request_id": rid_tcp,
+                           "reconnects": svc.telemetry.counter(
+                               "wire_reconnects_total").value,
+                           "accepted": accepted}}
+    emit(info)
+    _same_digests("serve_wire: wire vs alone", got, want)
+    v2f_equal = {rid: bool(np.array_equal(
+        _final_rows(calls, got[rid].value["q"]), want_v2f[rid]))
+        for rid in got}
+    kernels = _served_kernels(held)
+    del held
+    out = {"phase": "serve_wire_checks", "alone_v2f_equal": v2f_equal,
+           "kernels": kernels}
+    emit(out)
+    if not (all(v2f_equal.values())
+            and all(v for k, sc in scrapes.items() if k != "watch_tcp_exit"
+                    for v in sc.values())
+            and scrapes["watch_tcp_exit"] == 0
+            and info["reattached"]["reconnects"] >= 1
+            and info["reattached"]["accepted"] == 2
+            and info["rollout_rounds"] > 0 and info["mean_batch"] > 1.0
+            and launches["sinkhorn_log"] > 0
+            and launches["round_dominant"] > 0
+            and launches["flood_merge"] == 0
+            and frames.get("tcp") and frames.get("shm")):
+        raise AssertionError(f"serve_wire check failed: {info} {out}")
+    info.update(out)
+    return info
+
+
+def phase_serve_watch(seed: int) -> dict:
+    """The health-tier drills on the card, as subprocesses side by side:
+    ``python -m aclswarm_torch.serve.smoke --postmortem --n 1000`` (a
+    worker killed mid-rollout, the migrated request's timeline rebuilt
+    from the journal alone) and ``--multiworker --n 1000`` (the kill
+    fires a ``worker_up`` alert, journaled and on the ``health`` surface,
+    and ``watch --log`` over the persisted ``timeseries.log`` replays the
+    transitions the live engine journaled). Both must print PASS."""
+    t0 = time.perf_counter()
+    procs = {flag: subprocess.Popen(
+        [sys.executable, "-m", "aclswarm_torch.serve.smoke", flag,
+         "--n", str(N)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=Path(__file__).resolve().parent)
+        for flag in ("--postmortem", "--multiworker")}
+    outs, seconds = {}, {}
+    try:
+        for flag, pr in procs.items():
+            out, err = pr.communicate(timeout=600)
+            outs[flag] = (pr.returncode, out, err)
+            seconds[flag] = time.perf_counter() - t0
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    lines = {flag: next((json.loads(ln) for ln in out.splitlines()
+                         if ln.startswith('{"serve_smoke"')), None)
+             for flag, (_, out, _) in outs.items()}
+    info = {"phase": "serve_watch", "seconds": time.perf_counter() - t0,
+            "drill_seconds": seconds, "drills": lines,
+            "pass": {flag: next((ln for ln in out.splitlines()
+                                 if ln.startswith("PASS")), None)
+                     for flag, (_, out, _) in outs.items()}}
+    for flag, (rc, out, err) in outs.items():
+        if rc != 0 or info["pass"][flag] is None or lines[flag] is None:
+            emit(info)
+            raise AssertionError(f"serve_watch {flag} failed (exit {rc}):"
+                                 f"\n{out}\n{err[-4000:]}")
+    info["launches"] = {k: sum(ln["launches"].get(k, 0)
+                               for ln in lines.values())
+                        for k in ("sinkhorn_log", "round_dominant",
+                                  "flood_merge")}
+    emit(info)
+    if not info["launches"]["sinkhorn_log"] \
+            or info["launches"]["flood_merge"]:
+        raise AssertionError(f"serve_watch launches: {info['launches']}")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3950,7 +4247,8 @@ def main(argv=None) -> int:
                  "slice_scenarios": phase_slice_scenarios,
                  "checks_faults": phase_checks_faults, "churn": phase_churn,
                  "serve": phase_serve,
-                 "serve_recovery": phase_serve_recovery}
+                 "serve_recovery": phase_serve_recovery,
+                 "serve_watch": phase_serve_watch}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
@@ -3969,9 +4267,10 @@ def main(argv=None) -> int:
             elif name == "trial_batch_checked":
                 done[name] = timed(name, phase_trial_batch_checked,
                                    args.seed, done.get("trial_batch"))
-            elif name in ("serve_preempt", "serve_failover"):
+            elif name in ("serve_preempt", "serve_failover", "serve_wire"):
                 fn = {"serve_preempt": phase_serve_preempt,
-                      "serve_failover": phase_serve_failover}[name]
+                      "serve_failover": phase_serve_failover,
+                      "serve_wire": phase_serve_wire}[name]
                 done[name] = timed(name, fn, args.seed, done.get("serve"))
             else:
                 done[name] = timed(name, table[name], args.seed)
@@ -4007,6 +4306,8 @@ def main(argv=None) -> int:
     sp = timed("serve_preempt", phase_serve_preempt, args.seed, sv)
     sf = timed("serve_failover", phase_serve_failover, args.seed, sv)
     sr = timed("serve_recovery", phase_serve_recovery, args.seed)
+    sw = timed("serve_wire", phase_serve_wire, args.seed, sv)
+    sh = timed("serve_watch", phase_serve_watch, args.seed)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -4056,7 +4357,9 @@ def main(argv=None) -> int:
                    "serve": sv["launches"][name],
                    "serve_preempt": sp["launches"][name],
                    "serve_failover": sf["launches"][name],
-                   "serve_recovery": sr["launches"][name]},
+                   "serve_recovery": sr["launches"][name],
+                   "serve_wire": sw["launches"][name],
+                   "serve_watch": sh["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -8,9 +8,10 @@ call it (no outer `jit`).
 aligned formation (`cbaa_assign`: the port's distance is
 `torch.linalg.vector_norm`, which matched the reference's compiled norm
 bit for bit; the separately rounded sum of squares did not). Through
-`cbaa_from_state` the two batched SVDs differ in the last bits of the
-alignment, so there `price` is held at rtol 1e-12. The alignment itself is
-held at atol 1e-9 on R p + t, never on the SVD factors.
+`cbaa_from_state` the reference's batched SVD and the port's closed-form
+rotation differ in the last bits of the alignment, so there `price` is
+held at rtol 1e-12. The alignment itself is held at atol 1e-9 on R p + t,
+never on the factors.
 
 `cbaa_ref.cbaa_oracle` (sequential per-vehicle numpy loops) is the second
 oracle at n <= 12."""
@@ -159,6 +160,40 @@ def test_align_formation_local_isolated_point():
     np.testing.assert_allclose(out[lonely, 4, :2], q[lonely, :2], rtol=0,
                                atol=1e-9)
     assert np.isfinite(out).all()
+
+
+def _svd_rotation(sigma):
+    """The reference's rule for one (2, 2) cross-covariance: the SVD with
+    the determinant correction (`arun`)."""
+    U, _, Vt = np.linalg.svd(sigma)
+    S = np.diag([1.0, np.sign(np.linalg.det(U) * np.linalg.det(Vt)) or 1.0])
+    return U @ S @ Vt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_align_formation_local_batch_equals_lone_solves(dtype):
+    """The local alignment's rotations come from `_rotation2` element by
+    element: each agent's rotation in a batch of local alignments is its
+    lone solve's bit for bit (a batched SVD rounds a batch otherwise), and
+    it is the reference's SVD-with-determinant rotation, reflected and
+    zero covariances included (a zero covariance gives I)."""
+    n = 40
+    rng = np.random.default_rng(7)
+    sig = rng.normal(size=(n, 2, 2))
+    sig[1] = [[-1.0, 0.5], [0.0, 2.0]]           # a reflection (det < 0)
+    sig[2] = 0.0                                 # nothing to align on
+    sigma = torch.as_tensor(sig, dtype=dtype)
+    batch = geometry._rotation2(sigma)
+    for v in range(n):
+        assert torch.equal(batch[v], geometry._rotation2(sigma[v])), v
+    assert torch.equal(batch[2], torch.eye(2, dtype=dtype))
+    want = np.stack([_svd_rotation(s) for s in sig])
+    want[2] = np.eye(2)
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    np.testing.assert_allclose(batch.double().numpy(), want, rtol=0,
+                               atol=tol)
+    np.testing.assert_allclose(np.linalg.det(batch.double().numpy()), 1.0,
+                               rtol=0, atol=tol)
 
 
 # --- the auction -----------------------------------------------------------

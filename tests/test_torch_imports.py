@@ -29,10 +29,12 @@ def _imported(path: Path) -> set[str]:
 
 
 def _file_id(path: Path) -> str:
-    """The file's name; under the analysis, telemetry, serve and utils
-    subpackages its path in the package, so a shared name (`registry.py`,
-    `__init__.py`) leaves the other files' ids as they were."""
-    if path.parent.name in ("analysis", "telemetry", "serve", "utils"):
+    """The file's name; under the analysis, telemetry, serve, utils and
+    interop subpackages its path in the package, so a shared name
+    (`registry.py`, `__init__.py`) leaves the other files' ids as they
+    were."""
+    if path.parent.name in ("analysis", "telemetry", "serve", "utils",
+                            "interop"):
         return f"{path.parent.name}/{path.name}"
     return path.name
 
@@ -53,8 +55,11 @@ def test_scan_covers_the_package():
             "spans.py", "locks.py", "review.py", "rosbag1.py",
             "executor.py", "retry.py", "lifecycle.py", "staging.py",
             "service.py", "workers.py", "admission.py", "api.py",
-            "stats.py", "client.py", "smoke.py", "lapjv.py"} <= names
-    for sub in ("analysis", "telemetry", "serve", "utils"):
+            "stats.py", "client.py", "smoke.py", "lapjv.py", "log.py",
+            "timeseries.py", "slo.py", "postmortem.py", "watch.py",
+            "messages.py", "codec.py", "native.py", "transport.py",
+            "wire.py", "traffic.py"} <= names
+    for sub in ("analysis", "telemetry", "serve", "utils", "interop"):
         assert ROOT / "aclswarm_torch" / sub / "__init__.py" in FILES
 
 
@@ -64,8 +69,21 @@ def test_telemetry_package_init_stays_stdlib_only():
     explicitly)."""
     pkg = ROOT / "aclswarm_torch" / "telemetry"
     for name in ("__init__.py", "registry.py", "spans.py", "locks.py",
-                 "lifecycle.py"):
+                 "lifecycle.py", "timeseries.py", "slo.py", "postmortem.py",
+                 "watch.py"):
         assert not _imported(pkg / name) & {"torch", "numpy"}, name
+
+
+def test_wire_modules_import_no_torch():
+    """The wire boundary stays light, as the reference's: the interop
+    modules and the wire front end import neither torch nor the engine
+    (a bridge or a `watch --tcp` process speaks the wire without them)."""
+    pkg = ROOT / "aclswarm_torch"
+    for rel in ("interop/__init__.py", "interop/messages.py",
+                "interop/codec.py", "interop/native.py",
+                "interop/transport.py", "serve/wire.py", "serve/traffic.py",
+                "utils/log.py"):
+        assert "torch" not in _imported(pkg / rel), rel
 
 
 def test_init_state_without_device_needs_the_card(monkeypatch):

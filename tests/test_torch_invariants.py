@@ -389,8 +389,9 @@ class _OpCount(TorchDispatchMode):
 # the engine before the sanitizer and the counters existed (2391, 1098,
 # 1801), plus 13 where the step aligns the formation with `geometry.align`
 # since its 2-D rotation is taken in closed form (66 ops a call, the SVD's
-# 53)
-OPS_BEFORE = {"sinkhorn_flooded": 2391 + 13, "cbaa_faults": 1098,
+# 53), and 9 where CBAA's local alignment takes the same closed form
+# (`_rotation2`: 27 ops, the batched SVD with its sign fix 18)
+OPS_BEFORE = {"sinkhorn_flooded": 2391 + 13, "cbaa_faults": 1098 + 9,
               "auction_fsm": 1801 + 13}
 
 

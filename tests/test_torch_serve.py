@@ -15,9 +15,11 @@ other, a worker's death fails its jobs over to the survivors (with the
 poison bound and the exoneration of innocent batch-mates), and an
 all-tenants-idle `close` is a clean shutdown.
 
-The reference's postmortem reader is not ported: the trace cases read the
-journal's `events.log` with `LifecycleLog.read` and check the trace id,
-the preempted/resumed/migrated arc and gap-free chunk coverage there.
+The trace cases read the journal's `events.log` with `LifecycleLog.read`
+and check the trace id and the preempted/resumed/migrated arc there, and
+hold each request to the port's postmortem (`postmortem.analyze_request`:
+complete, gap-free chunk coverage, duplicate executions bit-identical,
+one trace id, the terminal event last).
 
 Parity with the reference: the same script through both services gives
 the same statuses, error codes, chunk counts, preemptions, failovers and
@@ -44,7 +46,7 @@ from aclswarm_torch.serve import (COMPLETED, FAILED, TIMED_OUT,
                                   RejectedError, ServiceConfig, SwarmService,
                                   Ticket, bucket_of, place_slot,
                                   submit_and_wait)
-from aclswarm_torch.telemetry import LifecycleLog
+from aclswarm_torch.telemetry import LifecycleLog, postmortem
 
 torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
 
@@ -96,19 +98,30 @@ def _events(journal, rid: str) -> list:
     return [r for r in rows if r.get("request_id") == rid]
 
 
-def _gap_free(events: list, chunks: int) -> bool:
-    """Every chunk 0..chunks-1 journaled, submitted first, resolved
-    last."""
-    ks = {r["k"] for r in events if r["event"] == "chunk"}
-    return (ks == set(range(chunks)) and events[0]["event"] == "submitted"
-            and events[-1]["event"] == "resolved")
+def _gap_free(events: list, rid: str, res) -> bool:
+    """The postmortem's verdict on one request's journaled events: complete
+    and gap-free, under the result's trace id and chunk count."""
+    rep = postmortem.analyze_request(events, rid)
+    assert rep["problems"] == [], rep["problems"]
+    return (rep["complete"] and rep["gap_free"]
+            and rep["trace_id"] == res.trace_id
+            and rep["chunks"] == res.chunks)
 
 
 # ------------------------------------------------------------- config
 
 def test_unported_config_fields_raise():
-    with pytest.raises(NotImplementedError, match="swarmwatch"):
-        SwarmService(cfg(watch=True), start=False)
+    """``cpu_fallback`` raises (no CPU re-run); ``watch=True`` builds the
+    health tier and its ``health`` kind reports live SLO verdicts."""
+    with SwarmService(cfg(watch=True, watch_interval_s=0.05)) as svc:
+        svc.watch.sampler.tick()          # deterministic first sample
+        h = svc.submit("health", {}).result(60)
+        assert h.ok and h.value["watch_enabled"]
+        watch = h.value["watch"]
+        assert set(watch["verdicts"]) == {
+            "availability", "latency_p99", "goodput", "silent_loss",
+            "worker_up", "queue_saturation"}
+        assert watch["firing"] == [] and watch["sampler"]["samples"] >= 1
     with pytest.raises(NotImplementedError, match="CPU"):
         SwarmService(cfg(cpu_fallback=True), start=False)
     with pytest.raises(ValueError, match="dtype"):
@@ -380,7 +393,7 @@ class TestTraceContinuity:
         for rid, res in (("pa", ra), ("pb", rb)):
             ev = _events(tmp_path, rid)
             assert {r["trace_id"] for r in ev} == {res.trace_id}
-            assert _gap_free(ev, res.chunks)
+            assert _gap_free(ev, rid, res)
         names = [r["event"] for r in _events(tmp_path, "pa")]
         assert "preempted" in names and "resumed" in names
 
@@ -405,7 +418,7 @@ class TestTraceContinuity:
         assert res.ok and res.resumed and res.trace_id == tid_before
         ev = _events(tmp_path, "roll")
         assert {r["trace_id"] for r in ev} == {tid_before}
-        assert _gap_free(ev, res.chunks)
+        assert _gap_free(ev, "roll", res)
         names = [r["event"] for r in ev]
         # the crash gap reads queued(recovery) -> batched -> resumed
         rec = names.index("queued", names.index("queued") + 1) \
@@ -719,7 +732,7 @@ class TestMultiWorker:
         assert res.ok and res.failovers >= 1
         ev = _events(tmp_path, "mig")
         assert {r["trace_id"] for r in ev} == {res.trace_id}
-        assert _gap_free(ev, res.chunks)
+        assert _gap_free(ev, "mig", res)
         names = [r["event"] for r in ev]
         assert "migrated" in names and "resumed" in names[
             names.index("migrated"):]
@@ -859,7 +872,8 @@ def test_service_matches_the_reference_on_one_script():
 def test_serve_smoke_subprocess(extra):
     """The smoke drills on the CPU at n=5: the child process SIGKILLed at
     serve round 3 and its journal recovery, and the worker-kill
-    failover; each PASSes within its own time limit."""
+    failover seen live by the health tier; each PASSes within its own
+    time limit."""
     r = subprocess.run(
         [sys.executable, "-m", "aclswarm_torch.serve.smoke", "--device",
          "cpu", "--dtype", "float64", *extra],
@@ -870,7 +884,14 @@ def test_serve_smoke_subprocess(extra):
 
 
 @pytest.mark.parametrize("flag", ["--postmortem", "--procs"])
-def test_smoke_names_the_slices_it_lacks(flag):
+def test_smoke_names_the_slices_it_lacks(flag, capsys):
+    """``--postmortem`` runs its drill (a worker killed mid-rollout, the
+    timeline rebuilt from the journal alone) and passes; ``--procs``
+    still names the process-mode slice it lacks."""
     from aclswarm_torch.serve import smoke
-    with pytest.raises(SystemExit):
-        smoke.main([flag])
+    if flag == "--procs":
+        with pytest.raises(SystemExit):
+            smoke.main([flag])
+        return
+    assert smoke.main([flag, "--device", "cpu", "--dtype", "float64"]) == 0
+    assert "PASS" in capsys.readouterr().out
