@@ -1,5 +1,5 @@
-"""Interop: the `aclswarm_msgs` wire boundary, ROS-free (port of the parts
-of `aclswarm_tpu.interop` the wire front ends use).
+"""Interop: the `aclswarm_msgs` wire boundary, ROS-free (port of
+`aclswarm_tpu.interop`).
 
 - ``messages``  — dataclass equivalents of the wire messages.
 - ``codec``     — framed binary encoding (Python implementation; the same
@@ -8,10 +8,18 @@ of `aclswarm_tpu.interop` the wire front ends use).
   `native/` (``make -C native``), byte-identical to ``codec``.
 - ``transport`` — host-local channels over the native shared-memory ring,
   and TCP sockets with the same channel API.
+- ``planner``   — `TorchPlanner`: the coordination stack driven purely
+  through wire messages, on the CUDA card unless asked for the CPU.
+- ``bridge``    — the planner daemon on the shm rings; ``operator`` the
+  base station that dispatches formations and flight modes to it.
+- ``ros_bridge``— the `aclswarm_msgs` ROS adapter node (rospy injected;
+  ``ros_fakes`` supplies the stand-ins with the real field layouts;
+  ``viz_markers`` its rviz markers).
 
-No module here imports torch: a bridge or recorder process can speak the
-wire without the engine. The reference's planner, bridge, operator, ROS
-and visualisation modules are not ported yet.
+The planner (which pulls in torch and the engine) is exposed lazily, so a
+bridge client or recorder process can import the codec, messages and
+transport without the engine — the light wire boundary the codec exists
+for.
 """
 from aclswarm_torch.interop import codec, messages
 from aclswarm_torch.interop.messages import (CBAA, Formation, Header,
@@ -19,4 +27,12 @@ from aclswarm_torch.interop.messages import (CBAA, Formation, Header,
                                              formation_from_spec)
 
 __all__ = ["codec", "messages", "Header", "Formation", "CBAA",
-           "VehicleEstimates", "SafetyStatus", "formation_from_spec"]
+           "VehicleEstimates", "SafetyStatus", "formation_from_spec",
+           "TorchPlanner", "PlannerOutput"]
+
+
+def __getattr__(name):
+    if name in ("TorchPlanner", "PlannerOutput"):
+        from aclswarm_torch.interop import planner
+        return getattr(planner, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

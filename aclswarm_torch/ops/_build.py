@@ -60,6 +60,9 @@ LAUNCHES = {"sinkhorn_log": 0, "round_dominant": 0, "flood_merge": 0}
 _LAUNCHES_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
+# what this process loaded: `build`'s return ({"library", "cached", ...});
+# empty until the first launch
+LOADED: dict = {}
 
 
 def reset_launches() -> None:
@@ -144,12 +147,14 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build()["library"])
+            info = build()
+            lib = ctypes.CDLL(info["library"])
             for symbol, argtypes in _ENTRY.items():
                 fn = getattr(lib, symbol)
                 fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
+            LOADED.update(library=info["library"], cached=info["cached"])
             _LIB = lib
         return _LIB
 

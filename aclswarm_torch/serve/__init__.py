@@ -25,8 +25,10 @@ per request. Its contract is the reference's:
 
 The service runs on the CUDA card unless ``ServiceConfig(device="cpu")``
 asks for the CPU. ``ServiceConfig(watch=True)`` runs the health tier
-(`telemetry.slo`) and the ``health`` kind reports its SLO verdicts. The
-reference's process mode (router, procworker) is not ported yet.
+(`telemetry.slo`) and the ``health`` kind reports its SLO verdicts.
+Process mode: `serve.router.SwarmRouter(RouterConfig(...))` is a wire
+front door over one `serve.procworker` OS process per slot, each a
+`SwarmService` with its own CUDA context (``serve.smoke --procs``).
 """
 from aclswarm_torch.serve.api import (COMPLETED, FAILED, PREEMPTED, QUEUED,
                                       RUNNING, TERMINAL, TIMED_OUT,

@@ -11,7 +11,8 @@ process mid-batch, recover, prove zero losses and a bit-identical resume.
    unfinished request (the rollout from its checkpoint) and drains;
 3. the parent asserts that every accepted request has a terminal
    done-frame (zero silent losses) and that the resumed rollout's final
-   digest equals an uninterrupted in-parent run's, bit for bit.
+   digest equals an uninterrupted in-parent run's (served while the
+   first child runs), bit for bit.
 
     python -m aclswarm_torch.serve.smoke [--device cpu --dtype float64]
                                          [--n N]
@@ -32,12 +33,22 @@ the migrated request's story from the journal alone
 equal to the result's, a migration, chunk coverage equal to the
 result's, and the supervisor's "declared dead" span dump.
 
-Without ``--device`` everything runs on the CUDA card. ``--n`` sizes the
-rollout and the assignment (the gain design stays at n=5). The rollout
-assigns by Sinkhorn (the reference's smoke: the auction), so on the card
-it runs through K1 and K2; on the CPU their plain versions. The
-reference's ``--procs`` drill belongs to a later slice of the port and
-exits with an error naming it.
+``--procs`` is the process-mode drill: a router (`serve.router`) over
+two `serve.procworker` processes, each serving on its own CUDA context;
+the process holding the rollout is SIGKILLed mid-flight. The three
+router promises complete with zero losses, the migrated rollout's digest
+equals an uncontended in-parent run's, a rolling restart re-admits a
+new pid per slot, and `telemetry.postmortem.fleet_reconstruct` over the
+per-slot journals alone finds the rollout complete and gap-free and no
+losses. Its JSON line carries each child's boot seconds (spawn to
+READY), the detection ms, the failover and restart seconds, and the
+children's kernel launches (each child's last heartbeat).
+
+Without ``--device`` everything runs on the CUDA card (the children
+too). ``--n`` sizes the rollout and the assignment (the gain design
+stays at n=5). The rollout assigns by Sinkhorn (the reference's smoke:
+the auction), so on the card it runs through K1 and K2; on the CPU their
+plain versions.
 """
 from __future__ import annotations
 
@@ -149,12 +160,29 @@ def run_smoke(args) -> int:
     with _journal_dir("serve") as d:
         env = dict(os.environ, **{ENV_VAR: f"serve:{KILL_ROUND}:kill"})
         t0 = time.time()
-        r = subprocess.run(_child_cmd(args, d), env=env,
-                           capture_output=True, text=True, timeout=900)
+        child1 = subprocess.Popen(_child_cmd(args, d), env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+        try:
+            # the uninterrupted run the resume is held against serves in
+            # the parent while the first child runs to its kill
+            t1 = time.time()
+            before = dict(ops.LAUNCHES)
+            ref = SwarmService(_cfg(args, max_batch=1))
+            ref_res = ref.submit(reqs[0]["kind"],
+                                 reqs[0]["params"]).result(600)
+            ref.close()
+            timing["reference_s"] = time.time() - t1
+            ref_launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            out1, err1 = child1.communicate(timeout=900)
+        finally:
+            if child1.poll() is None:
+                child1.kill()
+                child1.wait()
         timing["killed_child_s"] = time.time() - t0
-        if r.returncode != -signal.SIGKILL:
-            print(f"FAIL: child exited {r.returncode}, expected "
-                  f"{-signal.SIGKILL} (SIGKILL)\n{r.stdout}\n{r.stderr}")
+        if child1.returncode != -signal.SIGKILL:
+            print(f"FAIL: child exited {child1.returncode}, expected "
+                  f"{-signal.SIGKILL} (SIGKILL)\n{out1}\n{err1}")
             return 1
         accepted = sorted(p.name for p in Path(d).glob("req_*.req"))
         if len(accepted) != len(reqs):
@@ -195,18 +223,11 @@ def run_smoke(args) -> int:
             print("FAIL: rollout did not resume from its checkpoint")
             return 1
 
-        # bit-identical resume: an uninterrupted run in the parent
+        # bit-identical resume: against the uninterrupted run
         payload, _ = _read_frame(Path(d) / "req_smoke-roll.done")
         resumed_digest = payload["value"]["digest"]
-        t0 = time.time()
-        before = dict(ops.LAUNCHES)
-        ref = SwarmService(_cfg(args, max_batch=1))
-        ref_res = ref.submit(reqs[0]["kind"], reqs[0]["params"]).result(600)
-        ref.close()
-        timing["reference_s"] = time.time() - t0
         launches = {"recovery_child": _child_launches(r2.stdout),
-                    "reference": {k: ops.LAUNCHES[k] - before[k]
-                                  for k in before}}
+                    "reference": ref_launches}
         if ref_res.value["digest"] != resumed_digest:
             print(f"FAIL: resumed digest {resumed_digest:#x} != "
                   f"uninterrupted {ref_res.value['digest']:#x}")
@@ -405,6 +426,132 @@ def run_postmortem(args) -> int:
     return 0
 
 
+def run_procs(args) -> int:
+    """The process-mode drill: a router tier over two procworker OS
+    processes, SIGKILL the one holding the rollout mid-flight, and prove
+    (a) the router's promises survive — every ticket resolves completed,
+    the rollout with a digest equal to an uncontended run's, (b) a
+    graceful rolling restart re-admits a NEW incarnation per slot while
+    the fleet keeps serving, (c) zero journaled losses and a gap-free
+    story reconstruct from the per-slot journals alone
+    (`postmortem.fleet_reconstruct` — the killed pid is gone)."""
+    from aclswarm_torch.serve.router import RouterConfig, SwarmRouter
+
+    t0 = time.time()
+    reqs = requests(args.n)
+    roll = reqs[0]["params"]
+    service = {"max_batch": 1, "quantum_chunks": 1, "dtype": args.dtype}
+    if args.device is not None:
+        service["device"] = args.device
+    with _journal_dir("proc") as d:
+        router = SwarmRouter(RouterConfig(journal_root=d, slots=2,
+                                          worker={"service": service}))
+        try:
+            router.start()
+            # the bit-parity reference, an uncontended in-parent run,
+            # serves while the children boot
+            before = dict(ops.LAUNCHES)
+            ref = SwarmService(_cfg(args, max_batch=1))
+            want = ref.submit("rollout", roll).result(600)
+            ref.close()
+            assert want.ok, want.error
+            ref_launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            timing = {"reference_s": time.time() - t0}
+            if not router.wait_ready(300):
+                print(f"FAIL: fleet never came up: {router.fleet()}")
+                return 1
+            pids0 = {f["slot"]: f["pid"] for f in router.fleet()}
+            tickets = [router.submit(r["kind"], r["params"],
+                                     tenant=r["tenant"],
+                                     request_id=r["request_id"])
+                       for r in reqs]
+            # kill the PROCESS that holds the rollout once its route is
+            # placed there
+            deadline = time.monotonic() + 120
+            uid = ""
+            while not uid and time.monotonic() < deadline:
+                uid = router.route_uid("smoke-roll")
+                time.sleep(0.005)
+            if not uid:
+                print("FAIL: the rollout was never dispatched")
+                return 1
+            t_kill = time.time()
+            drill = router.kill_slot(int(uid.split(".")[0]))
+            timing["readmit_s"] = time.time() - t_kill
+            results = {r["request_id"]: t.result(timeout=600)
+                       for r, t in zip(reqs, tickets)}
+            timing["failover_s"] = time.time() - t_kill
+            losses = [rid for rid, res in results.items()
+                      if res.status != "completed"]
+            if losses:
+                print(f"FAIL: lost across the process kill: {losses} "
+                      f"({ {k: v.status for k, v in results.items()} })")
+                return 1
+            roll_res = results["smoke-roll"]
+            if roll_res.value["digest"] != want.value["digest"]:
+                print(f"FAIL: migrated digest "
+                      f"{roll_res.value['digest']:#x} != uncontended "
+                      f"{want.value['digest']:#x}")
+                return 1
+            if drill["migrated"] < 1 or not drill["readmitted"]:
+                print(f"FAIL: kill drill did not migrate + readmit: "
+                      f"{drill}")
+                return 1
+            restart = router.rolling_restart()
+        finally:
+            jdirs = [str(p) for p in router.journal_dirs()]
+            router.close()
+        bad = [row for row in restart
+               if not (row["readmitted"] and row["drained"])]
+        if bad:
+            print(f"FAIL: rolling restart rows not clean: {bad}")
+            return 1
+        pids1 = {row["slot"]: row["new_pid"] for row in restart}
+        if any(pids1[sl] == pids0.get(sl) for sl in pids1):
+            print(f"FAIL: rolling restart reused a pid: {pids0} -> "
+                  f"{pids1}")
+            return 1
+        # the journals are all that's left of the killed pid — the
+        # whole story must reconstruct from disk alone
+        fleet = postmortem.fleet_reconstruct(jdirs)
+        if fleet["losses"]:
+            print(f"FAIL: journaled losses after the drill: "
+                  f"{fleet['losses']}")
+            return 1
+        rep = fleet["requests"].get("smoke-roll")
+        if rep is None or not rep["complete"] or not rep["gap_free"]:
+            print(f"FAIL: smoke-roll does not reconstruct "
+                  f"complete+gap-free from the fleet journals: "
+                  f"{rep and rep['problems']}")
+            return 1
+    children = {k: sum(c["launches"].get(k, 0)
+                       for c in router.child_launches.values())
+                for k in ops.LAUNCHES}
+    print(json.dumps({
+        "serve_smoke": "procs", "n": args.n,
+        "digest": roll_res.value["digest"],
+        "launches": {"children": children, "reference": ref_launches},
+        "child_launches": router.child_launches,
+        "boots": router.boots, "detect_ms": (drill["detect_s"] or 0) * 1e3,
+        "migrated": drill["migrated"],
+        "restart_s": [row["restart_s"] for row in restart],
+        "pids": {"start": pids0, "killed": drill["old_pid"],
+                 "respawned": drill["new_pid"], "restarted": pids1},
+        "fleet": {k: fleet[k] for k in ("resolved", "gap_free")},
+        **{k: round(v, 3) for k, v in timing.items()},
+        "seconds": round(time.time() - t0, 3)}))
+    print("PASS: SIGKILL'd procworker pid %s mid-rollout — 3/3 router "
+          "promises completed, migrated digest bit-identical (%#010x), "
+          "detection %.0f ms, %d route(s) migrated; rolling restart "
+          "re-admitted %d fresh incarnation(s); fleet postmortem from %d "
+          "journals: %d resolved, %d gap-free, 0 losses (%.1fs)"
+          % (drill["old_pid"], roll_res.value["digest"],
+             (drill["detect_s"] or 0) * 1e3, drill["migrated"],
+             len(restart), len(jdirs), fleet["resolved"],
+             fleet["gap_free"], time.time() - t0))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--child", action="store_true",
@@ -424,11 +571,14 @@ def main(argv=None) -> int:
                     help="postmortem drill (kill a worker mid-rollout, "
                          "rebuild its timeline from the journal alone)")
     ap.add_argument("--procs", action="store_true",
-                    help="not ported yet (the process-mode slice)")
+                    help="process-mode drill: router + 2 procworker "
+                         "processes, SIGKILL the rollout's mid-flight, "
+                         "assert zero-loss migration, bit-identical "
+                         "digest, rolling restart, and a gap-free fleet "
+                         "postmortem from the per-slot journals alone")
     args = ap.parse_args(argv)
     if args.procs:
-        ap.error("--procs needs the router and procworker processes, part "
-                 "of the port's process-mode slice, not ported yet")
+        return run_procs(args)
     if args.child:
         return child(args)
     if args.multiworker:

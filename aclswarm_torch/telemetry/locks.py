@@ -25,6 +25,7 @@ __all__ = ["LockOrderViolation", "OrderedLock", "DEFAULT_RANKS", "arm",
 
 # the reference's ranks of the families the port locks
 DEFAULT_RANKS: dict[str, int] = {
+    "serve.router": 10,         # router front door (stateless tier)
     "serve.wire": 14,           # wire dispatcher connection table
     "serve.service": 20,        # the service lock (jobs, stats, staging)
     "serve.pool": 40,           # worker-pool lifecycle lock

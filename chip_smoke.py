@@ -63,8 +63,11 @@ and prints no result line:
              auction ticks;
 11. slice_auction — the same start under the default assignment
              ('auction', ground truth), 121 ticks, no kernel of the port on
-             its path; and the default `SimConfig()` at n=6 (random gains)
-             for 240 ticks on the card against the CPU;
+             its path, each auction that ran out of rounds equal to the
+             CPU's on its benefit matrix (tick 0's is the `auction`
+             phase's: its CPU result is reused); and the default
+             `SimConfig()` at n=6 (random gains) for 240 ticks on the card
+             against the CPU;
 12. trial   — the `simform1000_flooded` row flown as a trial through
              `harness.trials.run_trial` (float32, `trial_timeout` cut to
              14 s): takeoff, hover, one dispatch whose ADMM design is
@@ -73,7 +76,8 @@ and prints no result line:
              the dispatch), the device-to-host copies of whole chunks, ms
              per tick of hover and flying chunks, the FSM's host ms per
              chunk, wall against simulated seconds; then `swarm6_3d` (seed
-             1, library gains) on the card against the CPU;
+             1, library gains, the whole trial) on the card against the
+             CPU, the CPU's run in a child process at the same time;
 13. batch_kernels — each kernel's batched launch (B=5 problems at n=1000,
              the main path's inputs of seeds S..S+4) against B single
              launches, bit for bit (K1 too: a batch keeps each line's
@@ -122,7 +126,8 @@ and prints no result line:
              per trial over a 160-tick horizon: outcomes, paths,
              trial-seconds per wall second beside `trial_batch`'s, copies
              of the profiled chunk 11; then `swarm6_3d` under `wind_gust`
-             (cut at 30 s) on the card against the CPU;
+             (cut at 30 s) on the card against the CPU (in a child
+             process, at the same time);
 19. checks — the slice's 240 ticks with ``check_mode`` and ``telemetry``
              off, then on, from one start: every invariant code 0, q and
              v2f bit-identical, the off run's launches equal `slice`'s,
@@ -152,7 +157,7 @@ and prints no result line:
              `reassigns` and `auctions` counters;
 24. serve  — a journaled one-worker `SwarmService` (`max_batch=4`, staged
              and pipelined, float32) serves eight n=1000 Sinkhorn
-             rollouts of two tenants (`simform1000`'s points, 120 ticks
+             rollouts of two tenants (`simform1000`'s points, 80 ticks
              in chunks of 20, two faulted), one n=1000 `assign` and one
              `simform1000` `gains` design: all complete; the rollouts
              equal a `staging=False` service's bit for bit; every K1
@@ -188,7 +193,24 @@ and prints no result line:
              journal-only timeline of a migrated request; a worker kill
              fired, journaled, on `health`, and replayed alike by
              `watch --log`);
-30. the `kernels` line, then the result line. Each kernel row carries the
+30. serve_procs — `serve.smoke --procs --n 1000`: a router over two
+             procworker processes (each its own CUDA context), the one
+             holding the rollout SIGKILLed mid-flight and respawned, then
+             a rolling restart: PASS (zero losses, the migrated digest
+             equal to the in-parent run's, new pids, a gap-free fleet
+             postmortem); the children's boot seconds, detection ms,
+             failover and restart seconds and launches (K1 > 0, K3 0),
+             each child on the library `build` left;
+31. bridge — the planner daemon (`interop.bridge --n 1000 --assignment
+             sinkhorn`) on the card, driven over the shm rings by this
+             process as operator (`simform1000` without gains: the daemon
+             designs them) and vehicles, 360 ticks, then a KILL: every
+             tick equal bit for bit to an in-process `TorchPlanner` fed
+             the decoded stream, whose K1 and K2 calls hold against their
+             plain versions; zero distcmd from the KILL; `swarm6_3d` card
+             against CPU; boot seconds, design ms, ms per tick through
+             the wire and in process, frames and bytes per ring;
+32. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -211,9 +233,11 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -1264,10 +1288,12 @@ def _auction_agrees(info: dict) -> bool:
             and info["valid"] == info["valid_cpu"])
 
 
-def phase_auction(seed: int) -> None:
+def phase_auction(seed: int) -> dict:
     """The auction LAP at n=1000, float32, on the slice's own start and
     formation. The benefit matrix is computed once on the card and copied:
-    two math libraries' distances may differ in the last bit."""
+    two math libraries' distances may differ in the last bit. Returns the
+    benefit matrix and the CPU's result on it (`phase_slice_auction`'s
+    first auction solves the same matrix)."""
     from aclswarm_torch.assignment import auction, sinkhorn
     from aclswarm_torch.core import geometry
     from aclswarm_torch.core import perm as permutil
@@ -1334,6 +1360,7 @@ def phase_auction(seed: int) -> None:
     emit(info)
     if not (_auction_agrees(info) and info["valid"]):
         raise AssertionError(f"auction tie check failed: {info}")
+    return {"benefit": benefit, "cpu": cpu}
 
 
 def _flooded_inputs(seed: int, dev, ticks: int = 6):
@@ -1557,12 +1584,15 @@ def phase_slice_cbaa(seed: int) -> dict:
     return info
 
 
-def phase_slice_auction(seed: int) -> dict:
+def phase_slice_auction(seed: int, auction_phase: dict) -> dict:
     """The same start under the engine's default assignment, and the
-    default `SimConfig()` at n=6 on the card against the CPU."""
+    default `SimConfig()` at n=6 on the card against the CPU. Each auction
+    the rollout solves is kept (`auction.auction_lap`'s input and result);
+    one that ran out of rounds must equal the CPU's on its benefit matrix
+    — the `auction` phase's CPU result when the matrix is that phase's
+    (tick 0 starts from the same state), else solved here."""
     from aclswarm_torch import ops, sim
     from aclswarm_torch.assignment import auction
-    from aclswarm_torch.core import geometry
     from aclswarm_torch.core import perm as permutil
     from aclswarm_torch.core import types
 
@@ -1576,8 +1606,16 @@ def phase_slice_auction(seed: int) -> dict:
                 sim.SimConfig(**dict(ENGINE_AUCTION, assignment="none")), 2)
     torch.cuda.synchronize()                                 # warm-up
     torch.cuda.reset_peak_memory_stats()
+    solved = []
+
+    def kept(benefit, **kw):
+        res = lap(benefit, **kw)
+        solved.append((benefit, res))
+        return res
+
     ops.reset_launches()
-    run = _rollout_in_pieces(state, formation, gains, sparams, cfg)
+    with _patched(auction, "auction_lap", kept) as lap:
+        run = _rollout_in_pieces(state, formation, gains, sparams, cfg)
     launches = dict(ops.LAUNCHES)
     final = run["final"]
     finite = all(bool(torch.isfinite(t).all())
@@ -1585,17 +1623,16 @@ def phase_slice_auction(seed: int) -> dict:
     # an auction that ran out of rounds holds the assignment, as in the
     # reference; it must then equal the CPU's on the same benefit matrix
     iters = []
-    for before, ok in zip(run["befores"],
-                          run["valid"][run["auctioned"]].tolist()):
-        p_al = geometry.align(formation.points, permutil.veh_to_formation_order(
-            before.swarm.q, before.v2f))
-        benefit = -geometry.cdist(before.swarm.q, p_al)
-        again = auction.auction_lap(benefit)
-        iters.append(int(again.iters))
-        if not ok:
-            same = _same_auction(again, auction.auction_lap(benefit.cpu()))
+    for before, (benefit, card) in zip(run["befores"], solved):
+        iters.append(int(card.iters))
+        if not bool(card.valid):
+            reuse = torch.equal(benefit, auction_phase["benefit"])
+            cpu = (auction_phase["cpu"] if reuse
+                   else auction.auction_lap(benefit.cpu()))
+            same = _same_auction(card, cpu)
             emit({"phase": "slice_auction",
-                  "invalid_auction_at_tick": before.tick, **same})
+                  "invalid_auction_at_tick": before.tick,
+                  "cpu_from_auction_phase": reuse, **same})
             if not _auction_agrees(same):
                 raise AssertionError("slice_auction: an invalid auction on "
                                      f"the card differs from the CPU's: "
@@ -1612,7 +1649,7 @@ def phase_slice_auction(seed: int) -> dict:
     # no kernel of the port is on this path: ground truth, no flood, no
     # Sinkhorn
     if not (finite and info["v2f_valid"] and info["auctions"] == 2
-            and not any(launches.values())):
+            and len(solved) == 2 and not any(launches.values())):
         raise AssertionError(f"slice_auction check failed: {info}")
 
     # the default configuration, six vehicles on a pentagonal pyramid
@@ -1651,6 +1688,44 @@ def _as_asked(out, kw):
     if kw.get("telemetry"):
         return out
     return out[:-1] if len(out) > 2 else out[0]
+
+
+def _device_counts(events) -> dict:
+    """Device-to-host copies, kernel launches and busy ms of a profiled
+    window's device activity, given as (name, duration in ns)."""
+    kernels = [ns for name, ns in events
+               if "Memcpy" not in name and "Memset" not in name]
+    return {"host_reads": sum("Memcpy DtoH" in name for name, _ in events),
+            "kernel_launches": len(kernels),
+            "device_busy_ms": sum(kernels) / 1e6}
+
+
+def _window_counts(prof, both: bool = False) -> dict:
+    """A stopped profiler's device activity (`_device_counts`), read from
+    its raw activity records (building `prof.events()` costs tens of
+    microseconds an event, seconds for a chunk of a batched trial's
+    ~160,000 launches). With ``both`` the counts are also taken from
+    `prof.events()`, as before, and must be the same: copies and
+    launches equal, busy ms within 1e-6 relative (ns against float us)."""
+    from torch.autograd import DeviceType
+
+    counts = _device_counts(
+        [(e.name(), e.duration_ns())
+         for e in prof.profiler.kineto_results.events()
+         if e.device_type() == DeviceType.CUDA])
+    if both:
+        old = _device_counts([(e.name, e.time_range.elapsed_us() * 1e3)
+                              for e in prof.events()
+                              if e.device_type == DeviceType.CUDA])
+        counts["from_events"] = old
+        if (old["host_reads"] != counts["host_reads"]
+                or old["kernel_launches"] != counts["kernel_launches"]
+                or not math.isclose(old["device_busy_ms"],
+                                    counts["device_busy_ms"],
+                                    rel_tol=1e-6)):
+            raise AssertionError("a profiled window's raw activity records "
+                                 f"and prof.events() disagree: {counts}")
+    return counts
 
 
 class _TrialProbe:
@@ -1692,17 +1767,9 @@ class _TrialProbe:
         self._sync()
         t0 = time.perf_counter()
         self._prof.stop()
-        from torch.autograd import DeviceType
-
-        events = [e for e in self._prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        kernels = [e for e in events
-                   if "Memcpy" not in e.name and "Memset" not in e.name]
-        self.windows[self._prof_label] = {
-            "host_reads": sum("Memcpy DtoH" in e.name for e in events),
-            "kernel_launches": len(kernels),
-            "device_busy_ms": sum(e.time_range.elapsed_us()
-                                  for e in kernels) / 1e3}
+        # the first window is counted from both sources (`_window_counts`)
+        self.windows[self._prof_label] = _window_counts(
+            self._prof, both=not self.windows)
         self._prof = self._prof_label = None
         self.profiler_seconds += time.perf_counter() - t0
 
@@ -1788,6 +1855,48 @@ def _fly_trial(cfg, profile_chunks=()):
     return fsm, probe, wall
 
 
+# the CPU half of `_card_and_cpu_trial`, run in a child process: the
+# TrialConfig as JSON in, the FSM's state, times and transitions and the
+# wall seconds out
+_CPU_TRIAL = """
+import json, sys
+import chip_smoke
+from aclswarm_torch.harness import trials
+fsm, probe, wall = chip_smoke._fly_trial(
+    trials.TrialConfig(**json.loads(sys.argv[1])))
+print(json.dumps({"state": fsm.state, "times": fsm.times,
+                  "transitions": probe.transitions, "wall": wall}))
+"""
+
+
+def _card_and_cpu_trial(cfg) -> tuple:
+    """``cfg`` flown on the card here while a child process flies it on
+    the CPU (the host's cores are idle under a card trial): ((state,
+    times, transitions, wall) on the card, the same on the CPU), the
+    transitions as [state, tick] lists."""
+    child = subprocess.Popen(
+        [sys.executable, "-c", _CPU_TRIAL,
+         json.dumps(dataclasses.asdict(dataclasses.replace(
+             cfg, device="cpu")))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+    try:
+        fsm, probe, wall = _fly_trial(dataclasses.replace(cfg,
+                                                          device="cuda"))
+        out, err = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"the CPU trial failed (exit "
+                             f"{child.returncode}):\n{err[-4000:]}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    return ((fsm.state, fsm.times, [list(t) for t in probe.transitions],
+             wall),
+            (cpu["state"], cpu["times"], cpu["transitions"], cpu["wall"]))
+
+
 def _mean(xs):
     return float(np.mean(xs)) if xs else None
 
@@ -1804,9 +1913,9 @@ def phase_trial(seed: int) -> dict:
     `run_trial` on the card in float32, `trial_timeout` cut to
     `TRIAL_TIMEOUT_CUT`: takeoff, hover, one dispatch (ADMM on the card in
     the n-4 bucket, x 0.15) and the Sinkhorn auctions after it
-    (`_check_trial`). Then `swarm6_3d` (seed 1, library gains, float32) on
-    the card against the CPU: the same verdict and states, the transition
-    ticks side by side."""
+    (`_check_trial`). Then the whole `swarm6_3d` trial (seed 1, library
+    gains, float32) on the card against the CPU (`_card_and_cpu_trial`):
+    the same verdict and states, the transition ticks side by side."""
     from aclswarm_torch.harness import trials
 
     cfg = trials.TrialConfig(**TRIAL_ROW, seed=seed, trials=1,
@@ -1817,23 +1926,20 @@ def phase_trial(seed: int) -> dict:
     # a small trial, card against CPU: the same verdict and FSM states
     small = trials.TrialConfig(formation="swarm6_3d", seed=1, trials=1,
                                verbose=False, dtype="float32")
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        s_fsm, s_probe, s_wall = _fly_trial(
-            dataclasses.replace(small, device=dev))
-        runs[dev] = (s_fsm, s_probe.transitions, s_wall)
-    (c_fsm, c_tr, c_wall), (h_fsm, h_tr, h_wall) = runs["cuda"], runs["cpu"]
+    ((c_state, c_times, c_tr, c_wall),
+     (h_state, h_times, h_tr, h_wall)) = _card_and_cpu_trial(small)
     same_ticks = c_tr == h_tr
     emit({"phase": "trial", "check": "swarm6_3d seed 1 float32, card vs CPU",
-          "verdict": trials.NAMES[c_fsm.state],
-          "verdict_cpu": trials.NAMES[h_fsm.state],
+          "verdict": trials.NAMES[c_state],
+          "verdict_cpu": trials.NAMES[h_state],
           "transitions": [[s, t, th] for (s, t), (_, th) in zip(c_tr, h_tr)]
           if [s for s, _ in c_tr] == [s for s, _ in h_tr]
           else {"card": c_tr, "cpu": h_tr},
           "transition_ticks_equal": same_ticks,
-          "times": c_fsm.times, "times_cpu": h_fsm.times,
-          "wall_seconds": c_wall, "wall_seconds_cpu": h_wall})
-    if not (c_fsm.state == h_fsm.state
+          "times": c_times, "times_cpu": h_times,
+          "wall_seconds": c_wall, "wall_seconds_cpu": h_wall,
+          "cpu_in_a_child_process": True})
+    if not (c_state == h_state
             and [s for s, _ in c_tr] == [s for s, _ in h_tr]):
         raise AssertionError("trial: swarm6_3d on the card disagrees with "
                              f"the CPU: {c_tr} vs {h_tr}")
@@ -2218,20 +2324,10 @@ class _WaveProbe:
     def _stop_profile(self):
         if self._prof is None:
             return
-        from torch.autograd import DeviceType
-
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         self._prof.stop()
-        events = [e for e in self._prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        kernels = [e for e in events
-                   if "Memcpy" not in e.name and "Memset" not in e.name]
-        self.windows[len(self.chunks) - 1] = {
-            "host_reads": sum("Memcpy DtoH" in e.name for e in events),
-            "kernel_launches": len(kernels),
-            "device_busy_ms": sum(e.time_range.elapsed_us()
-                                  for e in kernels) / 1e3}
+        self.windows[len(self.chunks) - 1] = _window_counts(self._prof)
         self._prof = None
         self.profiler_seconds += time.perf_counter() - t0
 
@@ -2892,20 +2988,17 @@ def phase_trial_scenarios(seed: int, trial_batch: dict | None) -> dict:
                                verbose=False, dtype="float32",
                                scenario="wind_gust",
                                trial_timeout=SMALL_SCENARIO_TIMEOUT)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        s_fsm, s_probe, s_wall = _fly_trial(
-            dataclasses.replace(small, device=dev))
-        runs[dev] = (s_fsm, s_probe.transitions, s_wall)
-    (c_fsm, c_tr, c_wall), (h_fsm, h_tr, h_wall) = runs["cuda"], runs["cpu"]
+    ((c_state, _, c_tr, c_wall),
+     (h_state, _, h_tr, h_wall)) = _card_and_cpu_trial(small)
     emit({"phase": "trial_scenarios",
           "check": "swarm6_3d seed 1 float32 wind_gust, card vs CPU",
-          "verdict": trials.NAMES[c_fsm.state],
-          "verdict_cpu": trials.NAMES[h_fsm.state],
+          "verdict": trials.NAMES[c_state],
+          "verdict_cpu": trials.NAMES[h_state],
           "transitions": c_tr, "transitions_cpu": h_tr,
           "transition_ticks_equal": c_tr == h_tr,
-          "wall_seconds": c_wall, "wall_seconds_cpu": h_wall})
-    if not (c_fsm.state == h_fsm.state
+          "wall_seconds": c_wall, "wall_seconds_cpu": h_wall,
+          "cpu_in_a_child_process": True})
+    if not (c_state == h_state
             and [s for s, _ in c_tr] == [s for s, _ in h_tr]):
         raise AssertionError("trial_scenarios: swarm6_3d under wind_gust on "
                              f"the card disagrees with the CPU: {c_tr} vs "
@@ -3605,12 +3698,16 @@ def phase_churn(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # the serving layer (`aclswarm_torch.serve`) at n=1000
 
-SERVE_ROLLOUT = dict(n=N, ticks=120, chunk_ticks=20, assign_every=20,
+# 80 ticks (four chunks): the depth the card budget leaves (PERF.md §4,
+# cell 10); every check of the serve phases holds at it
+SERVE_ROLLOUT = dict(n=N, ticks=80, chunk_ticks=20, assign_every=20,
                      assignment="sinkhorn")
 # the rollouts fly `simform1000`'s points (shipped in the request): the
 # serve default formation is a radius-3 circle whose 1000 points lie 1.9
 # cm apart, a generator of near-tied assignments (PERF.md §6)
-SERVE_FAULTS = dict(dropout_frac=0.1, drop_tick=30, rejoin_tick=90)
+# the drop and the rejoin inside the horizon, an auction (every 20 ticks)
+# after each
+SERVE_FAULTS = dict(dropout_frac=0.1, drop_tick=20, rejoin_tick=60)
 SERVE_FAULTED = (1, 6)         # which of the eight rollouts carry faults
 SERVE_STAGES = ("pack", "stack", "dispatch", "device_sync", "unpack",
                 "resolve")
@@ -4216,6 +4313,317 @@ def phase_serve_watch(seed: int) -> dict:
     return info
 
 
+def phase_serve_procs(seed: int) -> dict:
+    """`python -m aclswarm_torch.serve.smoke --procs --n 1000` on the card:
+    a router over two procworker processes, each with its own CUDA
+    context, the one holding the n=1000 Sinkhorn rollout SIGKILLed
+    mid-flight, the slot respawned, a rolling restart. The drill must
+    print PASS (zero losses, the migrated digest equal to the uncontended
+    in-parent run's, new pids after the restart, a gap-free fleet
+    postmortem); the children's K1 launches (each child's last heartbeat)
+    must be > 0 and K3's 0, and every child that launched a kernel must
+    have loaded the library `build` left (no rebuild)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "aclswarm_torch.serve.smoke",
+                        "--procs", "--n", str(N)], capture_output=True,
+                       text=True, timeout=900,
+                       cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    line = next((json.loads(ln) for ln in r.stdout.splitlines()
+                 if ln.startswith('{"serve_smoke"')), None)
+    if r.returncode != 0 or "PASS" not in r.stdout or line is None:
+        raise AssertionError(f"serve_procs failed (exit {r.returncode}):"
+                             f"\n{r.stdout}\n{r.stderr[-4000:]}")
+    launches = line["launches"]["children"]
+    rebuilt = {uid: c["library"] for uid, c in line["child_launches"].items()
+               if any(c["launches"].values())
+               and not c["library"].get("cached")}
+    info = {"phase": "serve_procs", "seconds": seconds,
+            "launches": launches,
+            "boot_s": {b["uid"]: b["boot_s"] for b in line["boots"]},
+            "detect_ms": line["detect_ms"],
+            "failover_s": line["failover_s"],
+            "readmit_s": line["readmit_s"],
+            "restart_s": line["restart_s"],
+            "child_launches": {uid: c["launches"] for uid, c
+                               in line["child_launches"].items()},
+            "reference_launches": line["launches"]["reference"],
+            "pass": next(ln for ln in r.stdout.splitlines()
+                         if ln.startswith("PASS"))}
+    emit(info)
+    if not launches["sinkhorn_log"] or launches["flood_merge"] or rebuilt:
+        raise AssertionError(f"serve_procs launches: {launches}, children "
+                             f"that rebuilt the library: {rebuilt}")
+    return info
+
+
+BRIDGE_TICKS = 360          # three auctions (ticks 0, 120, 240)
+BRIDGE_AFTER_KILL = 5       # ticks served after the KILL: all zero
+BRIDGE_SMALL_TICKS = 240    # swarm6_3d, card against the CPU
+# swarm6_3d card against CPU, float32 both: the assignment and the
+# avoidance flags equal, distcmd within 1e-5 + 1e-5 |cpu| (the card's
+# float32 roots and reductions in control round otherwise than the CPU's)
+BRIDGE_SMALL_TOL = (1e-5, 1e-5)
+
+
+def _open_rings(ns: str, proc, log, deadline_s: float) -> dict:
+    """The daemon's seven rings, opened as it creates them; ``log`` is
+    the file that holds the daemon's standard error."""
+    from aclswarm_torch.interop.bridge import CHANNELS
+    from aclswarm_torch.interop.transport import Channel
+
+    chans = {}
+    t_end = time.monotonic() + deadline_s
+    for name in CHANNELS:
+        while True:
+            try:
+                chans[name] = Channel(f"{ns}-{name}")
+                break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() > t_end:
+                    for c in chans.values():
+                        c.close()
+                    shm = subprocess.run(["df", "-B1", "/dev/shm"],
+                                         capture_output=True,
+                                         text=True).stdout
+                    log.seek(0)
+                    raise AssertionError(
+                        f"bridge: ring {ns}-{name} never opened (daemon "
+                        f"exit {proc.poll()}; df /dev/shm:\n{shm})\n"
+                        f"{log.read()[-4000:]}")
+                time.sleep(0.05)
+    return chans
+
+
+def _bridge_small(seed: int) -> dict:
+    """`swarm6_3d` (library gains, Sinkhorn every 120 ticks) through two
+    in-process planners, on the card and on the CPU in float32, fed one
+    estimate stream (integrated from the CPU's commands) for 240 ticks:
+    equal assignments and flags, distcmd within `BRIDGE_SMALL_TOL`."""
+    from aclswarm_torch.harness import formgen
+    from aclswarm_torch.interop.operator import Operator
+    from aclswarm_torch.interop.planner import TorchPlanner
+
+    fmsg = Operator("swarm6_3d").next_formation()
+    planners = [TorchPlanner(6, assignment="sinkhorn", assign_every=120,
+                             device=dev) for dev in ("cuda", "cpu")]
+    for pl in planners:
+        pl.handle_formation(fmsg)
+    rng = np.random.default_rng(seed)
+    q = formgen.sample_cylinder_points(rng, 6, 10.0, 10.0, 0.0, 1.5)
+    q[:, 2] = 1.5
+    vel = np.zeros((6, 3))
+    atol, rtol = BRIDGE_SMALL_TOL
+    err, excess, assignments, mismatch = 0.0, -math.inf, 0, []
+    for k in range(BRIDGE_SMALL_TICKS):
+        card, cpu = (pl.tick(q, vel=vel) for pl in planners)
+        same_asn = (card.assignment is None) == (cpu.assignment is None) \
+            and (cpu.assignment is None
+                 or np.array_equal(card.assignment, cpu.assignment))
+        assignments += cpu.assignment is not None
+        d = np.abs(card.distcmd.astype(np.float64) - cpu.distcmd)
+        err = max(err, float(d.max()))
+        excess = max(excess, float((d - atol - rtol
+                                    * np.abs(cpu.distcmd)).max()))
+        if not (same_asn and np.array_equal(card.safety, cpu.safety)):
+            mismatch.append(k)
+        vel += (0.01 / 0.15) * (cpu.distcmd - vel)
+        q = q + vel * 0.01
+    info = {"ticks": BRIDGE_SMALL_TICKS, "assignments": assignments,
+            "max_abs_err": err, "tolerance": [atol, rtol],
+            "mismatched_ticks": mismatch[:10]}
+    if mismatch or excess > 0.0 or not assignments:
+        raise AssertionError(f"bridge: swarm6_3d card against CPU: {info}")
+    return info
+
+
+def phase_bridge(seed: int) -> dict:
+    """The planner daemon on the card at full width: ``python -m
+    aclswarm_torch.interop.bridge --n 1000 --assignment sinkhorn`` as a
+    subprocess; this process plays the operator (`simform1000`'s points
+    and graph WITHOUT gains — the daemon designs them on the card — then
+    a GO) and the vehicles: VehicleEstimates in, distcmd out, integrated
+    on the host (velocity tracking, tau 0.15 s), 360 ticks (three
+    auctions), then a KILL (distcmd zero from that tick), five ticks and
+    the shutdown sentinel. Held: the decoded message stream, fed to an
+    in-process `TorchPlanner` on the card, gives every tick's distcmd,
+    flags and published assignment bit for bit; every K1 call of that
+    planner within 5e-5 + 2^-22 |plain| of its plain version and every K2
+    call bit-identical; the daemon's launches K1 = K2 = 3, K3 = 0; and
+    `swarm6_3d` card against CPU (`_bridge_small`, run while the daemon
+    boots). Reported: the daemon's boot seconds, the design's ms, ms per
+    tick through the wire and in process, frames and bytes per channel."""
+    from aclswarm_torch.harness import formgen
+    from aclswarm_torch.interop import codec
+    from aclswarm_torch.interop import messages as m
+    from aclswarm_torch.interop.bridge import SHUTDOWN
+    from aclswarm_torch.interop.planner import TorchPlanner
+    from aclswarm_torch.interop.transport import send_bytes_reliable
+
+    shm = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                         text=True).stdout
+    emit({"phase": "bridge", "df_dev_shm": shm.strip().splitlines()})
+    spec = _simform_spec(seed)
+    ns = f"/asw-chip-{os.getpid()}"
+    dt, tau = 0.01, 0.15
+    log = tempfile.TemporaryFile("w+")
+    t0 = time.perf_counter()
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "aclswarm_torch.interop.bridge", "--n",
+         str(N), "--ns", ns, "--assignment", "sinkhorn", "--assign-every",
+         "120", "--idle-timeout", "300"], stdout=subprocess.PIPE,
+        stderr=log, text=True, cwd=Path(__file__).resolve().parent)
+    chans = {}
+    sent = []          # (ring, decoded message) in send order
+    wire_ms, ticks = [], []
+    try:
+        # the small card-against-CPU check runs while the daemon boots
+        # (a few seconds against its ~6-10; boot_s is exact while it is
+        # the shorter)
+        small = _bridge_small(seed)
+        small["seconds"] = time.perf_counter() - t0
+        chans = _open_rings(ns, daemon, log, 300.0)
+        boot_s = time.perf_counter() - t0
+
+        def send(name, msg):
+            raw = codec.encode(msg)
+            if not send_bytes_reliable(chans[name], raw, grace_s=60.0):
+                raise AssertionError(f"bridge: {name} ring full")
+            sent.append((name, codec.decode(raw)))
+
+        send("formation", m.Formation(
+            header=m.Header(seq=1), name=spec.name, points=spec.points,
+            adjmat=np.asarray(spec.adjmat, np.uint8), gains=None))
+        send("flightmode", m.FlightMode(header=m.Header(seq=2),
+                                        mode=m.MODE_GO))
+        rng = np.random.default_rng(seed)
+        q = formgen.sample_cylinder_points(rng, N, SUITE["init_area_w"],
+                                           SUITE["init_area_h"], 0.0,
+                                           SUITE["sim_min_dist"])
+        q[:, 2] = 1.0
+        vel = np.zeros((N, 3))
+        for k in range(BRIDGE_TICKS + BRIDGE_AFTER_KILL):
+            if k == BRIDGE_TICKS:
+                send("flightmode", m.FlightMode(header=m.Header(seq=3),
+                                                mode=m.MODE_KILL))
+            t1 = time.perf_counter()
+            send("estimates", m.VehicleEstimates(
+                header=m.Header(seq=k + 1, stamp=k * dt), positions=q,
+                stamps=np.full(N, k * dt)))
+            cmd, t_end = None, time.monotonic() + 300
+            while cmd is None:
+                cmd = chans["distcmd"].recv()
+                if cmd is None:
+                    if daemon.poll() is not None \
+                            or time.monotonic() > t_end:
+                        raise AssertionError(
+                            f"bridge: no distcmd at tick {k} (daemon exit "
+                            f"{daemon.poll()})")
+                    time.sleep(0.0002)
+            wire_ms.append((time.perf_counter() - t1) * 1e3)
+            asn = safe = None
+            while (x := chans["assignment"].recv()) is not None:
+                asn = x
+            while (x := chans["safety"].recv()) is not None:
+                safe = x
+            if cmd.header.seq != k + 1 or safe is None \
+                    or safe.header.seq != k + 1:
+                raise AssertionError(f"bridge: tick {k} out of step")
+            ticks.append((cmd.vel.copy(), safe.active.astype(bool),
+                          None if asn is None else asn.perm.copy()))
+            vel += (dt / tau) * (cmd.vel - vel)
+            q = q + vel * dt
+        send("formation", m.Formation(
+            header=m.Header(), name=SHUTDOWN, points=spec.points,
+            adjmat=np.asarray(spec.adjmat, np.uint8)))
+        out = daemon.communicate(timeout=120)[0]
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+        for c in chans.values():
+            c.close()
+        log.seek(0)
+        err = log.read()
+        log.close()
+    report = next((json.loads(ln)["bridge"] for ln in out.splitlines()
+                   if ln.startswith('{"bridge"')), None)
+    if daemon.returncode != 0 or report is None \
+            or f"bridge served {len(ticks)} ticks" not in out:
+        raise AssertionError(f"bridge daemon failed (exit "
+                             f"{daemon.returncode}):\n{out}\n{err[-4000:]}")
+    killed = ticks[BRIDGE_TICKS:]
+    if any(np.any(v != 0.0) for v, _, _ in killed):
+        raise AssertionError("bridge: distcmd not zero after the KILL")
+
+    # the same decoded stream through an in-process planner on the card
+    planner = TorchPlanner(N, assignment="sinkhorn", assign_every=120)
+    local, design_ms, local_ms = [], [], []
+
+    def replay():
+        for name, msg in sent:
+            if name == "formation" and msg.name != SHUTDOWN:
+                t1 = time.perf_counter()
+                planner.handle_formation(msg)
+                torch.cuda.synchronize()
+                design_ms.append((time.perf_counter() - t1) * 1e3)
+            elif name == "flightmode":
+                planner.handle_flightmode(msg)
+            elif name == "estimates":
+                t1 = time.perf_counter()
+                local.append(planner.tick(msg))
+                local_ms.append((time.perf_counter() - t1) * 1e3)
+
+    seen = _path_kernel_calls(replay, names=("sinkhorn_log",
+                                             "round_dominant"))
+    differ = [k for k, ((v, sf, asn), o) in enumerate(zip(ticks, local))
+              if not (np.array_equal(v, o.distcmd.astype(np.float64))
+                      and np.array_equal(sf, o.safety)
+                      and (asn is None) == (o.assignment is None)
+                      and (asn is None or np.array_equal(asn,
+                                                         o.assignment)))]
+    k1 = [_check_sinkhorn(f"bridge: K1 call {i}", cost, tau_, iters,
+                          launches, 2.0**-22)
+          for i, ((cost, tau_, iters), launches)
+          in enumerate(seen["sinkhorn_log"])]
+    k2 = [_check_rounding(f"bridge: K2 call {i}", plan, *cap)
+          for i, ((plan, *cap), _) in enumerate(seen["round_dominant"])]
+    auction = set(range(0, BRIDGE_TICKS, 120))
+    steady = [i for i in range(1, BRIDGE_TICKS) if i not in auction]
+    info = {"phase": "bridge", "boot_s": boot_s,
+            "ticks": len(ticks), "assignments": sum(
+                a is not None for _, _, a in ticks),
+            "daemon_design_ms": report["commit_ms"],
+            "inprocess_design_ms": design_ms,
+            "wire_ms_per_tick": float(np.mean([wire_ms[i] for i in steady])),
+            "wire_ms_auction_tick": [wire_ms[i] for i in sorted(auction)],
+            "daemon_tick_ms": report["tick_ms"],
+            "inprocess_ms_per_tick": float(np.mean([local_ms[i]
+                                                    for i in steady])),
+            "inprocess_ms_auction_tick": [local_ms[i]
+                                          for i in sorted(auction)],
+            "channels": report["channels"], "launches": report["launches"],
+            "differing_ticks": differ[:10],
+            "k1": {"calls": len(k1),
+                   "max_abs_err": max(c["max_abs_err"] for c in k1),
+                   "mass_err_vs_plain": max(c["mass_err_vs_plain"]
+                                            for c in k1)},
+            "k2": {"calls": len(k2),
+                   "bit_identical": all(c["bit_identical"] for c in k2)}}
+    emit(info)
+    if differ:
+        raise AssertionError(f"bridge: the wire's ticks differ from the "
+                             f"in-process planner's at {differ[:10]}")
+    want = {"sinkhorn_log": len(auction), "round_dominant": len(auction),
+            "flood_merge": 0}
+    if report["launches"] != want or len(k1) != len(auction):
+        raise AssertionError(f"bridge launches {report['launches']}, "
+                             f"in-process K1 calls {len(k1)}; want {want}")
+    info["swarm6_3d"] = small
+    emit({"phase": "bridge", "swarm6_3d": small})
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4241,14 +4649,14 @@ def main(argv=None) -> int:
                  "reference": phase_reference, "slice": phase_slice,
                  "auction": phase_auction, "cbaa": phase_cbaa,
                  "slice_cbaa": phase_slice_cbaa,
-                 "slice_auction": phase_slice_auction,
                  "trial": phase_trial, "batch_kernels": phase_batch_kernels,
                  "slice_batch": phase_slice_batch, "faults": phase_faults,
                  "slice_scenarios": phase_slice_scenarios,
                  "checks_faults": phase_checks_faults, "churn": phase_churn,
                  "serve": phase_serve,
                  "serve_recovery": phase_serve_recovery,
-                 "serve_watch": phase_serve_watch}
+                 "serve_watch": phase_serve_watch,
+                 "serve_procs": phase_serve_procs, "bridge": phase_bridge}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
@@ -4261,6 +4669,12 @@ def main(argv=None) -> int:
             elif name == "checks":
                 done[name] = timed(name, phase_checks, args.seed,
                                    done.get("slice"))
+            elif name == "slice_auction":
+                if "auction" not in done:
+                    done["auction"] = timed("auction", phase_auction,
+                                            args.seed)
+                done[name] = timed(name, phase_slice_auction, args.seed,
+                                   done["auction"])
             elif name == "trial_checked":
                 done[name] = timed(name, phase_trial_checked, args.seed,
                                    done.get("trial"))
@@ -4285,10 +4699,10 @@ def main(argv=None) -> int:
     sl_random = timed("slice", phase_slice, args.seed, "random")
     timed("profile", phase_profile, args.seed, sl_random["ms_per_tick"],
           "random")
-    timed("auction", phase_auction, args.seed)
+    au = timed("auction", phase_auction, args.seed)
     timed("cbaa", phase_cbaa, args.seed)
     sl_cbaa = timed("slice_cbaa", phase_slice_cbaa, args.seed)
-    sl_auction = timed("slice_auction", phase_slice_auction, args.seed)
+    sl_auction = timed("slice_auction", phase_slice_auction, args.seed, au)
     tr = timed("trial", phase_trial, args.seed)
     bk = timed("batch_kernels", phase_batch_kernels, args.seed)
     sb = timed("slice_batch", phase_slice_batch, args.seed)
@@ -4308,6 +4722,8 @@ def main(argv=None) -> int:
     sr = timed("serve_recovery", phase_serve_recovery, args.seed)
     sw = timed("serve_wire", phase_serve_wire, args.seed, sv)
     sh = timed("serve_watch", phase_serve_watch, args.seed)
+    spr = timed("serve_procs", phase_serve_procs, args.seed)
+    br = timed("bridge", phase_bridge, args.seed)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -4359,7 +4775,9 @@ def main(argv=None) -> int:
                    "serve_failover": sf["launches"][name],
                    "serve_recovery": sr["launches"][name],
                    "serve_wire": sw["launches"][name],
-                   "serve_watch": sh["launches"][name]},
+                   "serve_watch": sh["launches"][name],
+                   "serve_procs": spr["launches"][name],
+                   "bridge": br["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -58,7 +58,10 @@ def test_scan_covers_the_package():
             "stats.py", "client.py", "smoke.py", "lapjv.py", "log.py",
             "timeseries.py", "slo.py", "postmortem.py", "watch.py",
             "messages.py", "codec.py", "native.py", "transport.py",
-            "wire.py", "traffic.py"} <= names
+            "wire.py", "traffic.py", "procworker.py", "router.py",
+            "cbaa_ref.py", "planner.py", "bridge.py", "operator.py",
+            "viz_markers.py", "ros_fakes.py", "ros_bridge.py"} <= names
+    assert (ROOT / "aclswarm_torch" / "core" / "registry.py") in FILES
     for sub in ("analysis", "telemetry", "serve", "utils", "interop"):
         assert ROOT / "aclswarm_torch" / sub / "__init__.py" in FILES
 
@@ -81,8 +84,8 @@ def test_wire_modules_import_no_torch():
     pkg = ROOT / "aclswarm_torch"
     for rel in ("interop/__init__.py", "interop/messages.py",
                 "interop/codec.py", "interop/native.py",
-                "interop/transport.py", "serve/wire.py", "serve/traffic.py",
-                "utils/log.py"):
+                "interop/transport.py", "interop/ros_fakes.py",
+                "serve/wire.py", "serve/traffic.py", "utils/log.py"):
         assert "torch" not in _imported(pkg / rel), rel
 
 
@@ -137,3 +140,23 @@ def test_service_without_device_needs_the_card(monkeypatch):
     svc = SwarmService(ServiceConfig(device="cpu"), start=False)
     assert svc.device.type == "cpu" and svc.dtype == torch.float32
     svc.close(drain=False)
+
+
+def test_planner_without_device_needs_the_card(monkeypatch):
+    """`TorchPlanner(n)`, the bridge daemon's planner and the ROS node's
+    own planner raise with no card instead of planning on the CPU; asked
+    for the CPU, the planner runs there."""
+    from aclswarm_torch.interop import ros_bridge
+    from aclswarm_torch.interop.bridge import run_bridge
+    from aclswarm_torch.interop.planner import TorchPlanner
+    from aclswarm_torch.interop.ros_fakes import FakeMsgs, FakeRospy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchPlanner(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_bridge(4, ns="/asw-nodevice")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ros_bridge.run(FakeRospy(params={"/vehs": ["a", "b"]}), FakeMsgs)
+    pl = TorchPlanner(4, device="cpu")
+    assert pl.v2f.device.type == "cpu" and pl.dtype == torch.float32

@@ -362,7 +362,8 @@ def test_library_builds_and_loads_once_under_threads(monkeypatch):
     def fake_build():
         builds.append(1)
         time.sleep(0.05)
-        return {"library": "fake.so"}
+        return {"library": "fake.so", "seconds": 0.05, "cached": True,
+                "ptxas": ""}
 
     class FakeLib:
         def __init__(self, path):
@@ -374,6 +375,7 @@ def test_library_builds_and_loads_once_under_threads(monkeypatch):
             return fn
 
     monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "LOADED", {})
     monkeypatch.setattr(_build, "build", fake_build)
     monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
     got, barrier = [], threading.Barrier(8)
@@ -389,3 +391,4 @@ def test_library_builds_and_loads_once_under_threads(monkeypatch):
         t.join()
     assert len(builds) == 1 and loads == ["fake.so"]
     assert len(got) == 8 and all(g is got[0] for g in got)
+    assert _build.LOADED == {"library": "fake.so", "cached": True}

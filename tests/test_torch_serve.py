@@ -886,12 +886,9 @@ def test_serve_smoke_subprocess(extra):
 @pytest.mark.parametrize("flag", ["--postmortem", "--procs"])
 def test_smoke_names_the_slices_it_lacks(flag, capsys):
     """``--postmortem`` runs its drill (a worker killed mid-rollout, the
-    timeline rebuilt from the journal alone) and passes; ``--procs``
-    still names the process-mode slice it lacks."""
+    timeline rebuilt from the journal alone) and passes; ``--procs``, no
+    longer a slice the port lacks, runs the process-mode drill (a router
+    over two procworker processes, one SIGKILLed) and passes."""
     from aclswarm_torch.serve import smoke
-    if flag == "--procs":
-        with pytest.raises(SystemExit):
-            smoke.main([flag])
-        return
     assert smoke.main([flag, "--device", "cpu", "--dtype", "float64"]) == 0
     assert "PASS" in capsys.readouterr().out
