@@ -4,9 +4,11 @@
                device (the reference computes it in XLA; it has no Pallas
                kernel).
 - ``params`` — `AdmmParams`, the port's copy of the reference's.
-
-The reference's numpy oracles (`gains/reference.py`, `gains/sdp.py`) are
-not ported: the port's tests use them in place.
+- ``reference`` — the sequential NumPy mirror of the C++ solver, the
+               oracle (a copy of the reference's; imported on its own).
+- ``sdp``    — the independent original-SDP oracle, projected
+               supergradient ascent in NumPy (a copy of the reference's;
+               imported on its own).
 """
 from aclswarm_torch.gains.admm import (AdmmCarry, AdmmSolveStats, init_carry,
                                        planar_of, solve_gains,

@@ -210,7 +210,31 @@ and prints no result line:
              plain versions; zero distcmd from the KILL; `swarm6_3d` card
              against CPU; boot seconds, design ms, ms per tick through
              the wire and in process, frames and bytes per ring;
-32. the `kernels` line, then the result line. Each kernel row carries the
+32. offline — the offline tools: (a) the `trial` configuration flown
+             again in a child process with checkpoints every chunk,
+             SIGKILLed at the first chunk boundary after the dispatch and
+             its first auction, resumed here to the watchdog: verdict,
+             every transition tick, the FSM times, the CSV row and every
+             leaf of the final `SimState` bit for bit the `trial` phase's
+             run, K3 once per resumed tick and K1 = K2 = the resumed
+             auctions, each kernel's first call against its plain
+             version; the child's boot seconds, the checkpoint's bytes
+             and write ms, the resume's seconds. While the child flies:
+             (b) `resilience.smoke` (its n=5 child SIGKILLed and resumed,
+             PASS); (c) libgen then precalc in float64 on the card on a
+             scratch copy of the library: all twelve designs validate,
+             each within 1e-9 of the shipped gains, the rest of the file
+             equal, the shipped file untouched; (d) a ground-truth CBAA
+             rollout at n=1000 (task blocks of 64, an auction every 30
+             ticks, 61 ticks) recorded, through the npz, each record
+             replayed to its `v2f_new` bit for bit; `swarm15`'s formations
+             on their sparse graph and the complete graph, 24 records, each
+             replayed on the card and by the sequential oracle: every
+             decision equal, at least 90% valid. Then (e) `timing_stats`
+             of one n=1000 K1 solve within [the `kernels` phase's K1 ms,
+             2x it + 0.5 ms], and `timing.trace` (in a process of its own)
+             naming K1's kernel;
+33. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -299,6 +323,18 @@ TRIAL_TIMEOUT_CUT = 14.0
 # (`trials._host_signals`); an auction tick adds none (`geometry.align`
 # takes its rotation in closed form on the card)
 CHUNK_READS = 2
+# offline: precalc's float64 designs on the card against the shipped
+# gains (the library's twelve formations with gains: swarm4 2, swarm6_3d
+# 3, swarm6_sparse 2, grid9 2, swarm15 3; swarm100 ships none)
+PRECALC_ATOL = 1e-9
+PRECALC_DESIGNS = 12
+# offline: the replayed CBAA rollouts — an auction every 30 ticks; at
+# full width 61 ticks (three auctions), at n=15 120 ticks a rollout (six
+# rollouts, 24 records)
+REPLAY_EVERY = 30
+REPLAY_TICKS = 61
+REPLAY_SMALL_TICKS = 120
+REPLAY_SMALL_RECORDS = 20
 # a wave of batched trials: the simform1000_flooded row's five trials
 BATCH = 5
 # K1's residency waves for a batch of n=1000 solves on a 132-SM H100:
@@ -395,7 +431,10 @@ def device_ms(fn, reps: int, kernels: tuple, per_call: int = 1) -> float:
     CUPTI can lose a window's records (PERF.md, PR 5 and PR 7), so a
     window short of ``reps * per_call`` events is traced again, up to
     three times in all, and the mean per event does not count a lost
-    record as zero time."""
+    record as zero time. Where all three windows lost every record, the
+    calls are timed with CUDA events instead (`time_ms`: host time
+    included, exact for a call that is one long kernel), and a line says
+    so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -413,8 +452,10 @@ def device_ms(fn, reps: int, kernels: tuple, per_call: int = 1) -> float:
         if len(best) >= reps * per_call:
             break
     if not best:
-        raise AssertionError(f"the profiler saw no kernel of {kernels} in "
-                             "three traced windows")
+        ms = time_ms(fn, reps)
+        emit({"timer": "CUDA events: the profiler saw no kernel of "
+              f"{list(kernels)} in three traced windows", "ms": ms})
+        return ms
     return sum(best) / len(best) * per_call / 1e3
 
 
@@ -1908,6 +1949,17 @@ def _row_digest(row) -> str:
     return hashlib.sha256(np.asarray(row, np.float64).tobytes()).hexdigest()
 
 
+def _trial_cfg(seed: int):
+    """The `trial` configuration: `TRIAL_ROW` in float32 on the card,
+    ``trial_timeout`` cut to `TRIAL_TIMEOUT_CUT`."""
+    from aclswarm_torch.harness import trials
+
+    return trials.TrialConfig(**dict(TRIAL_ROW,
+                                     trial_timeout=TRIAL_TIMEOUT_CUT),
+                              seed=seed, trials=1, verbose=False,
+                              device="cuda", dtype="float32")
+
+
 def phase_trial(seed: int) -> dict:
     """The `simform1000_flooded` row flown as a trial through the port's
     `run_trial` on the card in float32, `trial_timeout` cut to
@@ -1918,10 +1970,7 @@ def phase_trial(seed: int) -> dict:
     the same verdict and states, the transition ticks side by side."""
     from aclswarm_torch.harness import trials
 
-    cfg = trials.TrialConfig(**TRIAL_ROW, seed=seed, trials=1,
-                             verbose=False, device="cuda", dtype="float32")
-    info = _check_trial(dataclasses.replace(
-        cfg, trial_timeout=TRIAL_TIMEOUT_CUT))
+    info = _check_trial(_trial_cfg(seed))
 
     # a small trial, card against CPU: the same verdict and FSM states
     small = trials.TrialConfig(formation="swarm6_3d", seed=1, trials=1,
@@ -1956,7 +2005,7 @@ def _check_trial(cfg, profile_chunks=(6, 12)) -> dict:
     the hover and the flying chunks, the FSM's host ms per chunk, the
     design's ms and iterations, wall against simulated seconds, peak
     memory and the transition ticks."""
-    from aclswarm_torch import gains, ops
+    from aclswarm_torch import convert, gains, ops
     from aclswarm_torch.core import perm as permutil
     from aclswarm_torch.harness import trials
 
@@ -2057,6 +2106,8 @@ def _check_trial(cfg, profile_chunks=(6, 12)) -> dict:
                      and all(reads_ok))
     if not ok:
         raise AssertionError(f"trial check failed: {info}")
+    # kept for `offline`, which holds a killed and resumed run to it
+    info["final_state"] = convert.sim_state_to_numpy(final)
     return info
 
 
@@ -3099,7 +3150,11 @@ def _hold_path_kernels(label, run, rtol=0.0) -> dict:
     `_check_flood`: K1 within 5e-5 + ``rtol`` |plain| with masses within
     1e-4 of the plain version's, K2 and K3 bit for bit), each launched as
     often as the path launched it."""
-    seen = _path_kernel_calls(run)
+    return _hold_first_calls(label, _path_kernel_calls(run), rtol)
+
+
+def _hold_first_calls(label, seen: dict, rtol=0.0) -> dict:
+    """`_hold_path_kernels` on the calls `_path_kernel_calls` kept."""
     (cost, tau, iters), k1_launches = seen["sinkhorn_log"][0]
     (plan, *rounds_cap), _ = seen["round_dominant"][0]
     (packed, comm, *_), _ = seen["flood_merge"][0]
@@ -4624,6 +4679,575 @@ def phase_bridge(seed: int) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# offline: the crash-resume smoke at full width, the library tools, the
+# auction replay and the timer
+
+# the child of `offline` (a): the `trial` configuration with checkpoints,
+# SIGKILLed by `ACLSWARM_CRASH`; prints one JSON line when it is ready, at
+# each FSM transition and at each checkpoint (its bytes, and the ms of the
+# state's host copy and of the write), flushed before the kill
+_KILLED_TRIAL = """
+import json, sys, time
+import torch
+from aclswarm_torch import convert
+from aclswarm_torch.harness import supervisor, trials
+from aclswarm_torch.resilience import checkpoint as ckptlib
+
+def out(**kw):
+    print(json.dumps(kw), flush=True)
+
+cfg = trials.TrialConfig(**json.loads(sys.argv[1]))
+if cfg.device == "cuda":
+    torch.cuda.init()
+out(ready=time.time())
+to_numpy, write = convert.sim_state_to_numpy, ckptlib.write_checkpoint
+next_state = supervisor.TrialFSM._next_state
+copy_ms = []
+
+def timed_to_numpy(state):
+    t0 = time.perf_counter()
+    arrays = to_numpy(state)
+    copy_ms.append((time.perf_counter() - t0) * 1e3)
+    return arrays
+
+def timed_write(directory, stem, payload, manifest, keep=2):
+    t0 = time.perf_counter()
+    path = write(directory, stem, payload, manifest, keep)
+    out(chunk=manifest["chunk"], bytes=path.stat().st_size,
+        state_copy_ms=copy_ms[-1], write_ms=(time.perf_counter() - t0) * 1e3)
+    return path
+
+def logged_next_state(fsm, state, reset=True):
+    out(transition=[supervisor.NAMES[state], fsm.tick_count])
+    return next_state(fsm, state, reset)
+
+convert.sim_state_to_numpy = timed_to_numpy
+ckptlib.write_checkpoint = timed_write
+supervisor.TrialFSM._next_state = logged_next_state
+trials.run_trial(cfg, 0)
+out(finished=True)
+"""
+
+
+def _start_killed_trial(cfg, kill_at: int, ckpt_dir: str):
+    """``cfg`` with checkpoints every chunk into ``ckpt_dir``, in a child
+    process armed to be SIGKILLed at chunk boundary ``kill_at``: (the
+    child, its stderr file, the spawn time)."""
+    from aclswarm_torch.resilience.crash import ENV_VAR
+
+    child_cfg = dataclasses.replace(cfg, checkpoint_dir=ckpt_dir,
+                                    checkpoint_every=1)
+    err = tempfile.TemporaryFile("w+")
+    t0 = time.time()
+    child = subprocess.Popen(
+        [sys.executable, "-c", _KILLED_TRIAL,
+         json.dumps(dataclasses.asdict(child_cfg))],
+        stdout=subprocess.PIPE, stderr=err, text=True,
+        cwd=Path(__file__).resolve().parent,
+        env=dict(os.environ, **{ENV_VAR: f"trial:{kill_at}:kill"}))
+    return child, err, t0
+
+
+def _killed_trial_lines(child, err, t0: float, timeout: float) -> dict:
+    """Wait for the child of `_start_killed_trial`; raise unless it died
+    by SIGKILL. Returns its boot seconds (spawn to ready), its seconds in
+    all, its transitions and its checkpoint lines."""
+    import signal
+
+    try:
+        out, _ = child.communicate(timeout=timeout)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        err.seek(0)
+        tail = err.read()[-4000:]
+        err.close()
+    seconds = time.time() - t0
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if child.returncode != -signal.SIGKILL or not lines \
+            or "ready" not in lines[0] or any("finished" in x for x in lines):
+        raise AssertionError(f"offline: the trial child exited "
+                             f"{child.returncode}, expected "
+                             f"{-signal.SIGKILL} (SIGKILL):\n{out}\n{tail}")
+    return {"boot_s": lines[0]["ready"] - t0, "seconds": seconds,
+            "transitions": [x["transition"] for x in lines
+                            if "transition" in x],
+            "checkpoints": [x for x in lines if "chunk" in x]}
+
+
+def _tree_diff(a, b, path: str = "") -> list:
+    """The leaves (by path) where two nested dicts of arrays differ in
+    presence, dtype, shape or any bit."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) \
+                or set(a) != set(b):
+            return [path or "."]
+        return [d for k in sorted(a)
+                for d in _tree_diff(a[k], b[k], f"{path}.{k}")]
+    if a is None or b is None:
+        return [] if a is None and b is None else [path]
+    a, b = np.asarray(a), np.asarray(b)
+    same = a.dtype == b.dtype and a.shape == b.shape and (
+        a.tobytes() == b.tobytes())
+    return [] if same else [path]
+
+
+def _resume_killed_trial(cfg, ckpt_dir: str, kill_at: int, trial: dict,
+                         child: dict) -> dict:
+    """Resume ``cfg`` from the checkpoint the killed child left in
+    ``ckpt_dir`` in this process, to the watchdog, with every K1, K2 and
+    K3 call kept: the verdict, the transition ticks (the child's, then the
+    resumed run's), the FSM times, the CSV row and every leaf of the final
+    `SimState` must equal ``trial`` (the uninterrupted run's `_check_trial`
+    result) bit for bit; K3 once per resumed tick, K1 = K2 = the resumed
+    auctions, each kernel's first call held against its plain version."""
+    from aclswarm_torch import convert, ops
+    from aclswarm_torch.harness import trials
+    from aclswarm_torch.resilience import checkpoint as ckptlib
+
+    left = ckptlib.latest_checkpoint(ckpt_dir, "trial00000")
+    if left is None:
+        raise AssertionError("offline: the killed child left no checkpoint")
+    _, man = ckptlib.load_checkpoint(left)
+    cuda = cfg.device == "cuda"
+    resume_cfg = dataclasses.replace(cfg, checkpoint_dir=ckpt_dir,
+                                     checkpoint_every=1)
+    flown = {}
+
+    def resume():
+        flown["fsm"], flown["probe"], flown["wall"] = _fly_trial(resume_cfg)
+
+    ops.reset_launches()
+    seen = _path_kernel_calls(resume) if cuda else resume()
+    launches = dict(ops.LAUNCHES)
+    held = _hold_first_calls("offline: resumed trial", seen) if cuda \
+        else None
+    fsm, probe = flown["fsm"], flown["probe"]
+    ticks = sum(c["ticks"] for c in probe.chunks)
+    auctions = int(probe.auctioned)
+    transitions = child["transitions"] + [list(t) for t in
+                                          probe.transitions]
+    want_transitions = [list(t) for t in trial["transitions"]]
+    state_diff = _tree_diff(convert.sim_state_to_numpy(probe.final_state),
+                            trial["final_state"])
+    info = {"phase": "offline", "check": "the trial SIGKILLed in a child "
+            "and resumed here, against the uninterrupted `trial` run",
+            "kill_boundary": kill_at, "checkpoint": left.name,
+            "checkpoint_chunk": int(man["chunk"]),
+            "checkpoint_ticks_done": int(man["ticks_done"]),
+            "verdict": trials.NAMES[fsm.state],
+            "verdict_uninterrupted": trial["verdict"],
+            "transitions_equal": transitions == want_transitions,
+            "times_equal": list(fsm.times) == list(trial["times"]),
+            "csv_row_equal": _row_digest(fsm.csv_row(0))
+            == trial["csv_digest"],
+            "final_state_leaves_differing": state_diff,
+            "resumed_chunks": len(probe.chunks), "resumed_ticks": ticks,
+            "resumed_auctions": auctions, "launches": launches,
+            "resume_seconds": flown["wall"],
+            "kernels_held": held}
+    emit(info)
+    ok = (int(man["chunk"]) == kill_at
+          and info["verdict"] == trial["verdict"]
+          and info["transitions_equal"] and info["times_equal"]
+          and info["csv_row_equal"] and not state_diff and auctions >= 1
+          and probe.chunks[0]["tick0"] > 0)
+    if cuda:
+        ok = ok and (launches["flood_merge"] == ticks
+                     and launches["sinkhorn_log"] == auctions
+                     and launches["round_dominant"] == auctions)
+    if not ok:
+        raise AssertionError(f"offline: the resumed trial differs from the "
+                             f"uninterrupted run: {info}")
+    return info
+
+
+def _resilience_smoke() -> dict:
+    """`resilience.smoke.run_smoke()` on the card, as its user runs it:
+    its n=5 child SIGKILLed at boundary 1, resumed, compared bit for bit;
+    the check is its PASS line."""
+    import io
+
+    from aclswarm_torch.resilience import smoke
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = smoke.run_smoke()
+    lines = buf.getvalue().strip().splitlines()
+    info = {"phase": "offline", "check": "resilience.smoke on the card",
+            "rc": rc, "lines": lines,
+            "seconds": time.perf_counter() - t0}
+    emit(info)
+    if rc != 0 or not lines or not lines[-1].startswith("PASS"):
+        raise AssertionError(f"offline: resilience.smoke failed: {info}")
+    return info
+
+
+def _library_gains(lib: dict) -> tuple[dict, dict]:
+    """(the parsed library without its gains, {(group, formation name):
+    gains})."""
+    import copy
+
+    lib = copy.deepcopy(lib)
+    gains = {}
+    for g, group in lib.items():
+        if isinstance(group, dict):
+            for f in group["formations"]:
+                if "gains" in f:
+                    gains[(g, f["name"])] = np.asarray(f.pop("gains"),
+                                                       np.float64)
+    return lib, gains
+
+
+def _precalc_on_a_copy(device="cuda") -> dict:
+    """libgen, then precalc in float64 on ``device``, on a scratch copy of
+    the port's library: every design validates, each within
+    `PRECALC_ATOL` of the shipped gains, the regenerated file equal to
+    the shipped one outside its gains, and the shipped file untouched."""
+    import shutil
+
+    import yaml
+
+    from aclswarm_torch.harness import formations, libgen, precalc
+
+    shipped = formations.DEFAULT_LIBRARY.read_bytes()
+    ship_rest, ship_gains = _library_gains(yaml.safe_load(shipped))
+    with tempfile.TemporaryDirectory(prefix="aclswarm_precalc_") as d:
+        lib = Path(d) / "formations.yaml"
+        shutil.copy(formations.DEFAULT_LIBRARY, lib)
+        t0 = time.perf_counter()
+        libgen.extend_library(lib, verbose=False)
+        designs = precalc.precalc(lib, verbose=False, device=device)
+        seconds = time.perf_counter() - t0
+        rest, written = _library_gains(yaml.safe_load(lib.read_text()))
+    rows = []
+    for x in designs:
+        key = (x["group"], x["name"])
+        rows.append({"formation": "/".join(key), "n": x["n"], "ms": x["ms"],
+                     "valid": x["no_positive"] and x["kernel_ok"]
+                     and x["strictly_negative_rest"],
+                     "max_abs_err_vs_shipped": float(np.abs(
+                         x["gains"] - ship_gains[key]).max()),
+                     "written_max_abs_err": float(np.abs(
+                         written[key] - ship_gains[key]).max())})
+    untouched = formations.DEFAULT_LIBRARY.read_bytes() == shipped
+    info = {"phase": "offline", "check": "libgen + precalc (float64) on a "
+            "scratch copy of the library", "device": str(device),
+            "designs": rows, "seconds": seconds,
+            "max_abs_err": max(r["max_abs_err_vs_shipped"] for r in rows),
+            "tolerance": PRECALC_ATOL,
+            "equal_outside_gains": rest == ship_rest,
+            "shipped_file_untouched": untouched}
+    emit(info)
+    if not (len(rows) == len(ship_gains) == PRECALC_DESIGNS
+            and {(r["formation"]) for r in rows}
+            == {"/".join(k) for k in ship_gains}
+            and all(r["valid"] for r in rows)
+            and info["max_abs_err"] <= PRECALC_ATOL
+            and info["equal_outside_gains"] and untouched):
+        raise AssertionError(f"offline: precalc check failed: {info}")
+    return info
+
+
+def _records_roundtrip(records: list) -> list:
+    """`save_records` then `load_records` through a scratch file; raise
+    unless every field of every record comes back equal, dtype too."""
+    from aclswarm_torch.assignment import replay
+
+    with tempfile.TemporaryDirectory(prefix="aclswarm_replay_") as d:
+        path = Path(d) / "auctions.npz"
+        replay.save_records(records, path)
+        loaded = replay.load_records(path)
+    bad = [(k, f.name) for k, (a, b) in enumerate(zip(records, loaded))
+           for f in dataclasses.fields(replay.AuctionRecord)
+           if not (np.asarray(getattr(a, f.name)).dtype
+                   == getattr(b, f.name).dtype
+                   and np.array_equal(getattr(a, f.name),
+                                      getattr(b, f.name)))]
+    if len(loaded) != len(records) or bad:
+        raise AssertionError(f"offline: records changed through the npz: "
+                             f"{len(records)} -> {len(loaded)}, {bad[:5]}")
+    return loaded
+
+
+def _replayed_v2f(valid: bool, f2v: np.ndarray,
+                  v2f_prev: np.ndarray) -> np.ndarray:
+    """The assignment the engine adopts from a replayed auction: the
+    inverse of its consensus ``f2v`` when valid, else the current one."""
+    v2f = np.array(v2f_prev)
+    if valid:
+        v2f[f2v] = np.arange(len(f2v), dtype=v2f.dtype)
+    return v2f
+
+
+def _replay_full_width(seed: int, device="cuda", n: int = N) -> dict:
+    """A ground-truth CBAA rollout of `simform1000`'s points (task blocks
+    of `ENGINE_CBAA`, an auction every `REPLAY_EVERY` ticks,
+    `REPLAY_TICKS` ticks), its records through the npz, and each replayed
+    by `replay_device` (its defaults: the dense consensus) to the recorded
+    `v2f_new` bit for bit. The oracle cannot finish at this n."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.assignment import replay
+
+    dev = torch.device(device)
+    formation, gains, sparams, state = problem(
+        n, seed, dev, torch.float32, 2 * SUITE["init_radius"],
+        localization=False, keepout_repulse_vel=KEEPOUT_REPULSE_VEL)
+    cfg = sim.SimConfig(**dict(ENGINE_CBAA, localization="truth",
+                               assign_every=REPLAY_EVERY))
+    q0, v2f0 = state.swarm.q.clone(), state.v2f.clone()
+    t0 = time.perf_counter()
+    _, metrics = sim.rollout(state, formation, gains, sparams, cfg,
+                             REPLAY_TICKS)
+    records = replay.record_auctions(metrics, q0, v2f0, formation)
+    rollout_s = time.perf_counter() - t0
+    loaded = _records_roundtrip(records)
+    out = []
+    for rec in loaded:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res = replay.replay_device(rec, device=dev)
+        v2f = _replayed_v2f(bool(res.valid), res.f2v.cpu().numpy(),
+                            rec.v2f_prev)
+        out.append({
+            "valid": bool(res.valid), "rounds": int(res.rounds),
+            "ms": (time.perf_counter() - t1) * 1e3,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if dev.type == "cuda" else None),
+            "reproduced": bool(np.array_equal(v2f, rec.v2f_new)),
+            "reassigned": bool(not np.array_equal(rec.v2f_new,
+                                                  rec.v2f_prev))})
+    info = {"phase": "offline", "check": "replay at full width", "n": n,
+            "ticks": REPLAY_TICKS, "assign_every": REPLAY_EVERY,
+            "task_block": cfg.cbaa_task_block, "rollout_s": rollout_s,
+            "records": len(loaded), "replays": out}
+    emit(info)
+    if len(loaded) != -(-REPLAY_TICKS // REPLAY_EVERY) \
+            or not all(r["reproduced"] for r in out):
+        raise AssertionError(f"offline: a full-width replay differs from "
+                             f"its record: {info}")
+    return info
+
+
+def _replay_small(seed: int, device="cuda") -> dict:
+    """`swarm15`'s three formations on their sparse graph (library gains)
+    and on the complete graph (gains designed on ``device``), each a
+    ground-truth CBAA rollout of `REPLAY_SMALL_TICKS` ticks on
+    ``device`` in float32 with an auction every `REPLAY_EVERY`: every
+    record through the npz, replayed by `replay_record` (the port's CBAA
+    on ``device`` and the sequential oracle on the host) to its recorded
+    `v2f_new`, every decision equal to the oracle's, at least 90% of the
+    auctions valid (`tests/test_replay.py`)."""
+    from aclswarm_torch import gains as gainslib
+    from aclswarm_torch import sim
+    from aclswarm_torch.assignment import replay
+    from aclswarm_torch.core import types
+    from aclswarm_torch.harness import formations, formgen
+
+    dev = torch.device(device)
+    specs = formations.load_group(None, "swarm15")
+    n = specs[0].n
+    fc = np.ones((n, n)) - np.eye(n)
+    sparams = types.SafetyParams(bounds_min=(-50.0, -50.0, 0.0),
+                                 bounds_max=(50.0, 50.0, 20.0))
+    cfg = sim.SimConfig(assignment="cbaa", assign_every=REPLAY_EVERY)
+    records, t0 = [], time.perf_counter()
+    for k, (spec, graph) in enumerate([(s, "sparse") for s in specs]
+                                      + [(s, "fc") for s in specs]):
+        if graph == "sparse":
+            adj, g = spec.adjmat, spec.gains
+        else:
+            adj = fc
+            g = gainslib.solve_gains(np.asarray(spec.points, np.float64),
+                                     fc, device=dev)
+        formation = types.make_formation(spec.points, adj, g, device=dev)
+        rng = np.random.default_rng(seed + k)
+        q0 = rng.normal(size=(n, 3)) * 4 + [0, 0, 3]
+        state = sim.init_state(q0, device=dev)
+        q_start = state.swarm.q.clone()
+        _, m = sim.rollout(state, formation, types.ControlGains(), sparams,
+                           cfg, REPLAY_SMALL_TICKS)
+        records += replay.record_auctions(m, q_start,
+                                          np.arange(n, dtype=np.int32),
+                                          formation)
+    rollout_s = time.perf_counter() - t0
+    loaded = _records_roundtrip(records)
+    t0 = time.perf_counter()
+    matched = reproduced = valid = 0
+    for rec in loaded:
+        out = replay.replay_record(rec, device=dev)
+        matched += out["match"]
+        valid += out["device_valid"]
+        v2f = _replayed_v2f(out["device_valid"], out["device_f2v"],
+                            rec.v2f_prev)
+        reproduced += bool(np.array_equal(v2f, rec.v2f_new))
+    info = {"phase": "offline", "check": "replay against the oracle",
+            "n": n, "rollouts": 2 * len(specs),
+            "ticks_each": REPLAY_SMALL_TICKS, "records": len(loaded),
+            "match": matched, "reproduced": reproduced, "valid": valid,
+            "rollout_s": rollout_s, "replay_s": time.perf_counter() - t0}
+    emit(info)
+    if not (len(loaded) >= REPLAY_SMALL_RECORDS
+            and matched == reproduced == len(loaded)
+            and valid >= 0.9 * len(loaded)):
+        raise AssertionError(f"offline: replay against the oracle failed: "
+                             f"{info}")
+    return info
+
+
+def _k1_cost(seed: int) -> torch.Tensor:
+    """The first auction's normalized (n, n) cost, K1's main-path input
+    (as `phase_kernels` builds it)."""
+    from aclswarm_torch.core import geometry
+    from aclswarm_torch.core import perm as permutil
+
+    dev = torch.device("cuda")
+    formation, _, _, state = problem(N, seed, dev, torch.float32,
+                                     2 * SUITE["init_radius"])
+    q = state.swarm.q
+    p_al = geometry.align(formation.points,
+                          permutil.veh_to_formation_order(q, state.v2f))
+    raw = geometry.cdist_fast(q, p_al)
+    return (raw / (torch.mean(raw) + 1e-12)).contiguous()
+
+
+# `offline` (e)'s trace, in a process of its own: K1's cost from an .npy
+# file, one warm solve, then `timing.trace` around one solve, traced again
+# (up to three times) while the trace names no K1 kernel; one JSON line a
+# trace
+_TRACE_K1 = """
+import json, os, sys
+import numpy as np, torch
+from aclswarm_torch import ops
+from aclswarm_torch.utils import timing
+
+cost = torch.from_numpy(np.load(sys.argv[1])).cuda()
+iters, logdir = int(sys.argv[2]), sys.argv[3]
+timing.readback_sync(ops.sinkhorn_log(cost, 0.03, iters))
+for attempt in range(3):
+    d = os.path.join(logdir, str(attempt))
+    with timing.trace(d):
+        timing.readback_sync(ops.sinkhorn_log(cost, 0.03, iters))
+    path = os.path.join(d, "trace.json")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = sorted({e.get("name", "") for e in events
+                    if "sinkhorn_persistent_kernel" in e.get("name", "")})
+    print(json.dumps({"attempt": attempt, "trace_bytes": os.path.getsize(
+        path), "events": len(events), "k1_names": names}), flush=True)
+    if names:
+        break
+"""
+
+
+def _start_trace_child(cost: torch.Tensor, d: str):
+    """`_TRACE_K1` on ``cost`` in a child process writing under ``d``:
+    the profiler state of a fresh process (in this long one, CUPTI has
+    lost a trace's kernel records; PERF.md, the offline phase)."""
+    path = Path(d) / "k1_cost.npy"
+    np.save(path, cost.cpu().numpy())
+    return subprocess.Popen(
+        [sys.executable, "-c", _TRACE_K1, str(path), str(SINKHORN_ITERS),
+         str(Path(d) / "trace")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+
+
+def _timing_checks(cost: torch.Tensor, k1_ms: float, tracer) -> dict:
+    """`utils.timing` on one n=1000 K1 solve of ``cost``:
+    `timing_stats(per=1, reps=5)`'s median within [the `kernels` phase's
+    K1 ms, 2x it + 0.5 ms] (a timer that returned at dispatch would read
+    microseconds), and `timing.trace` around one solve, in the process
+    ``tracer`` (`_start_trace_child`), writing a Chrome trace that names
+    K1's kernel."""
+    from aclswarm_torch import ops
+    from aclswarm_torch.utils import timing
+
+    def solve(c):
+        return ops.sinkhorn_log(c, 0.03, SINKHORN_ITERS)
+
+    try:
+        out, err = tracer.communicate(timeout=300)
+    finally:
+        if tracer.poll() is None:
+            tracer.kill()
+            tracer.wait()
+    traces = [json.loads(ln) for ln in out.splitlines()
+              if ln.startswith("{")]
+    stats = timing.timing_stats(solve, cost, per=1, reps=5)
+    median_ms = stats["median_s"] * 1e3
+    info = {"phase": "offline", "check": "utils.timing on one K1 solve",
+            "median_ms": median_ms, "min_ms": stats["min_s"] * 1e3,
+            "max_ms": stats["max_s"] * 1e3, "reps": stats["reps"],
+            "kernels_phase_k1_ms": k1_ms,
+            "window_ms": [k1_ms, 2 * k1_ms + 0.5], "traces": traces}
+    emit(info)
+    if not (k1_ms <= median_ms <= 2 * k1_ms + 0.5 and tracer.returncode == 0
+            and traces and traces[-1]["k1_names"]):
+        raise AssertionError(f"offline: timing check failed: {info}\n"
+                             f"{err[-3000:]}")
+    return info
+
+
+def phase_offline(seed: int, trial: dict, kernels: dict) -> dict:
+    """The offline tools on the card. (a) The `trial` configuration flown
+    again in a child process with checkpoints every chunk, SIGKILLed
+    (`ACLSWARM_CRASH`) at the first chunk boundary after the dispatch and
+    its first auction, then resumed here to the watchdog
+    (`_resume_killed_trial`: bit for bit the `trial` phase's run, whose
+    result ``trial`` is). While the child flies: (b)
+    `resilience.smoke` as its user runs it, (c) libgen and precalc on a
+    scratch copy of the library, (d) the auction replay at full width
+    and against the oracle at n=15; and, in a process of its own, the
+    trace of one K1 solve (`_start_trace_child`). After the resume: (e)
+    the timer on one K1 solve against ``kernels``' K1 ms, and the trace's
+    K1 kernel."""
+    kill_at = trial["dispatch_chunks"][0] + 1
+    cost = _k1_cost(seed)
+    with tempfile.TemporaryDirectory(prefix="aclswarm_offline_") as d:
+        child, err, t0 = _start_killed_trial(_trial_cfg(seed), kill_at, d)
+        tracer = _start_trace_child(cost, d)
+        try:
+            smoke = _resilience_smoke()
+            lib = _precalc_on_a_copy()
+            full = _replay_full_width(seed)
+            small = _replay_small(seed)
+        except BaseException:
+            for proc in (child, tracer):
+                proc.kill()
+                proc.wait()
+            err.close()
+            raise
+        killed = _killed_trial_lines(child, err, t0, 900.0)
+        ck = killed["checkpoints"]
+        emit({"phase": "offline", "check": "the killed trial child",
+              "kill_boundary": kill_at, "boot_s": killed["boot_s"],
+              "child_seconds": killed["seconds"],
+              "checkpoints": len(ck),
+              "checkpoint_bytes": ck[-1]["bytes"] if ck else None,
+              "checkpoint_state_copy_ms": [c["state_copy_ms"] for c in ck],
+              "checkpoint_write_ms": [c["write_ms"] for c in ck],
+              "checkpoint_write_ms_median": float(np.median(
+                  [c["state_copy_ms"] + c["write_ms"] for c in ck]))
+              if ck else None})
+        if [c["chunk"] for c in ck] != list(range(1, kill_at + 1)):
+            raise AssertionError(f"offline: the child checkpointed chunks "
+                                 f"{[c['chunk'] for c in ck]}, expected "
+                                 f"1..{kill_at}")
+        resumed = _resume_killed_trial(_trial_cfg(seed), d, kill_at, trial,
+                                       killed)
+        timing = _timing_checks(cost, kernels["sinkhorn_log"]["ms"], tracer)
+    return {"launches": resumed["launches"], "kill_boundary": kill_at,
+            "child": killed, "resumed": resumed, "smoke": smoke,
+            "precalc": lib, "replay": full, "replay_small": small,
+            "timing": timing}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4675,6 +5299,13 @@ def main(argv=None) -> int:
                                             args.seed)
                 done[name] = timed(name, phase_slice_auction, args.seed,
                                    done["auction"])
+            elif name == "offline":
+                for need, fn in (("trial", phase_trial),
+                                 ("kernels", phase_kernels)):
+                    if need not in done:
+                        done[need] = timed(need, fn, args.seed)
+                done[name] = timed(name, phase_offline, args.seed,
+                                   done["trial"], done["kernels"])
             elif name == "trial_checked":
                 done[name] = timed(name, phase_trial_checked, args.seed,
                                    done.get("trial"))
@@ -4724,6 +5355,7 @@ def main(argv=None) -> int:
     sh = timed("serve_watch", phase_serve_watch, args.seed)
     spr = timed("serve_procs", phase_serve_procs, args.seed)
     br = timed("bridge", phase_bridge, args.seed)
+    off = timed("offline", phase_offline, args.seed, tr, kern)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -4777,7 +5409,8 @@ def main(argv=None) -> int:
                    "serve_wire": sw["launches"][name],
                    "serve_watch": sh["launches"][name],
                    "serve_procs": spr["launches"][name],
-                   "bridge": br["launches"][name]},
+                   "bridge": br["launches"][name],
+                   "offline": off["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

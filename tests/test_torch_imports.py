@@ -60,8 +60,11 @@ def test_scan_covers_the_package():
             "messages.py", "codec.py", "native.py", "transport.py",
             "wire.py", "traffic.py", "procworker.py", "router.py",
             "cbaa_ref.py", "planner.py", "bridge.py", "operator.py",
-            "viz_markers.py", "ros_fakes.py", "ros_bridge.py"} <= names
+            "viz_markers.py", "ros_fakes.py", "ros_bridge.py", "timing.py",
+            "reference.py", "sdp.py", "precalc.py", "libgen.py",
+            "replay.py", "overhead.py", "viz.py", "liveplot.py"} <= names
     assert (ROOT / "aclswarm_torch" / "core" / "registry.py") in FILES
+    assert ROOT / "aclswarm_torch" / "resilience" / "smoke.py" in FILES
     for sub in ("analysis", "telemetry", "serve", "utils", "interop"):
         assert ROOT / "aclswarm_torch" / sub / "__init__.py" in FILES
 
@@ -160,3 +163,52 @@ def test_planner_without_device_needs_the_card(monkeypatch):
         ros_bridge.run(FakeRospy(params={"/vehs": ["a", "b"]}), FakeMsgs)
     pl = TorchPlanner(4, device="cpu")
     assert pl.v2f.device.type == "cpu" and pl.dtype == torch.float32
+
+
+def test_precalc_without_device_needs_the_card(monkeypatch, tmp_path):
+    """`precalc.main` designs on the card unless ``--device`` names another
+    device: with no card it raises and leaves the library as it was."""
+    import shutil
+
+    from aclswarm_torch.harness import formations, precalc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lib = tmp_path / "formations.yaml"
+    shutil.copy(formations.DEFAULT_LIBRARY, lib)
+    before = lib.read_bytes()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        precalc.main(["--library", str(lib), "--group", "swarm4"])
+    assert lib.read_bytes() == before
+    precalc.main(["--library", str(lib), "--group", "swarm4",
+                  "--device", "cpu"])
+
+
+def test_resilience_smoke_without_device_needs_the_card(monkeypatch):
+    """`resilience.smoke.main` (the smoke, its child and the overhead
+    tool) raises with no card and no ``--device`` instead of running on
+    the CPU."""
+    from aclswarm_torch.resilience import smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--overhead"], ["--child", "--dir", "unused"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            smoke.main(argv)
+
+
+def test_replay_record_without_device_needs_the_card(monkeypatch):
+    """`replay_record` replays on the card unless asked for the CPU."""
+    from aclswarm_torch.assignment import replay
+
+    n = 4
+    pts = np.stack([np.arange(n) * 5.0, np.zeros(n), np.zeros(n)], 1)
+    rec = replay.AuctionRecord(q=pts + 0.1, points=pts,
+                               adjmat=np.ones((n, n)) - np.eye(n),
+                               v2f_prev=np.arange(n, dtype=np.int32),
+                               v2f_new=np.arange(n, dtype=np.int32))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.replay_record(rec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.replay_device(rec)
+    out = replay.replay_record(rec, device="cpu")
+    assert out["match"] and out["device_valid"]
