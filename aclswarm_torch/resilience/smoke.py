@@ -12,10 +12,9 @@ The fastest end-to-end proof of the resilience layer:
    BIT-EXACTLY against an uninterrupted run.
 
     python -m aclswarm_torch.resilience.smoke [--device cpu]
-        [--dtype float64]
 
 Both processes run on the CUDA card unless ``--device`` names another
-device; the child runs on the parent's device and in its dtype.
+device; the child runs on the parent's device.
 
 ``--overhead`` instead measures the checkpoint tax in the trial driver
 (acceptance bar: < 5% wall at n=10, checkpointing every 10th chunk; the
@@ -43,8 +42,6 @@ N = 5
 CHUNK = 10
 N_CHUNKS = 4
 KILL_AT = 1
-
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def _problem(n: int, device=None, dtype=torch.float32):
@@ -127,13 +124,12 @@ def _same(a, b) -> bool:
         x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(la, lb))
 
 
-def run_smoke(device=None, dtype: str = "float32") -> int:
+def run_smoke(device=None) -> int:
     from aclswarm_torch.core.types import resolve_device
     from aclswarm_torch.resilience import checkpoint as ckptlib
     from aclswarm_torch.resilience.crash import ENV_VAR
 
     dev = resolve_device(device)
-    tdtype = _DTYPES[dtype]
     with tempfile.TemporaryDirectory(prefix="aclswarm_smoke_") as d:
         # 1. child: checkpoint every chunk, SIGKILL at boundary KILL_AT
         env = dict(os.environ,
@@ -141,7 +137,7 @@ def run_smoke(device=None, dtype: str = "float32") -> int:
         t0 = time.time()
         r = subprocess.run(
             [sys.executable, "-m", "aclswarm_torch.resilience.smoke",
-             "--child", "--dir", d, "--device", str(dev), "--dtype", dtype],
+             "--child", "--dir", d, "--device", str(dev)],
             env=env, capture_output=True, text=True, timeout=600)
         if r.returncode != -signal.SIGKILL:
             print(f"FAIL: child exited {r.returncode}, expected "
@@ -155,10 +151,8 @@ def run_smoke(device=None, dtype: str = "float32") -> int:
               f"{time.time() - t0:.1f}s; checkpoint: {left.name}")
 
         # 2. resume + 3. bit-parity against an uninterrupted run
-        state_res, metrics_res = chunked_run(ckpt_dir=d, device=dev,
-                                             dtype=tdtype)
-        state_ref, metrics_ref = chunked_run(ckpt_dir=None, device=dev,
-                                             dtype=tdtype)
+        state_res, metrics_res = chunked_run(ckpt_dir=d, device=dev)
+        state_ref, metrics_ref = chunked_run(ckpt_dir=None, device=dev)
         ref_by_chunk = dict(metrics_ref)
         if [k for k, _ in metrics_res] != list(range(KILL_AT, N_CHUNKS)):
             print(f"FAIL: resume ran chunks "
@@ -174,7 +168,7 @@ def run_smoke(device=None, dtype: str = "float32") -> int:
             return 1
     print(f"PASS: resumed rollout is bit-identical to the uninterrupted "
           f"run (n={N}, {N_CHUNKS} chunks, killed at {KILL_AT}, "
-          f"{dev.type} {dtype})")
+          f"{dev.type})")
     return 0
 
 
@@ -255,7 +249,6 @@ def main(argv=None) -> int:
                     help="(internal) checkpoint directory")
     ap.add_argument("--device", default=None,
                     help="device to run on (default: the CUDA card)")
-    ap.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
     ap.add_argument("--overhead", action="store_true",
                     help="measure the checkpoint tax instead")
     ap.add_argument("--out", default=None,
@@ -263,11 +256,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.child:
         chunked_run(ckpt_dir=args.dir, resume=False, keep_metrics=False,
-                    device=args.device, dtype=_DTYPES[args.dtype])
+                    device=args.device)
         return 0
     if args.overhead:
         return run_overhead(args.out, device=args.device)
-    return run_smoke(args.device, args.dtype)
+    return run_smoke(args.device)
 
 
 if __name__ == "__main__":

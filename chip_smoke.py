@@ -431,10 +431,7 @@ def device_ms(fn, reps: int, kernels: tuple, per_call: int = 1) -> float:
     CUPTI can lose a window's records (PERF.md, PR 5 and PR 7), so a
     window short of ``reps * per_call`` events is traced again, up to
     three times in all, and the mean per event does not count a lost
-    record as zero time. Where all three windows lost every record, the
-    calls are timed with CUDA events instead (`time_ms`: host time
-    included, exact for a call that is one long kernel), and a line says
-    so."""
+    record as zero time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -452,10 +449,8 @@ def device_ms(fn, reps: int, kernels: tuple, per_call: int = 1) -> float:
         if len(best) >= reps * per_call:
             break
     if not best:
-        ms = time_ms(fn, reps)
-        emit({"timer": "CUDA events: the profiler saw no kernel of "
-              f"{list(kernels)} in three traced windows", "ms": ms})
-        return ms
+        raise AssertionError(f"the profiler saw no kernel of {kernels} in "
+                             "three traced windows")
     return sum(best) / len(best) * per_call / 1e3
 
 
@@ -5117,9 +5112,8 @@ def _k1_cost(seed: int) -> torch.Tensor:
 
 
 # `offline` (e)'s trace, in a process of its own: K1's cost from an .npy
-# file, one warm solve, then `timing.trace` around one solve, traced again
-# (up to three times) while the trace names no K1 kernel; one JSON line a
-# trace
+# file, one warm solve, then `timing.trace` around one solve; one JSON
+# line for the trace
 _TRACE_K1 = """
 import json, os, sys
 import numpy as np, torch
@@ -5129,19 +5123,15 @@ from aclswarm_torch.utils import timing
 cost = torch.from_numpy(np.load(sys.argv[1])).cuda()
 iters, logdir = int(sys.argv[2]), sys.argv[3]
 timing.readback_sync(ops.sinkhorn_log(cost, 0.03, iters))
-for attempt in range(3):
-    d = os.path.join(logdir, str(attempt))
-    with timing.trace(d):
-        timing.readback_sync(ops.sinkhorn_log(cost, 0.03, iters))
-    path = os.path.join(d, "trace.json")
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    names = sorted({e.get("name", "") for e in events
-                    if "sinkhorn_persistent_kernel" in e.get("name", "")})
-    print(json.dumps({"attempt": attempt, "trace_bytes": os.path.getsize(
-        path), "events": len(events), "k1_names": names}), flush=True)
-    if names:
-        break
+with timing.trace(logdir):
+    timing.readback_sync(ops.sinkhorn_log(cost, 0.03, iters))
+path = os.path.join(logdir, "trace.json")
+with open(path) as f:
+    events = json.load(f).get("traceEvents", [])
+names = sorted({e.get("name", "") for e in events
+                if "sinkhorn_persistent_kernel" in e.get("name", "")})
+print(json.dumps({"trace_bytes": os.path.getsize(path),
+                  "events": len(events), "k1_names": names}), flush=True)
 """
 
 
@@ -5177,7 +5167,7 @@ def _timing_checks(cost: torch.Tensor, k1_ms: float, tracer) -> dict:
         if tracer.poll() is None:
             tracer.kill()
             tracer.wait()
-    traces = [json.loads(ln) for ln in out.splitlines()
+    traced = [json.loads(ln) for ln in out.splitlines()
               if ln.startswith("{")]
     stats = timing.timing_stats(solve, cost, per=1, reps=5)
     median_ms = stats["median_s"] * 1e3
@@ -5185,10 +5175,11 @@ def _timing_checks(cost: torch.Tensor, k1_ms: float, tracer) -> dict:
             "median_ms": median_ms, "min_ms": stats["min_s"] * 1e3,
             "max_ms": stats["max_s"] * 1e3, "reps": stats["reps"],
             "kernels_phase_k1_ms": k1_ms,
-            "window_ms": [k1_ms, 2 * k1_ms + 0.5], "traces": traces}
+            "window_ms": [k1_ms, 2 * k1_ms + 0.5],
+            "trace": traced[0] if traced else None}
     emit(info)
     if not (k1_ms <= median_ms <= 2 * k1_ms + 0.5 and tracer.returncode == 0
-            and traces and traces[-1]["k1_names"]):
+            and len(traced) == 1 and traced[0]["k1_names"]):
         raise AssertionError(f"offline: timing check failed: {info}\n"
                              f"{err[-3000:]}")
     return info
@@ -5234,7 +5225,10 @@ def phase_offline(seed: int, trial: dict, kernels: dict) -> dict:
               "checkpoint_write_ms": [c["write_ms"] for c in ck],
               "checkpoint_write_ms_median": float(np.median(
                   [c["state_copy_ms"] + c["write_ms"] for c in ck]))
-              if ck else None})
+              if ck else None,
+              "contended": "the child's boot, copies and writes were timed "
+              "while (b)-(d) and the trace child ran on the same card and "
+              "host"})
         if [c["chunk"] for c in ck] != list(range(1, kill_at + 1)):
             raise AssertionError(f"offline: the child checkpointed chunks "
                                  f"{[c['chunk'] for c in ck]}, expected "
@@ -5300,8 +5294,8 @@ def main(argv=None) -> int:
                 done[name] = timed(name, phase_slice_auction, args.seed,
                                    done["auction"])
             elif name == "offline":
-                for need, fn in (("trial", phase_trial),
-                                 ("kernels", phase_kernels)):
+                for need, fn in (("kernels", phase_kernels),
+                                 ("trial", phase_trial)):
                     if need not in done:
                         done[need] = timed(need, fn, args.seed)
                 done[name] = timed(name, phase_offline, args.seed,

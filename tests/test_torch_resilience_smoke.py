@@ -106,7 +106,7 @@ def test_smoke_cli_passes_on_the_cpu():
     env.pop("ACLSWARM_CRASH", None)
     r = subprocess.run(
         [sys.executable, "-m", "aclswarm_torch.resilience.smoke",
-         "--device", "cpu", "--dtype", "float64"],
+         "--device", "cpu"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "child SIGKILL'd at chunk boundary 1" in r.stdout
