@@ -46,7 +46,7 @@ def _owners_assigned(owner: torch.Tensor, n: int) -> torch.Tensor:
     return hit[:n]
 
 
-def auction_lap(benefit: torch.Tensor,
+def auction_lap(benefit: torch.Tensor,  # torchcheck: device-path
                 eps_start: float | None = None,
                 eps_min: float = 1e-4,
                 scale_factor: float = 5.0,
@@ -70,7 +70,7 @@ def auction_lap(benefit: torch.Tensor,
     if poll_every is None:
         poll_every = POLL_EVERY if dev.type == "cuda" else 1
     big = torch.finfo(dtype).max / 4
-    cols = torch.arange(n, device=dev)
+    cols = torch.arange(n, dtype=torch.int64, device=dev)
     cols32 = cols.to(torch.int32)
     eps_floor = torch.full((), eps_min, dtype=dtype, device=dev)
     # eps shrinks by a multiplication with the reciprocal, rounded in the
@@ -127,7 +127,7 @@ def auction_lap(benefit: torch.Tensor,
     while steps <= max_rounds:
         state = step(*state)
         steps += 1
-        if steps % poll_every == 0 and bool(state[4]):
+        if steps % poll_every == 0 and bool(state[4]):  # torchcheck: disable=JC001 poll: one read per POLL_EVERY rounds
             break
     owner, prices, _, rounds, _ = state
 

@@ -214,7 +214,7 @@ def cbaa_assign(q_veh: torch.Tensor,
         price0, who0 = _select_task(myprice, tables.price, tables.who,
                                     vehids)
     else:
-        tasks = torch.arange(n, device=dev)
+        tasks = torch.arange(n, dtype=torch.int64, device=dev)
         f2v_c = warm.who[0].to(torch.int32)       # carried winner list
         held = f2v_c >= 0
         # release-at-seed: an incumbent keeps its carried task only if that
@@ -252,7 +252,7 @@ def cbaa_assign(q_veh: torch.Tensor,
             fixed = fixed | (torch.all(newp == price)
                              & torch.all(neww == who))
             price, who = newp, neww
-            if it % poll_every == 0 and bool(fixed):
+            if it % poll_every == 0 and bool(fixed):  # torchcheck: disable=JC001 poll: one read per POLL_EVERY rounds
                 break
     else:
         for _ in range(n_iters):
@@ -283,7 +283,7 @@ def cbaa_assign(q_veh: torch.Tensor,
         # total by the relative margin (dead-pinned terms cancel)
         d = _own_distances(q_veh, paligned)
         cost_new = torch.sum(d.gather(1, v2f.long()[:, None]))
-        cost_cur = torch.sum(d.gather(1, v2f_prev.long()[:, None]))
+        cost_cur = torch.sum(d.gather(1, v2f_prev.long()[:, None]))  # torchcheck: disable=JC006 dead-pinned terms cancel
         take = cost_new < (1.0 - assign_eps) * cost_cur
         if first is not None:
             take = take | first
@@ -293,7 +293,8 @@ def cbaa_assign(q_veh: torch.Tensor,
 
 
 def cbaa_from_state(q_veh, formation_points, adjmat, v2f_prev, n_iters=None,
-                    est=None, task_block=None, early_exit=True,
+                    est=None, task_block=None,  # torchcheck: device-path
+                    early_exit=True,
                     alive=None, comm_extra=None, warm=None,
                     assign_eps=0.0, first=None, poll_every=None):
     """Local alignment + auction for the whole swarm. ``est`` (optional,

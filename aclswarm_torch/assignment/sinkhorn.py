@@ -74,14 +74,14 @@ def round_parallel(plan_log: torch.Tensor,
     Off the main path; its data-dependent loop runs on the host."""
     n = plan_log.shape[0]
     dev = plan_log.device
-    idx = torch.arange(n, device=dev)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
     if max_rounds is None:
         max_rounds = n
     neg = -math.inf
     scores = plan_log
     assign = torch.full((n,), -1, dtype=torch.int32, device=dev)
     rounds = 0
-    while rounds < max_rounds and bool((assign < 0).any()):
+    while rounds < max_rounds and bool((assign < 0).any()):  # torchcheck: disable=JC001 rounding='parallel' only
         unassigned = assign < 0
         want = torch.argmax(scores, dim=1)
         val = scores[idx, want]
@@ -116,7 +116,7 @@ def two_opt_refine(cost: torch.Tensor, v2f: torch.Tensor,
     costs a few small kernels; stopping early would cost a host read of
     the swap flag every sweep."""
     n = cost.shape[-1]
-    idx = torch.arange(n, device=cost.device)
+    idx = torch.arange(n, dtype=torch.int64, device=cost.device)
     eye = torch.eye(n, dtype=torch.bool, device=cost.device)
     for _ in range(sweeps):
         v = v2f.long()
@@ -133,7 +133,8 @@ def two_opt_refine(cost: torch.Tensor, v2f: torch.Tensor,
 
 
 def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
-                    tau: float = 0.03, n_iters: int = 200,
+                    tau: float = 0.03,  # torchcheck: device-path
+                    n_iters: int = 200,
                     rounding: str = "dominant",
                     refine_sweeps: int = 12,
                     impl: str = "auto",

@@ -123,7 +123,7 @@ def _agents(qij_xy: torch.Tensor, active: torch.Tensor, vel: torch.Tensor,
     viol = active & (d < rk)
     any_viol = viol.any(dim=1) & (params.keepout_repulse_vel > 0.0)
     j = torch.argmin(torch.where(viol, d, torch.full_like(d, inf)), dim=1)
-    rows = torch.arange(d.shape[0], device=d.device)
+    rows = torch.arange(d.shape[0], dtype=torch.int64, device=d.device)
     away = -qij_xy[rows, j] / torch.clamp(d[rows, j], min=1e-9)[:, None]
     rep_mag = min(params.keepout_repulse_vel, params.max_vel_xy)
     v_rep = torch.cat([rep_mag * away, vel[:, 2:3]], dim=-1)

@@ -76,7 +76,7 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         data = data.to(torch.int64) & MASK32
     else:
-        data = int(data) & MASK32
+        data = int(data) & MASK32  # torchcheck: disable=JC001 a host int here
     y0, y1 = threefry2x32(key, 0, data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
@@ -87,7 +87,7 @@ def random_bits(key: torch.Tensor, width: int, shape: tuple) -> torch.Tensor:
     ``bits1 ^ bits2`` (width 32, values in [0, 2^32)) or ``bits1 << 32 |
     bits2`` (width 64, the bit pattern in an int64). The result has
     shape ``key.shape[:-1] + shape``."""
-    shape = tuple(int(s) for s in shape)
+    shape = tuple(int(s) for s in shape)  # torchcheck: disable=JC001 a host shape
     size = math.prod(shape)
     idx = torch.arange(size, dtype=torch.int64, device=key.device)
     hi, lo = (idx >> 32).reshape(shape), (idx & MASK32).reshape(shape)

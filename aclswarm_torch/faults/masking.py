@@ -50,7 +50,7 @@ def apply_pin_forbid(c: torch.Tensor, pin: torch.Tensor,
     epsilon scaling starts from max|benefit|). The one home of the
     magnitude rule: the Sinkhorn path masks its normalized and its raw
     cost through it. A batch takes each trial's own maximum."""
-    big = 4.0 * (torch.amax(c, dim=(-2, -1), keepdim=True) + 1.0)
+    big = 4.0 * (torch.amax(c, dim=(-2, -1), keepdim=True) + 1.0)  # torchcheck: disable=JC006 a bound over every entry
     return torch.where(pin, torch.zeros((), dtype=c.dtype, device=c.device),
                        torch.where(forbid, big, c))
 

@@ -108,7 +108,7 @@ def tick_tensor(tick, like: torch.Tensor) -> torch.Tensor:
     """The trials' ticks as an int32 tensor on ``like``'s device: a host
     int (a fill, no copy), or a ([B,]) int tensor there already."""
     if not isinstance(tick, torch.Tensor):
-        return torch.full((), int(tick), dtype=torch.int32,
+        return torch.full((), int(tick), dtype=torch.int32,  # torchcheck: disable=JC001 a host int here
                           device=like.device)
     return tick.to(torch.int32)
 

@@ -104,8 +104,8 @@ def init_carry(n: int, planar: bool = False, dtype=torch.float32,
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        return x.detach().cpu().numpy()  # torchcheck: disable=JC001 the caller's host input
+    return np.asarray(x)  # torchcheck: disable=JC001 the caller's host input
 
 
 def _host_float(x) -> np.ndarray:
@@ -176,7 +176,7 @@ def _rows(Q, i_idx, j_idx, valid, d):
     else:
         a_idx, b_idx = j_idx, i_idx
         vmask = valid.to(Q.dtype)
-    rows = torch.arange(Q.shape[0], device=Q.device)[:, None]
+    rows = torch.arange(Q.shape[0], dtype=torch.int64, device=Q.device)[:, None]
     return (Q[rows, a_idx] * vmask[..., None],
             Q[rows, b_idx] * vmask[..., None], vmask)
 
@@ -249,7 +249,7 @@ def _psd_eigh(W, params):
     return _mm(V * lam_kept[..., None, :], _mT(V))
 
 
-def _psd_newton(W, params, poll_every, rec):
+def _psd_newton(W, params, poll_every: int, rec):
     """PSD part (W + sign(W) W) / 2, sign(W) by the Newton-Schulz
     iteration Z <- 1.5 Z - 0.5 Z^3 from Z = W / scale, stopped per
     formation once ||Z_new - Z||_F / ||Z||_F < newton_tol."""
@@ -294,7 +294,7 @@ def _psd_newton(W, params, poll_every, rec):
             rec["newton_run"] += 1
             if (k + 1) % poll_every == 0 and k + 1 < params.newton_iters:
                 rec["host_reads"] += 1
-                if bool(done.all()):
+                if bool(done.all()):  # torchcheck: disable=JC001 poll: one read per 4 Newton steps
                     break
         rec["newton_live"].append(steps)
     else:
@@ -386,7 +386,7 @@ def _subproblem(Q, i_idx, j_idx, valid, d, params, warm, poll_every, rec,
         stop = stop | now
         if k + 1 < params.max_itr:
             rec["host_reads"] += 1
-            if bool(stop.all()):
+            if bool(stop.all()):  # torchcheck: disable=JC001 poll: one read per ADMM step
                 early = True
                 break
     rec["admm"].append(steps)
@@ -519,7 +519,8 @@ def _device_of(points, device) -> torch.device:
     return resolve_device(device)
 
 
-def solve_gains(points, adj, params: AdmmParams | None = None,
+def solve_gains(points, adj,  # torchcheck: device-path
+                params: AdmmParams | None = None,
                 max_nonedges: int | None = None, check_mode: str = "off",
                 telemetry: bool = False, carry: AdmmCarry | None = None,
                 device=None, poll_every: int | None = None):
@@ -568,7 +569,7 @@ def solve_gains(points, adj, params: AdmmParams | None = None,
     rec = new_record()
     flat, fin, iters, residual = solve(prob, params, warm, poll_every, rec,
                                        check)
-    if check and rec["ran_out"] and bool(torch.any(
+    if check and rec["ran_out"] and bool(torch.any(  # torchcheck: disable=JC001 check_mode='on' only
             rec["violated"][0] | rec["violated"][1])):
         raise invlib.InvariantViolation(
             invlib.contract_of(invlib.CODES["admm_residual"]), tick=-1)
@@ -578,8 +579,8 @@ def solve_gains(points, adj, params: AdmmParams | None = None,
         out += (AdmmCarry(x2=fin[0][0], s2=fin[1][0], x1=fin[2][0],
                           s1=fin[3][0], iters=iters[0]),)
     if telemetry:
-        out += (AdmmSolveStats(iters=int(iters[0]),
-                               residual=float(residual[0])),)
+        out += (AdmmSolveStats(iters=int(iters[0]),  # torchcheck: disable=JC001 telemetry=True only
+                               residual=float(residual[0])),)  # torchcheck: disable=JC001 telemetry=True only
     return out if len(out) > 1 else gains
 
 
@@ -621,7 +622,8 @@ def solve_gains_f32(points, adj, params: AdmmParams | None = None,
     return gains, report
 
 
-def solve_gains_batch(points, adjs, params: AdmmParams | None = None,
+def solve_gains_batch(points, adjs,  # torchcheck: device-path
+                      params: AdmmParams | None = None,
                       max_nonedges: int | None = None, device=None,
                       poll_every: int | None = None) -> torch.Tensor:
     """Gains for a batch of formations in one program: (B, n, 3) points
@@ -641,7 +643,7 @@ def solve_gains_batch(points, adjs, params: AdmmParams | None = None,
     if flats.any() and not flats.all():
         raise ValueError("batch mixes flat and non-flat formations — "
                          "planarity is compile-time; split the batch")
-    prob = problem(pts, adjs_np, bool(flats.all()), max_nonedges, dev)
+    prob = problem(pts, adjs_np, bool(flats.all()), max_nonedges, dev)  # torchcheck: disable=JC001 numpy flags
     return solve(prob, params, None, poll_every)[0]
 
 

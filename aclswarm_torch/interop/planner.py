@@ -61,7 +61,7 @@ class PlannerOutput:
 
 def _tick(swarm: SwarmState, formation, v2f: torch.Tensor, cgains,
           sparams, do_assign: bool, first: torch.Tensor, cfg,
-          est: Optional[torch.Tensor] = None):
+          est: Optional[torch.Tensor] = None):  # torchcheck: device-path
     """The reference's `_tick`: the assignment (a host branch on
     ``do_assign`` where the reference has a `lax.cond`), the control law,
     saturation and the velocity-obstacle flags."""
@@ -78,7 +78,7 @@ def _tick(swarm: SwarmState, formation, v2f: torch.Tensor, cgains,
         # control law receives from its own localization node
         # (`coordination_ros.cpp:240-250`)
         n = est.shape[0]
-        idx = torch.arange(n, device=est.device)
+        idx = torch.arange(n, dtype=torch.int64, device=est.device)
         rel = est - est[idx, idx][:, None, :]
     u = control.compute(swarm, formation, new_v2f, cgains, rel=rel)
     # safety stage over the raw distcmd: saturate then the VO check — the

@@ -30,7 +30,7 @@ def round_dominant_plain(plan_log: torch.Tensor,
     n = plan_log.shape[-1]
     lead = plan_log.shape[:-2]
     dev = plan_log.device
-    idx = torch.arange(n, device=dev)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
     if max_rounds is None:
         max_rounds = n
     scores = plan_log
@@ -38,7 +38,7 @@ def round_dominant_plain(plan_log: torch.Tensor,
     rounds = torch.zeros(lead, dtype=torch.int32, device=dev)
     while True:
         active = (assign < 0).any(dim=-1) & (rounds < max_rounds)
-        if not bool(active.any()):
+        if not bool(active.any()):  # torchcheck: disable=JC001 plain version, CPU tensors only
             break
         row_best = torch.argmax(scores, dim=-1)
         col_best = torch.argmax(scores, dim=-2)

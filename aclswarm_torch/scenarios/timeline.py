@@ -178,7 +178,7 @@ def _host_leaves(get) -> dict:
                 byz_any=get("byz_mask").astype(bool).any(axis=-1),
                 wind_tick=get("wind_tick").astype(np.int64),
                 noise_tick=get("noise_tick").astype(np.int64),
-                noise_on=np.asarray(get("noise_std")) > 0,
+                noise_on=np.asarray(get("noise_std")) > 0,  # torchcheck: disable=JC001 host data
                 seq_tick=get("seq_tick").astype(np.int64),
                 drift_tick=get("drift_tick").astype(np.int64))
 
@@ -189,7 +189,7 @@ def host_view(scen: Scenario) -> dict:
     not built from host data) and kept on it."""
     host = getattr(scen, "_host", None)
     if host is None:
-        host = _host_leaves(lambda k: getattr(scen, k).cpu().numpy())
+        host = _host_leaves(lambda k: getattr(scen, k).cpu().numpy())  # torchcheck: disable=JC001 built without its host copy
         scen._host = host
     return host
 
@@ -218,7 +218,7 @@ def take_host(scen: Scenario, idx, out: Scenario) -> Scenario:
 def axes_on(scen: Scenario, tick) -> dict:
     """Host bools per axis the engine may skip: on for any trial at
     ``tick`` (a host int, or the batch's (B,) host array of ticks)."""
-    h, t = host_view(scen), np.asarray(tick, np.int64)
+    h, t = host_view(scen), np.asarray(tick, np.int64)  # torchcheck: disable=JC001 the host tick
     stage = (h["seq_tick"] <= t[..., None]).sum(axis=-1) - 1
     return dict(
         obstacles=bool(np.any((t[..., None] >= h["obs_appear"])

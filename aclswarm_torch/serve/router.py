@@ -68,7 +68,7 @@ from aclswarm_torch.serve.api import (COMPLETED, E_CANCELLED, E_DEADLINE,
 from aclswarm_torch.serve.service import bucket_of, write_fence
 from aclswarm_torch.serve.workers import place_slot
 from aclswarm_torch.telemetry import MetricsRegistry
-from aclswarm_torch.telemetry.locks import OrderedLock
+from aclswarm_torch.utils.locks import OrderedLock
 from aclswarm_torch.utils.log import get_logger
 
 # slot states (the process-fleet analogue of serve.workers' lifecycle)

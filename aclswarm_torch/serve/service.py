@@ -74,7 +74,7 @@ from aclswarm_torch.serve.api import (COMPLETED, E_CANCELLED, E_DEADLINE,
 from aclswarm_torch.serve.stats import ServeStats
 from aclswarm_torch.telemetry import (LifecycleLog, MetricsRegistry,
                                       install_crash_dump, mint_trace_id)
-from aclswarm_torch.telemetry.locks import OrderedLock
+from aclswarm_torch.utils.locks import OrderedLock
 from aclswarm_torch.utils.retry import RetryPolicy
 
 BUILTIN_KINDS = ("rollout", "assign", "gains", "stats", "scenario",
@@ -2178,7 +2178,7 @@ class SwarmService:
                 if key is not None:
                     # construction-time replay: _recover() runs from
                     # __init__ before any worker thread exists
-                    self.stats[key] += 1
+                    self.stats[key] += 1  # torchcheck: disable=JC101 construction-time replay
             if torn:
                 self.log.warning(
                     "events.log ends in a torn record (crash "

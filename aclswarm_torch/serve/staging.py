@@ -77,8 +77,8 @@ def i32(value, device) -> torch.Tensor:
     sequence of ints) on ``device``. Named after the reference's int32
     index constants; the port's are int64, as ``index_select`` and
     ``index_copy_`` take them."""
-    vals = (tuple(int(v) for v in value)
-            if isinstance(value, (list, tuple)) else (int(value),))
+    vals = (tuple(int(v) for v in value)  # torchcheck: disable=JC001 host slot numbers
+            if isinstance(value, (list, tuple)) else (int(value),))  # torchcheck: disable=JC001 host slot numbers
     key = (vals, str(torch.device(device)))
     with _IDX_LOCK:
         t = _IDX_CACHE.get(key)
@@ -98,7 +98,7 @@ def _device_of(state: sim.SimState) -> torch.device:
     return state.swarm.q.device
 
 
-def write_row(store, row, slot: int):
+def write_row(store, row, slot: int):  # torchcheck: device-path
     """Write one request's prepared ``row`` (state, formation) into the
     store at ``slot``, in place: one ``index_copy_`` per tensor, the tick
     and the scenario's host copy beside them. Returns the store."""
@@ -116,7 +116,8 @@ def write_row(store, row, slot: int):
     return store
 
 
-def gather_rows(store, idx: tuple) -> Tuple[sim.SimState, types.Formation]:
+def gather_rows(store, idx: tuple,  # torchcheck: device-path
+                ) -> Tuple[sim.SimState, types.Formation]:
     """The round's batch: rows ``idx`` of the store in that order, as
     copies (``index_select``); the store keeps every row."""
     st, fm = store
@@ -129,7 +130,8 @@ def gather_rows(store, idx: tuple) -> Tuple[sim.SimState, types.Formation]:
     return bst, types.take_rows(fm, t)
 
 
-def scatter_rows(store_state: sim.SimState, out: sim.SimState,
+def scatter_rows(store_state: sim.SimState,  # torchcheck: device-path
+                 out: sim.SimState,
                  slots: list, rows: list) -> sim.SimState:
     """``store_state[slots[i]] = out[rows[i]]`` for every tensor and tick,
     in place. A scenario is a script a rollout never changes, so its host
@@ -142,7 +144,8 @@ def scatter_rows(store_state: sim.SimState, out: sim.SimState,
     return store_state
 
 
-def take_row(store, slot: int) -> Tuple[sim.SimState, types.Formation]:
+def take_row(store, slot: int,  # torchcheck: device-path
+             ) -> Tuple[sim.SimState, types.Formation]:
     """One resident row of the store, copied out (failover migration and
     re-staging across worker incarnations read a job's row with this)."""
     st, fm = store
@@ -156,7 +159,7 @@ def take_state_row(state: sim.SimState, b: int) -> sim.SimState:
     row = sim.trial(state, b)
     out = types.tree_map(torch.clone, row)
     if row.scenario is not None:
-        out.scenario._host = {k: np.array(v) for k, v in
+        out.scenario._host = {k: np.array(v) for k, v in  # torchcheck: disable=JC001 the host copy
                               scenlib.host_view(row.scenario).items()}
     return out
 
@@ -194,12 +197,14 @@ class HostRead:
                 "q_final": a[k:].reshape(self._shapes[1])}
 
 
-def unpack_round(q_ticks: torch.Tensor, q_final: torch.Tensor) -> HostRead:
+def unpack_round(q_ticks: torch.Tensor,  # torchcheck: device-path
+                 q_final: torch.Tensor) -> HostRead:
     """Start the round's one host read (`HostRead`)."""
     return HostRead(q_ticks, q_final)
 
 
-def init_row(q0: torch.Tensor, faults, scenario) -> sim.SimState:
+def init_row(q0: torch.Tensor, faults,  # torchcheck: device-path
+             scenario) -> sim.SimState:
     """A serve request's initial state row: `sim.init_state` on ``q0``'s
     device and dtype with the request's fault schedule and scenario."""
     return sim.init_state(q0, faults=faults, scenario=scenario,

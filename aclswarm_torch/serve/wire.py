@@ -96,7 +96,7 @@ from aclswarm_torch.serve.api import (E_QUEUE_FULL, E_SHUTDOWN, FAILED,
 from aclswarm_torch.serve.api import _SENTINEL as _TICKET_SENTINEL
 from aclswarm_torch.telemetry import mint_trace_id
 from aclswarm_torch.utils.log import get_logger
-from aclswarm_torch.telemetry.locks import OrderedLock
+from aclswarm_torch.utils.locks import OrderedLock
 from aclswarm_torch.utils.retry import retry_after_delay
 
 WIRE_VERSION = 1

@@ -38,7 +38,7 @@ import zlib
 from typing import TYPE_CHECKING, List, Optional, Tuple
 
 from aclswarm_torch.resilience import InjectedCrash
-from aclswarm_torch.telemetry.locks import OrderedLock
+from aclswarm_torch.utils.locks import OrderedLock
 from aclswarm_torch.utils.retry import RetryPolicy, delay_for
 
 if TYPE_CHECKING:                                   # pragma: no cover

@@ -353,7 +353,7 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
          inputs: ExternalInputs | None = None,
          shared_tick: int | None = None,
          trial_ticks: torch.Tensor | None = None
-         ) -> tuple[SimState, StepMetrics]:
+         ) -> tuple[SimState, StepMetrics]:  # torchcheck: device-path
     """One 100 Hz control tick for the whole swarm, or for a batch of
     trials. ``shared_tick`` (host int) replaces ``state.tick`` as the
     decimation phase (auction period, flood cadence); a batch needs it,
@@ -679,7 +679,7 @@ def _stack_metrics(per_tick: list) -> StepMetrics | None:
 def rollout(state: SimState, formation: Formation, gains: ControlGains,
             sparams: SafetyParams, cfg: SimConfig, n_ticks: int,
             inputs: ExternalInputs | None = None
-            ) -> tuple[SimState, StepMetrics]:
+            ) -> tuple[SimState, StepMetrics]:  # torchcheck: device-path
     """Roll the swarm forward ``n_ticks`` ticks. ``inputs`` (optional) is
     an `ExternalInputs` stacked over a leading ``n_ticks`` axis. Returns
     the final state and `StepMetrics` stacked over time (leading axis
@@ -694,7 +694,7 @@ def rollout(state: SimState, formation: Formation, gains: ControlGains,
 
 def batched_rollout(state: SimState, formation: Formation,
                     gains: ControlGains, sparams: SafetyParams,
-                    cfg: SimConfig, n_ticks: int,
+                    cfg: SimConfig, n_ticks: int,  # torchcheck: device-path
                     inputs: ExternalInputs | None = None, tick0: int = 0
                     ) -> tuple[SimState, StepMetrics]:
     """Roll B independent trials forward ``n_ticks`` ticks at once.

@@ -54,7 +54,7 @@ def comm_mask(adjmat: torch.Tensor, v2f: torch.Tensor) -> torch.Tensor:
 def observe_self(table: EstimateTable, q_true: torch.Tensor) -> EstimateTable:
     """Each vehicle's own entry is ground truth with a fresh stamp."""
     n = q_true.shape[-2]
-    d = torch.arange(n, device=q_true.device)
+    d = torch.arange(n, dtype=torch.int64, device=q_true.device)
     est = table.est.clone()
     est[..., d, d, :] = q_true
     age = table.age.clone()
@@ -169,7 +169,7 @@ def tick_phased(table: EstimateTable, q_true: torch.Tensor,
 def relative_views(table: EstimateTable) -> torch.Tensor:
     """(n, n, 3) rel[v, w] = v's estimate of (w's position − its own)."""
     n = table.est.shape[-2]
-    d = torch.arange(n, device=table.est.device)
+    d = torch.arange(n, dtype=torch.int64, device=table.est.device)
     return table.est - table.est[..., d, d, :][..., :, None, :]
 
 

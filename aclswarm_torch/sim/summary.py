@@ -254,7 +254,8 @@ def summarize_chunk(metrics: StepMetrics, carry: SummaryCarry, window: int,
 
 
 def batched_rollout_summary(state, carry: SummaryCarry, formation, gains,
-                            sparams, cfg, n_ticks: int, inputs=None,
+                            sparams, cfg,  # torchcheck: device-path
+                            n_ticks: int, inputs=None,
                             tick0: int = 0, *, window: int,
                             takeoff_alt: float, pose_every: int = 0):
     """B trials x ``n_ticks`` ticks (`engine.batched_rollout`) reduced per

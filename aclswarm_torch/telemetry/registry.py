@@ -42,7 +42,7 @@ import time
 from typing import Iterable, Optional
 
 from aclswarm_torch.telemetry.spans import FlightRecorder, Span
-from aclswarm_torch.telemetry.locks import OrderedLock
+from aclswarm_torch.utils.locks import OrderedLock
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry", "reset_registry"]

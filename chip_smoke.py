@@ -234,7 +234,28 @@ and prints no result line:
              of one n=1000 K1 solve within [the `kernels` phase's K1 ms,
              2x it + 0.5 ms], and `timing.trace` (in a process of its own)
              naming K1's kernel;
-33. the `kernels` line, then the result line. Each kernel row carries the
+33. audit — the analysis tier on the card: (a) the trace audit of all
+             29 entry points at the tier-1 grid (n=5, B=2, one point per
+             solver, faulted and flooded), each call under
+             `torch.cuda.set_sync_debug_mode("warn")`: its synchronizing
+             calls at or below the entry's declared budget, the second
+             identical call dispatching the first's ATen op stream and
+             kernel launches, no float64 leaf, K1 and K2 launched at the
+             sinkhorn point and K3 at the flooded one; (b) the main path,
+             `simform1000_flooded` at n=1000 in float32, 20 ticks from a
+             fresh start under the same counter, one `sim.rollout` per
+             tick: syncs per ordinary and per auction tick within the
+             rollout's per-tick budget (`trace_audit.TICK_SYNCS`); (c)
+             `lint`, `--concurrency` and `--protocol` over
+             `aclswarm_torch/` with 0 violations each, and the model
+             checker's default configuration with P1-P5 holding. The serve
+             phases' journals (`serve`, `serve_wire`, and the drills of
+             `serve_recovery`, `serve_watch` and `serve_procs`, kept with
+             ``ACLSWARM_KEEP_JOURNALS``) are refined against the protocol
+             (`analysis.model.refine_dir`, a process fleet's slots as
+             fragments) in their own phases; this phase reports the
+             journals, requests and events refined;
+34. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -259,6 +280,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4086,19 +4108,23 @@ def phase_serve_recovery(seed: int) -> dict:
     journal, zero losses and a bit-identical final digest against an
     uninterrupted run."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "aclswarm_torch.serve.smoke",
-                        "--n", str(N)],
-                       capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    line = next((json.loads(ln) for ln in r.stdout.splitlines()
-                 if ln.startswith('{"serve_smoke"')), None)
-    if r.returncode != 0 or "PASS" not in r.stdout or line is None:
-        raise AssertionError(f"serve_recovery failed (exit {r.returncode})"
-                             f":\n{r.stdout}\n{r.stderr[-4000:]}")
+    with tempfile.TemporaryDirectory(prefix="aclswarm_keep_") as keep:
+        r = subprocess.run([sys.executable, "-m",
+                            "aclswarm_torch.serve.smoke", "--n", str(N)],
+                           capture_output=True, text=True, timeout=600,
+                           env=_kept_journals_env(keep))
+        seconds = time.perf_counter() - t0
+        line = next((json.loads(ln) for ln in r.stdout.splitlines()
+                     if ln.startswith('{"serve_smoke"')), None)
+        if r.returncode != 0 or "PASS" not in r.stdout or line is None:
+            raise AssertionError(f"serve_recovery failed (exit "
+                                 f"{r.returncode}):\n{r.stdout}\n"
+                                 f"{r.stderr[-4000:]}")
+        refined = _refine("serve_recovery", keep)
     launches = {k: sum(part.get(k, 0) for part in line["launches"].values())
                 for k in ("sinkhorn_log", "round_dominant", "flood_merge")}
     info = {"phase": "serve_recovery", "seconds": seconds,
-            "launches": launches, "smoke": line}
+            "launches": launches, "smoke": line, "refined": refined}
     emit(info)
     if not launches["sinkhorn_log"] or launches["flood_merge"]:
         raise AssertionError(f"serve_recovery launches: {launches}")
@@ -4110,7 +4136,8 @@ def _journal_postmortem(label: str, journal: str, results: dict) -> dict:
     request of ``results`` complete and gap-free (chunk coverage without a
     hole, duplicate executions bit-identical, the terminal event last),
     under one trace id equal to its result's, with its result's chunk
-    count; and ``postmortem --all`` exits 0."""
+    count; ``postmortem --all`` exits 0; and the journal refines against
+    the serve protocol (`_refine`)."""
     import io
 
     from aclswarm_torch.telemetry import postmortem
@@ -4134,6 +4161,7 @@ def _journal_postmortem(label: str, journal: str, results: dict) -> dict:
            "all_exit": cli_rc}
     if bad or cli_rc != 0:
         raise AssertionError(f"{label}: postmortem failed: {bad} {out}")
+    out["refined"] = _refine(label, journal)
     return out
 
 
@@ -4323,27 +4351,37 @@ def phase_serve_watch(seed: int) -> dict:
     and ``watch --log`` over the persisted ``timeseries.log`` replays the
     transitions the live engine journaled). Both must print PASS."""
     t0 = time.perf_counter()
+    # one kept-journal root per drill: siblings under one root would be
+    # refined as one fleet's slots
+    keeps = {flag: tempfile.mkdtemp(prefix="aclswarm_keep_")
+             for flag in ("--postmortem", "--multiworker")}
     procs = {flag: subprocess.Popen(
         [sys.executable, "-m", "aclswarm_torch.serve.smoke", flag,
          "--n", str(N)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, cwd=Path(__file__).resolve().parent)
+        text=True, cwd=Path(__file__).resolve().parent,
+        env=_kept_journals_env(keeps[flag]))
         for flag in ("--postmortem", "--multiworker")}
-    outs, seconds = {}, {}
+    outs, seconds, refined = {}, {}, {}
     try:
         for flag, pr in procs.items():
             out, err = pr.communicate(timeout=600)
             outs[flag] = (pr.returncode, out, err)
             seconds[flag] = time.perf_counter() - t0
+        for flag, (rc, _, _) in outs.items():
+            if rc == 0:
+                refined[flag] = _refine(f"serve_watch{flag}", keeps[flag])
     finally:
         for pr in procs.values():
             if pr.poll() is None:
                 pr.kill()
                 pr.wait()
+        for keep in keeps.values():
+            shutil.rmtree(keep, ignore_errors=True)
     lines = {flag: next((json.loads(ln) for ln in out.splitlines()
                          if ln.startswith('{"serve_smoke"')), None)
              for flag, (_, out, _) in outs.items()}
     info = {"phase": "serve_watch", "seconds": time.perf_counter() - t0,
-            "drill_seconds": seconds, "drills": lines,
+            "drill_seconds": seconds, "drills": lines, "refined": refined,
             "pass": {flag: next((ln for ln in out.splitlines()
                                  if ln.startswith("PASS")), None)
                      for flag, (_, out, _) in outs.items()}}
@@ -4374,22 +4412,26 @@ def phase_serve_procs(seed: int) -> dict:
     must be > 0 and K3's 0, and every child that launched a kernel must
     have loaded the library `build` left (no rebuild)."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "aclswarm_torch.serve.smoke",
-                        "--procs", "--n", str(N)], capture_output=True,
-                       text=True, timeout=900,
-                       cwd=Path(__file__).resolve().parent)
-    seconds = time.perf_counter() - t0
-    line = next((json.loads(ln) for ln in r.stdout.splitlines()
-                 if ln.startswith('{"serve_smoke"')), None)
-    if r.returncode != 0 or "PASS" not in r.stdout or line is None:
-        raise AssertionError(f"serve_procs failed (exit {r.returncode}):"
-                             f"\n{r.stdout}\n{r.stderr[-4000:]}")
+    with tempfile.TemporaryDirectory(prefix="aclswarm_keep_") as keep:
+        r = subprocess.run([sys.executable, "-m",
+                            "aclswarm_torch.serve.smoke", "--procs", "--n",
+                            str(N)], capture_output=True, text=True,
+                           timeout=900, cwd=Path(__file__).resolve().parent,
+                           env=_kept_journals_env(keep))
+        seconds = time.perf_counter() - t0
+        line = next((json.loads(ln) for ln in r.stdout.splitlines()
+                     if ln.startswith('{"serve_smoke"')), None)
+        if r.returncode != 0 or "PASS" not in r.stdout or line is None:
+            raise AssertionError(f"serve_procs failed (exit "
+                                 f"{r.returncode}):\n{r.stdout}\n"
+                                 f"{r.stderr[-4000:]}")
+        refined = _refine("serve_procs", keep)
     launches = line["launches"]["children"]
     rebuilt = {uid: c["library"] for uid, c in line["child_launches"].items()
                if any(c["launches"].values())
                and not c["library"].get("cached")}
     info = {"phase": "serve_procs", "seconds": seconds,
-            "launches": launches,
+            "launches": launches, "refined": refined,
             "boot_s": {b["uid"]: b["boot_s"] for b in line["boots"]},
             "detect_ms": line["detect_ms"],
             "failover_s": line["failover_s"],
@@ -5242,6 +5284,218 @@ def phase_offline(seed: int, trial: dict, kernels: dict) -> dict:
             "timing": timing}
 
 
+# journals the serve phases refined against the serve protocol
+# (`_refine`), by phase; `audit` reports them
+REFINED: dict = {}
+# the audit's main path: ticks from a fresh start (tick 0 auctions)
+AUDIT_TICKS = 20
+
+
+def _refine(label: str, root: str) -> dict:
+    """`analysis.model.refine_tree` over the journals under ``root``: every
+    reconstructed request an accepted trace of the serve protocol (a
+    process fleet's sibling slot journals as fragments, as the reference
+    refines them). Fails on any problem, and when no journal or request
+    was found."""
+    from aclswarm_torch.analysis import model
+
+    rep = model.refine_tree(root)
+    out = {k: rep[k] for k in ("journals", "requests", "events")}
+    if rep["problems"] or not rep["journals"] or not rep["requests"]:
+        raise AssertionError(f"{label}: journal refinement failed: {out} "
+                             f"{rep['problems'][:5]}")
+    REFINED[label] = out
+    return out
+
+
+def _kept_journals_env(keep: str) -> dict:
+    return dict(os.environ, ACLSWARM_KEEP_JOURNALS=keep)
+
+
+def _audit_entries() -> tuple[list, dict]:
+    """Every registered entry at each of its tier-1 grid points on the
+    card: per call, the synchronizing calls and the kernel launches; the
+    op stream of the two recorded calls equal; no float64 leaf."""
+    from aclswarm_torch.analysis import trace_audit as ta
+
+    rows, bad, launched = [], [], {}
+    for entry in ta.ENTRY_POINTS:
+        for gp in ta.grid_points(entry):
+            t0 = time.perf_counter()
+            try:
+                r = ta.audit_entry(entry, gp, "cuda")
+            except ta.Skip:
+                continue
+            budget = entry.budget(gp)
+            row = {"entry": entry.name, "solver": gp.solver,
+                   "faults": gp.faults, "localization": gp.localization,
+                   "syncs": list(r.syncs), "budget": budget,
+                   "ops": r.n_ops, "launches": r.launches[1],
+                   "f64": list(r.f64_leaves), "changed": r.changed,
+                   "launches_changed": r.launches_changed,
+                   "sync_sites": r.sync_sites,
+                   "seconds": time.perf_counter() - t0}
+            rows.append(row)
+            for k, v in r.launches[1].items():
+                launched[k] = launched.get(k, 0) + v
+            if not r.ok or max(r.syncs) > budget:
+                bad.append(row)
+    return rows, {"bad": bad, "launched": launched}
+
+
+def _main_path_syncs(seed: int) -> dict:
+    """`simform1000_flooded` at n=1000, float32: AUDIT_TICKS ticks from a
+    fresh start, one `sim.rollout` call per tick under the sync counter;
+    syncs per ordinary and per auction tick."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.analysis import trace_audit as ta
+
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = problem(
+        N, seed, dev, torch.float32, 2 * SUITE["init_radius"])
+    cfg = _slice_cfg()
+    sim.rollout(state, formation, gains, sparams, cfg, 2)     # warm-up
+    torch.cuda.synchronize()
+    per_tick, auctioned, sites = [], [], {}
+    t0 = time.perf_counter()
+    for _ in range(AUDIT_TICKS):
+        counts: list = []
+        tick_sites: dict = {}
+        with ta.count_syncs(dev, counts, tick_sites):
+            state, m = sim.rollout(state, formation, gains, sparams, cfg, 1)
+        per_tick.append(counts[0])
+        auctioned.append(bool(m.auctioned[0]))
+        kind = "auction" if auctioned[-1] else "tick"
+        for k, v in tick_sites.items():
+            sites.setdefault(kind, {})[k] = sites.get(kind, {}).get(k,
+                                                                   0) + v
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / AUDIT_TICKS * 1e3
+    ordinary = [c for c, a in zip(per_tick, auctioned) if not a]
+    auction = [c for c, a in zip(per_tick, auctioned) if a]
+    checked = cfg.check_mode == "on"
+    budget = {"tick": ta.tick_budget(cfg.localization, checked),
+              "auction_tick": ta.tick_budget(cfg.localization, checked,
+                                             cfg.assignment)}
+    return {"n": N, "ticks": AUDIT_TICKS, "assignment": cfg.assignment,
+            "syncs_per_tick": per_tick, "auction_ticks":
+            [t for t, a in enumerate(auctioned) if a],
+            "ordinary_max": max(ordinary), "ordinary_mean": _mean(ordinary),
+            "auction_max": max(auction), "budget": budget,
+            "sync_sites": sites,
+            "ms_per_tick_counted": ms,
+            "finite": bool(torch.isfinite(state.swarm.q).all())}
+
+
+def _lints() -> dict:
+    """The three lint tiers over the port and the model checker's default
+    configuration, in this process (no card needed): each exit code 0."""
+    import io
+
+    from aclswarm_torch.analysis import lint, model
+
+    pkg = str(Path(__file__).resolve().parent / "aclswarm_torch")
+    out = {}
+    for name, argv in (("lint", [pkg]), ("concurrency", ["--concurrency"]),
+                       ("protocol", ["--protocol"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(buf):
+            rc = lint.main(argv)
+        out[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                     "summary": buf.getvalue().strip().splitlines()[-1]}
+    t0 = time.perf_counter()
+    res = model.check(model.ModelConfig())
+    out["model"] = {"ok": res.ok, "states": res.states,
+                    "property": res.property,
+                    "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _start_lints():
+    """`_lints` in a child process (host work only), beside the card's
+    part of the phase."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke._lints()))"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+
+
+def phase_audit(seed: int) -> dict:
+    """The analysis tier on the card (the docstring's phase 33)."""
+    from aclswarm_torch.analysis import trace_audit as ta
+
+    t0 = time.perf_counter()
+    child = _start_lints()
+    try:
+        rows, summary = _audit_entries()
+        audit_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        main_path = _main_path_syncs(seed)
+        main_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        out, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    lint_wait_s = time.perf_counter() - t2
+    if child.returncode != 0 or not out.strip():
+        raise AssertionError(f"audit: the lint child failed (exit "
+                             f"{child.returncode}):\n{out}\n{err[-4000:]}")
+    lints = json.loads(out.strip().splitlines()[-1])
+    by_entry = {}
+    for r in rows:
+        e = by_entry.setdefault(r["entry"], {"syncs_max": 0, "budget": 0})
+        e["syncs_max"] = max(e["syncs_max"], max(r["syncs"]))
+        e["budget"] = max(e["budget"], r["budget"])
+    launched = summary["launched"]
+    sink = {k: sum(r["launches"].get(k, 0) for r in rows
+                   if r["solver"] == "sinkhorn")
+            for k in ("sinkhorn_log", "round_dominant")}
+    flood = sum(r["launches"].get("flood_merge", 0) for r in rows
+                if r["localization"] == "flooded")
+    info = {"phase": "audit", "entries": len(by_entry),
+            "cells": len(rows), "syncs_by_entry": by_entry,
+            "launched": launched, "sinkhorn_point_launches": sink,
+            "flooded_point_k3": flood, "bad": summary["bad"],
+            "main_path": main_path, "lints": lints,
+            "journals_refined": {
+                "by_phase": REFINED,
+                **{k: sum(v[k] for v in REFINED.values())
+                   for k in ("journals", "requests", "events")}},
+            "seconds": {"entries": audit_s, "main_path": main_s,
+                        "lint_wait": lint_wait_s,
+                        "total": time.perf_counter() - t0}}
+    emit(info)
+    emit({"phase": "audit_cells", "rows": rows})
+    problems = []
+    if len(by_entry) != len(ta.ENTRY_POINTS):
+        problems.append(f"{len(by_entry)} entries audited, not "
+                        f"{len(ta.ENTRY_POINTS)}")
+    if summary["bad"]:
+        problems.append(f"entries over budget or unstable: "
+                        f"{summary['bad']}")
+    if not (sink["sinkhorn_log"] and sink["round_dominant"] and flood):
+        problems.append(f"kernels not launched in the audit: {sink}, "
+                        f"K3 {flood}")
+    mp = main_path
+    if not (mp["finite"] and mp["auction_ticks"]
+            and mp["ordinary_max"] <= mp["budget"]["tick"]
+            and mp["auction_max"] <= mp["budget"]["auction_tick"]):
+        problems.append(f"main path syncs over budget: {mp}")
+    for name in ("lint", "concurrency", "protocol"):
+        if lints[name]["rc"] != 0:
+            problems.append(f"{name}: {lints[name]}")
+    if not lints["model"]["ok"]:
+        problems.append(f"model checker: {lints['model']}")
+    if problems:
+        raise AssertionError("audit failed: " + "; ".join(problems))
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -5274,7 +5528,8 @@ def main(argv=None) -> int:
                  "serve": phase_serve,
                  "serve_recovery": phase_serve_recovery,
                  "serve_watch": phase_serve_watch,
-                 "serve_procs": phase_serve_procs, "bridge": phase_bridge}
+                 "serve_procs": phase_serve_procs, "bridge": phase_bridge,
+                 "audit": phase_audit}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
@@ -5350,6 +5605,7 @@ def main(argv=None) -> int:
     spr = timed("serve_procs", phase_serve_procs, args.seed)
     br = timed("bridge", phase_bridge, args.seed)
     off = timed("offline", phase_offline, args.seed, tr, kern)
+    timed("audit", phase_audit, args.seed)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),

@@ -74,10 +74,14 @@ def test_telemetry_package_init_stays_stdlib_only():
     neither torch nor numpy (the device counters are imported
     explicitly)."""
     pkg = ROOT / "aclswarm_torch" / "telemetry"
-    for name in ("__init__.py", "registry.py", "spans.py", "locks.py",
+    for name in ("__init__.py", "registry.py", "spans.py",
                  "lifecycle.py", "timeseries.py", "slo.py", "postmortem.py",
                  "watch.py"):
         assert not _imported(pkg / name) & {"torch", "numpy"}, name
+    # the registry's locks live where the reference keeps them
+    assert not (pkg / "locks.py").exists()
+    locks = ROOT / "aclswarm_torch" / "utils" / "locks.py"
+    assert not _imported(locks) & {"torch", "numpy"}
 
 
 def test_wire_modules_import_no_torch():

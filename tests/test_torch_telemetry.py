@@ -33,7 +33,7 @@ from aclswarm_torch.core.types import ControlGains, SafetyParams
 from aclswarm_torch.resilience import checkpoint as tckpt
 from aclswarm_torch.sim import summary as tsum
 from aclswarm_torch.telemetry import device as tdev
-from aclswarm_torch.telemetry import locks as tlocks
+from aclswarm_torch.utils import locks as tlocks
 from aclswarm_tpu import sim as jsim
 from aclswarm_tpu.gains import admm as jadmm
 from aclswarm_tpu.telemetry import device as jdev

@@ -956,7 +956,7 @@ class TestClientHandleLocking:
         import threading
 
         from aclswarm_torch.serve import wire
-        from aclswarm_torch.telemetry.locks import OrderedLock
+        from aclswarm_torch.utils.locks import OrderedLock
         from aclswarm_torch.utils import get_logger
 
         # a bare client: exactly the attributes _handle touches, no
