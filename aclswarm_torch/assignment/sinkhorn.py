@@ -11,6 +11,14 @@ back to the host.
 `sinkhorn_assign` also solves a batch of trials, the clouds ``(B, n, 3)``:
 one K1 call and one K2 call for the whole batch, the rest batched on the
 trial axis.
+
+With ``stage_shardings`` (the agent mesh, `aclswarm_torch.parallel`) the
+iterations run row-sharded and the rounding replicated, the reference's
+staged layout (docs/SCALING.md): each rank iterates its rows of logK with
+one column collective per iteration (`sinkhorn_log_rows`), then the plan
+and the cost are gathered and K2 rounds on every rank. The row-sharded
+iterations are the reference's own XLA formulation under a mesh: K1's one
+cooperative launch cannot hold a collective in the middle of its loop.
 """
 from __future__ import annotations
 
@@ -148,17 +156,26 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
     ``pin``/``forbid`` ((n, n) bool, together or not at all): pinned pairs
     become free and forbidden ones prohibitively expensive, applied after
     the scale normalization and to the raw cost the repair sees.
-    ``stage_shardings`` belongs to the multi-device slice."""
-    if stage_shardings is not None:
-        raise NotImplementedError("sinkhorn_assign stage_shardings belongs "
-                                  "to the parallel/ slice, not yet ported")
+    ``stage_shardings`` = ``(row_sharding(mesh), replicated(mesh))``
+    (`parallel.mesh`) stages the solve over the mesh: ``q`` and
+    ``p_aligned`` are whole on every rank, each rank prices and iterates
+    its own rows, and every rank returns the whole result."""
     if (pin is None) != (forbid is None):
         raise ValueError("sinkhorn_assign: pass pin and forbid together "
                          "or not at all")
     if q.ndim > 2 and rounding != "dominant":
         raise ValueError("a batch of trials rounds with 'dominant' (K2) "
                          f"only, not {rounding!r}")
-    cost_raw = geometry.cdist_fast(q, p_aligned)
+    if stage_shardings is None:
+        mesh = None
+        cost_raw = geometry.cdist_fast(q, p_aligned)
+    else:
+        if q.ndim > 2:
+            raise ValueError("stage_shardings solves one problem, not a "
+                             "batch of trials")
+        mesh = _staged_mesh(stage_shardings)
+        cost_raw = _gather_rows(lambda lo, hi: geometry.cdist_fast(
+            q[lo:hi], p_aligned), mesh, q.shape[-2])
     # each trial's mean alone, as its serial solve reduces it
     mean = torch.mean(cost_raw) if cost_raw.ndim == 2 else torch.stack(
         [torch.mean(c) for c in cost_raw])[:, None, None]
@@ -166,7 +183,11 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
     if pin is not None:
         cost = masking.apply_pin_forbid(cost, pin, forbid)
         cost_raw = masking.apply_pin_forbid(cost_raw, pin, forbid)
-    plan_log = sinkhorn_log(cost, tau=tau, n_iters=n_iters, impl=impl)
+    if mesh is None:
+        plan_log = sinkhorn_log(cost, tau=tau, n_iters=n_iters, impl=impl)
+    else:
+        plan_log = _gather_rows(lambda lo, hi: sinkhorn_log_rows(
+            cost[lo:hi], mesh, tau, n_iters), mesh, cost.shape[-1])
     if rounding == "dominant":
         v2f = round_dominant(plan_log)
     elif rounding == "parallel":
@@ -180,3 +201,46 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
     row_mass = torch.exp(torch.logsumexp(plan_log, dim=-1))
     err = torch.sum(torch.abs(row_mass - 1.0 / cost.shape[-1]), dim=-1)
     return SinkhornResult(row_to_col=v2f, plan_log=plan_log, err=err)
+
+
+def _staged_mesh(stage_shardings):
+    """The mesh of ``(iteration placement, rounding placement)``: the
+    iterations row-sharded, the rounding replicated, on one mesh."""
+    it, rnd = stage_shardings
+    if getattr(it, "axis", None) != 0 or getattr(rnd, "axis", 0) is not None \
+            or it.mesh is not rnd.mesh:
+        raise ValueError("stage_shardings must be (row_sharding(mesh), "
+                         "replicated(mesh)) of one parallel.mesh mesh")
+    return it.mesh
+
+
+def _gather_rows(rows_of, mesh, n: int) -> torch.Tensor:
+    """``rows_of(lo, hi)``, this rank's rows of an (n, ...) result, then
+    every rank's rows gathered: the whole result on every rank."""
+    from aclswarm_torch.parallel import collectives as coll
+
+    return coll.gather(rows_of(*mesh.rows(n)), mesh)
+
+
+def sinkhorn_log_rows(cost_rows: torch.Tensor, mesh, tau: float = 0.03,
+                      n_iters: int = 200) -> torch.Tensor:
+    """`sinkhorn_log` on a mesh: this rank's (r, n) rows of the cost in,
+    its rows of the log plan out. f is row-local; each g update reduces
+    the columns over the ranks, every rank's (n,) column logsumexp
+    gathered in one collective and combined, so g is the same on every
+    rank. Plain tensor operations on any device: the reference's XLA
+    iteration under a mesh."""
+    from aclswarm_torch.parallel import collectives as coll
+
+    n = cost_rows.shape[-1]
+    logK = -cost_rows / tau
+    log_mu = torch.full((n,), -math.log(n), dtype=cost_rows.dtype,
+                        device=cost_rows.device)
+    f = torch.zeros(cost_rows.shape[0], dtype=cost_rows.dtype,
+                    device=cost_rows.device)
+    g = torch.zeros_like(log_mu)
+    for _ in range(n_iters):
+        f = log_mu[:f.shape[0]] - torch.logsumexp(logK + g[None, :], dim=-1)
+        part = torch.logsumexp(logK + f[:, None], dim=-2)
+        g = log_mu - torch.logsumexp(coll.gather(part[None], mesh), dim=0)
+    return logK + f[:, None] + g[None, :]

@@ -11,6 +11,12 @@ dimension. A batch of trials ((B, n, 3) positions) folds into that axis:
 every agent's avoidance is a row of its own. Scenario obstacles are
 columns appended after the (possibly pruned) vehicle columns, each with
 its own keep-out radius.
+
+``rows=(lo, hi)`` computes the agents ``[lo, hi)`` alone against every
+vehicle: one rank's block under the agent-axis sharding
+(`aclswarm_torch.parallel`). Each agent's avoidance reads its own row of
+the pair grid and its own desired velocity only, so the block's rows
+equal the whole swarm's.
 """
 from __future__ import annotations
 
@@ -135,7 +141,8 @@ def collision_avoidance(q: torch.Tensor, vel_des: torch.Tensor,
                         params: SafetyParams,
                         max_neighbors: int | None = None,
                         neighbor_mask: torch.Tensor | None = None,
-                        obstacles: tuple | None = None
+                        obstacles: tuple | None = None,
+                        rows: tuple[int, int] | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched velocity-obstacle shim (vehicle order).
 
@@ -150,13 +157,19 @@ def collision_avoidance(q: torch.Tensor, vel_des: torch.Tensor,
 
     Returns ((n, 3) safe velocities, (n,) bool avoidance-active flags); a
     leading trial axis of ``q``, ``vel_des`` (and ``neighbor_mask``) comes
-    back on both.
+    back on both. With ``rows=(lo, hi)`` (unbatched) ``vel_des`` holds
+    those agents' rows and so do both results.
     """
     n = q.shape[-2]
+    lo, hi = (0, n) if rows is None else rows
+    own = q if rows is None else q[lo:hi]
     # (..., i, j, 3): j relative to i
-    qij = q[..., None, :, :] - q[..., :, None, :]
+    qij = q[..., None, :, :] - own[..., :, None, :]
     dxy = torch.linalg.vector_norm(qij[..., :2], dim=-1)
-    eye = torch.eye(n, dtype=torch.bool, device=q.device)
+    eye = (torch.eye(n, dtype=torch.bool, device=q.device) if rows is None
+           else torch.arange(lo, hi, dtype=torch.int64,
+                             device=q.device)[:, None]
+           == torch.arange(n, dtype=torch.int64, device=q.device))
     active = (dxy <= params.d_avoid_thresh) & ~eye
     if neighbor_mask is not None:
         active = active & neighbor_mask[..., None, :]
@@ -181,7 +194,7 @@ def collision_avoidance(q: torch.Tensor, vel_des: torch.Tensor,
         obs_r = obs_r.to(q.dtype)
         k = obs_r.shape[-1]
         # (..., n, K, 2): each obstacle relative to each agent
-        oij = obs_pos[..., None, :, :2].to(q.dtype) - q[..., :, None, :2]
+        oij = obs_pos[..., None, :, :2].to(q.dtype) - own[..., :, None, :2]
         shell = params.d_avoid_thresh - params.r_keep_out
         oact = (torch.linalg.vector_norm(oij, dim=-1)
                 <= obs_r[..., None, :] + shell) & obs_mask[..., None, :]

@@ -9,6 +9,13 @@ per-axis deadbands, and everything is computed in formation space.
 state, the formation and ``v2f``). The trial axis is folded into the agent
 axis for the gain contraction, so each vehicle's 3x3 block products are
 the very operation of a single trial.
+
+`compute_rows` is one rank's block of vehicles under the agent-axis
+sharding (`aclswarm_torch.parallel`). It computes each of its vehicles'
+formation rows where the vehicle lives, so a flooded vehicle's relative
+views never leave its rank; the gain, adjacency and desired-distance
+rows of the vehicles' formation points move to it instead, once per
+re-assignment (`parallel.rollout`).
 """
 from __future__ import annotations
 
@@ -57,3 +64,32 @@ def compute(state: SwarmState, formation: Formation, v2f: torch.Tensor,
     up_veh = permutil.formation_to_veh_order(up, v2f)
     deg_veh = permutil.formation_to_veh_order(deg, v2f)
     return gains.kp * up_veh - gains.kd * deg_veh[..., None] * state.vel
+
+
+def compute_rows(vel: torch.Tensor, rows_form: Formation,
+                 v2f: torch.Tensor, lo: int, gains: ControlGains,
+                 q: torch.Tensor | None = None,
+                 rel: torch.Tensor | None = None) -> torch.Tensor:
+    """`compute` for the vehicles ``[lo, lo + r)`` alone: (r, 3).
+
+    ``rows_form`` holds the adjacency, gain and desired-distance rows of
+    those vehicles' formation points, ``v2f[lo:lo + r]`` in vehicle order
+    (``points`` unused); ``vel`` their velocities; ``v2f`` the whole
+    assignment. The views come from the whole positions ``q`` (truth) or
+    from the vehicles' own relative views ``rel`` ((r, n, 3), flooded).
+    Each row contracts in formation order as `compute` does, so the rows
+    equal `compute`'s."""
+    r = vel.shape[0]
+    f2v = permutil.invert(v2f).long()
+    if rel is None:
+        # vehicle v sits at its own point: q_form[v2f[v]] is q[v]
+        qij = q[f2v][None, :, :] - q[lo:lo + r, None, :]
+    else:
+        qij = rel[:, f2v, :]
+    adj = (rows_form.adjmat > 0).to(vel.dtype)
+    F = scale_control(qij, rows_form.dstar_xy, rows_form.dstar_z, gains)
+    g = rows_form.gains
+    lin = torch.einsum("ijab,ijb->ija", g, qij)
+    up = torch.sum(adj[..., None] * (lin + F * qij), dim=-2)
+    deg = torch.sum(adj, dim=-1)
+    return gains.kp * up - gains.kd * deg[..., None] * vel

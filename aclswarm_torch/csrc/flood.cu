@@ -4,14 +4,17 @@
 // _kernel), the merge that aclswarm_tpu/sim/localization.py:flood runs:
 //   out[v, j] = min over senders s with comm[v, s] of packed[s, j],
 // SENTINEL (2^31 - 1) where receiver v has no sender. packed is (n, w)
-// int32 (age << 16 | sender id; w = n or a phased stripe), comm (n, n)
-// bool. The result must be bit-identical to the plain masked min: it is an
-// integer min, so any order of the fold gives the same bits.
+// int32 (age << 16 | sender id; w = n or a phased stripe), comm (nr, n)
+// bool: nr receivers, nr = n for the whole swarm or a rank's row block of
+// the sharded flood (the port's parallel/ package), whose packed table
+// holds every sender. The result must be bit-identical to the plain
+// masked min: it is an integer min, so any order of the fold gives the
+// same bits.
 //
 // Batched: B independent problems (the trials of a wave) in one launch,
 // problem b at grid z = b; its packed words, comm bytes and outputs sit at
-// strides n w, n n and n w. Each problem's blocks run exactly the tile of a
-// single launch, so a batched merge equals B single ones bit for bit.
+// strides n w, nr n and nr w. Each problem's blocks run exactly the tile
+// of a single launch, so a batched merge equals B single ones bit for bit.
 //
 // What bounds it on this card: a min/select "tropical GEMM" of n^2 w
 // (receiver, sender, target) triples (5e8 at n = 1000, w = 500) against
@@ -134,7 +137,7 @@ __device__ __forceinline__ int col_of(int tx, int c) {
 __global__ void __launch_bounds__(THREADS, 2)
 flood_merge_kernel(const int* __restrict__ packed,
                    const unsigned char* __restrict__ comm,
-                   int* __restrict__ out, int n, int w, bool vec) {
+                   int* __restrict__ out, int n, int nr, int w, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* tiles = reinterpret_cast<int*>(smem);        // [G][2][TS][TJ]
   unsigned* words =                                 // [nchunks][TV]
@@ -145,8 +148,8 @@ flood_merge_kernel(const int* __restrict__ packed,
   const int nchunks = (n + TS - 1) / TS;
   const int iters = (nchunks + G - 1) / G;          // chunk k = it*G + grp
   packed += (size_t)blockIdx.z * n * w;             // this block's problem
-  comm += (size_t)blockIdx.z * n * n;
-  out += (size_t)blockIdx.z * n * w;
+  comm += (size_t)blockIdx.z * nr * n;
+  out += (size_t)blockIdx.z * nr * w;
   int* mine = tiles + grp * 2 * TILE;
 
   if (grp < nchunks) stage(mine, packed, n, w, j0, grp, lt, vec);
@@ -161,7 +164,7 @@ flood_merge_kernel(const int* __restrict__ packed,
     for (int u = 0; u < U; ++u) {
       const int p = base + u * WARPS;
       const int v = v0 + p % TV, s = (p / TV) * TS + lane;
-      bit[u] = p < total && v < n && s < n && comm[(size_t)v * n + s] != 0;
+      bit[u] = p < total && v < nr && s < n && comm[(size_t)v * n + s] != 0;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -231,7 +234,7 @@ flood_merge_kernel(const int* __restrict__ packed,
         for (int q = 0; q < G - 1; ++q)
           m = min(m, part[(q * TV + ty * RV + r) * TJ + col_of(tx, c)]);
         const int j = j0 + col_of(tx, c);
-        if (v < n && j < w) out[(size_t)v * w + j] = (int)m;
+        if (v < nr && j < w) out[(size_t)v * w + j] = (int)m;
       }
     }
   }
@@ -296,14 +299,15 @@ flood_merge_bytemask_kernel(const int* __restrict__ packed,
 
 }  // namespace
 
-// packed (batch, n, w) int32 with values in [0, 2^31 - 1], comm (batch, n,
-// n) bytes {0, 1} -> out (batch, n, w) int32; batch = 1 is a single
-// problem. One launch; its shared memory grows by 128 bytes per 32 senders
-// (the mask words), so n is bounded by the card's shared memory per block
-// (about 40,000 on an H100): past that the attribute call fails and its
-// error is returned. batch is bounded by the grid's z extent (65,535).
+// packed (batch, n, w) int32 with values in [0, 2^31 - 1], comm (batch,
+// nr, n) bytes {0, 1} (row stride n) -> out (batch, nr, w) int32; batch =
+// 1 is a single problem, nr = n the whole swarm's receivers. One launch;
+// its shared memory grows by 128 bytes per 32 senders (the mask words), so
+// n is bounded by the card's shared memory per block (about 40,000 on an
+// H100): past that the attribute call fails and its error is returned.
+// batch is bounded by the grid's z extent (65,535).
 extern "C" int flood_merge_launch(const int* packed, const unsigned char* comm,
-                                  int* out, int batch, int n, int w,
+                                  int* out, int batch, int n, int nr, int w,
                                   void* stream) {
   const int nchunks = (n + TS - 1) / TS;
   const size_t smem = STAGE_BYTES + (size_t)nchunks * TV * sizeof(unsigned);
@@ -313,10 +317,10 @@ extern "C" int flood_merge_launch(const int* packed, const unsigned char* comm,
   if (err != cudaSuccess) return err;
   // every problem's rows start 16-byte aligned when w % 4 == 0
   const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
-  const dim3 grid((w + TJ - 1) / TJ, (n + TV - 1) / TV, batch);
+  const dim3 grid((w + TJ - 1) / TJ, (nr + TV - 1) / TV, batch);
   flood_merge_kernel<<<grid, THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(packed, comm, out,
-                                                            n, w, vec);
+                                                            n, nr, w, vec);
   return cudaGetLastError();
 }
 

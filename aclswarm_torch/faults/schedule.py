@@ -120,13 +120,20 @@ def alive_at(sched: FaultSchedule, tick) -> torch.Tensor:
     return (t < sched.drop_tick) | (t >= sched.rejoin_tick)
 
 
-def link_up_at(sched: FaultSchedule, tick) -> torch.Tensor:
+def link_up_at(sched: FaultSchedule, tick,
+               rows: tuple[int, int] | None = None) -> torch.Tensor:
     """([B,] n, n) bool: directed link (receiver v <- sender w) delivered
     this tick: ``uniform(fold_in(key, tick)) >= link_loss``, the
-    reference's draw bit for bit; zero loss always delivers."""
+    reference's draw bit for bit; zero loss always delivers.
+    ``rows=(lo, hi)``: a schedule holding receivers ``[lo, hi)`` of
+    ``link_loss`` (the agent-axis sharding) gets those rows of the whole
+    draw."""
     key = prng.fold_in(sched.key, tick_tensor(tick, sched.drop_tick))
-    u = prng.uniform(key, sched.link_loss.shape[-2:],
+    n = sched.link_loss.shape[-1]
+    u = prng.uniform(key, (n, n) if rows else sched.link_loss.shape[-2:],
                      sched.link_loss.dtype)
+    if rows:
+        u = u[..., rows[0]:rows[1], :]
     return u >= sched.link_loss
 
 

@@ -45,7 +45,8 @@ _ENTRY = {
                                     ctypes.POINTER(_I), _P),
     "round_dominant_batched_launch": (_P, _P, _P, _P, _I, _I, _I,
                                       ctypes.POINTER(_I), _P),
-    "flood_merge_launch": (_P, _P, _P, _I, _I, _I, _P),
+    # (packed, comm, out, batch, n senders, r receivers, w targets)
+    "flood_merge_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # earlier designs, which chip_smoke.py times the current ones against;
     # sinkhorn_log_launch also runs the multi-launch design past its
     # shared-memory limit

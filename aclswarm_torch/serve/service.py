@@ -1155,6 +1155,7 @@ class SwarmService:
                     round=worker.round, batch=len(live),
                     bucket=str(job.bucket[0]), chunk=job.chunks_done)
                 self._ensure_state(job, epochs[id(job)])
+                self._on_worker_device(job, worker)
                 job.status = RUNNING
                 if job.t_first_run is None:
                     job.t_first_run = time.monotonic()
@@ -1231,6 +1232,25 @@ class SwarmService:
 
         with span("serve.round.resolve", **wat):
             self._resolve_round(done_live, epochs, chunk)
+
+    @staticmethod
+    def _on_worker_device(job: _Job, worker) -> None:
+        """On k cards, move a job's state and formation to its worker's
+        card before they are stacked or staged, once: when it first runs
+        there, or after a migration or a restore left it on another card
+        (a job already on the card keeps its trees as they are). A no-op
+        on one card."""
+        dev = worker.device
+        if dev is None or (job.state.v2f.device == dev
+                           and job._problem[0].points.device == dev):
+            return
+        from aclswarm_torch.parallel.collectives import map_tree
+
+        def move(tree):
+            return map_tree(lambda x: x.to(dev), tree)
+
+        job.state = move(job.state)
+        job._problem = (move(job._problem[0]),) + tuple(job._problem[1:])
 
     def _resolve_round(self, done_live: list, epochs: dict,
                        chunk: int) -> None:
@@ -1411,6 +1431,8 @@ class SwarmService:
                     newcomers = [j for j in live
                                  if not (j.staged is not None
                                          and j.staged[0] is st)]
+                    for job in newcomers:
+                        self._on_worker_device(job, worker)
                     if newcomers and st.shared is None:
                         st.shared = tuple(newcomers[0]._problem[1:])
                     if newcomers:

@@ -24,10 +24,15 @@ death as a routine event:
   ``max_worker_restarts`` the slot retires. While capacity is degraded
   the admission retry-after hint scales by total/alive.
 
-One card: every worker gets the service's device, and all of them launch
-on its one default stream, as the reference's workers share the default
-device on a single-device host. Their rounds interleave on that stream in
-issue order; K1's and K2's cooperative grids never run two at once.
+Placement on cards (`parallel.mesh.slice_devices`, the reference's
+rule): the visible cards split into one slice per worker slot. On one
+card (or on the CPU) every worker gets the service's device, and all of
+them launch on its one default stream, as the reference's workers share
+the default device on a single-device host; their rounds interleave on
+that stream in issue order, and K1's and K2's cooperative grids never run
+two at once. On k cards each slot's worker runs its rounds on the lead
+card of its slice (``Worker.device``): the service moves each job's state
+and formation there before it stacks them.
 """
 from __future__ import annotations
 
@@ -80,6 +85,8 @@ class Worker:
     #                             pipeline, BOTH the dispatched-pending
     #                             round's pairs and the newly picked ones
     staging: dict = dataclasses.field(default_factory=dict)
+    device: Optional[object] = None   # the slice's lead card (k cards);
+    #                                   None = the service's device
     #                           # bucket -> serve.staging.BucketStaging:
     #                             this INCARNATION's resident batches
     #                             (reset on respawn; a dead worker's
@@ -151,11 +158,31 @@ class WorkerPool:
             if self._started:
                 return
             self._started = True
-        for w in self._slots:
+        for w, dev in zip(self._slots, self.slot_devices()):
+            w.device = dev
             self._spawn(w)
         self._supervisor = threading.Thread(
             target=self._supervise, daemon=True, name="swarmserve-sup")
         self._supervisor.start()
+
+    def slot_devices(self, devices: Optional[list] = None) -> list:
+        """Each slot's card (`parallel.mesh.slice_devices` over
+        ``devices``, default every visible card of the service's device
+        type): the lead card of its slice, or None for every slot when
+        there is one distinct card or none (the CPU)."""
+        from aclswarm_torch.parallel.mesh import slice_devices
+
+        if devices is None:
+            if getattr(self.svc, "device", None) is None \
+                    or self.svc.device.type != "cuda":
+                return [None] * len(self._slots)
+            import torch
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        slices = slice_devices(len(self._slots), devices)
+        if len({d for sl in slices for d in sl}) <= 1:
+            return [None] * len(self._slots)
+        return [sl[0] if sl else None for sl in slices]
 
     def _spawn(self, w: Worker) -> None:
         with self._lock:

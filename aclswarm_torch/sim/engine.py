@@ -27,6 +27,10 @@ of a batch: masks and `where`s of each trial's own tick, which the step
 holds as a device tensor (`batched_rollout` builds it once per call, not
 per tick). `no_faults` and `no_scenario` are bit-identical to None.
 
+`parallel.rollout` runs `step` on one rank's agent rows of a sharded
+state (its ``block`` argument): the same stages, the O(n^2) ones on the
+rank's rows against gathered inputs, the sequential loops replicated.
+
 ``SimConfig.check_mode='on'`` records the first violated invariant of
 each trial into the ``SimState.inv`` carry (`analysis.invariants`), and
 ``telemetry='on'`` accumulates the device counters into ``SimState.tel``
@@ -348,12 +352,16 @@ def _trial_ticks(state: SimState, dev) -> torch.Tensor:
     return torch.full((), int(state.tick), dtype=torch.int32, device=dev)
 
 
+def _same(x):
+    return x
+
+
 def step(state: SimState, formation: Formation, gains: ControlGains,
          sparams: SafetyParams, cfg: SimConfig,
          inputs: ExternalInputs | None = None,
          shared_tick: int | None = None,
-         trial_ticks: torch.Tensor | None = None
-         ) -> tuple[SimState, StepMetrics]:  # torchcheck: device-path
+         trial_ticks: torch.Tensor | None = None,
+         block=None) -> tuple[SimState, StepMetrics]:  # torchcheck: device-path
     """One 100 Hz control tick for the whole swarm, or for a batch of
     trials. ``shared_tick`` (host int) replaces ``state.tick`` as the
     decimation phase (auction period, flood cadence); a batch needs it,
@@ -361,10 +369,19 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     `flood_every` (the batched trial driver aligns dispatches to chunk
     boundaries so they do). The fault and scenario masks key on each
     trial's own tick: ``trial_ticks`` (optional, ([B,]) int32 on the
-    device) is ``state.tick`` already there."""
+    device) is ``state.tick`` already there.
+
+    ``block`` (`parallel.rollout`'s row block, unbatched) runs the tick on
+    one rank's agent rows ``[block.lo, block.hi)`` of a sharded state:
+    ``state`` and ``formation`` hold that rank's part
+    (`parallel.mesh.shard_problem`); the flood, the control law and the
+    avoidance compute the rank's rows against whole inputs
+    (``block.gather``); the assignment and the masks run on the whole,
+    and the metrics come back whole. Every such site is gated in Python,
+    so without ``block`` the operations are the unsharded step's."""
     _check_cfg(cfg)
     swarm, goal, v2f, fs = state.swarm, state.goal, state.v2f, state.flight
-    n = swarm.q.shape[-2]
+    r = swarm.q.shape[-2]               # the rows this step advances
     lead = swarm.q.shape[:-2]           # () or (B,) trials
     dev = swarm.q.device
     if shared_tick is None:
@@ -373,8 +390,18 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                              "trials' common decimation phase")
         shared_tick = state.tick
     if inputs is None:
-        inputs = ExternalInputs.none(n, dev, swarm.q.dtype,
+        inputs = ExternalInputs.none(r, dev, swarm.q.dtype,
                                      batch=lead[0] if lead else None)
+    # a sharded tick's whole positions and assignment, its collectives
+    # (the gather of row blocks, the max over ranks) and its row span
+    if block is None:
+        n, q, adj, whole, top, span = r, swarm.q, formation.adjmat, _same, \
+            _same, None
+    else:
+        n, whole, top, span = block.n, block.gather, block.top, \
+            (block.lo, block.hi)
+        q, v2f = block.start(swarm.q, v2f)
+        adj = block.adjacency()
     true_ = torch.ones(lead, dtype=torch.bool, device=dev)
     faults, scen = state.faults, state.scenario
     # the sanitizer and the counters (`analysis.invariants`,
@@ -396,25 +423,27 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
             and trial_ticks is None:
         trial_ticks = _trial_ticks(state, dev)
     if checks:
-        inv = invlib.record(inv, invlib.adjacency_asymmetric(
-            formation.adjmat), "adj_sym", trial_ticks)
+        inv = invlib.record(inv, invlib.adjacency_asymmetric(adj),
+                            "adj_sym", trial_ticks)
 
     # --- fault model: masks of each trial's own tick ---
     if faults is not None:
-        alive = faultlib.alive_at(faults, trial_ticks)
+        alive_rows = faultlib.alive_at(faults, trial_ticks)
+        alive = whole(alive_rows)
         # delivered iff both ends live and the loss draw spares it
-        link_mask = faultlib.link_up_at(faults, trial_ticks) \
-            & alive[..., :, None] & alive[..., None, :]
-        fault_event = faultlib.fault_event_at(faults, trial_ticks)
+        link_mask = faultlib.link_up_at(faults, trial_ticks, rows=span) \
+            & alive_rows[..., :, None] & alive[..., None, :]
+        fault_event = top(faultlib.fault_event_at(faults, trial_ticks))
         if checks:
-            inv = invlib.record(inv, invlib.alive_mask_stale(
-                alive, faults, trial_ticks), "mask_consistency",
+            inv = invlib.record(inv, top(invlib.alive_mask_stale(
+                alive_rows, faults, trial_ticks)), "mask_consistency",
                 trial_ticks)
     else:
-        alive = link_mask = fault_event = None
+        alive_rows = alive = link_mask = fault_event = None
 
     # --- scenario timeline: an axis off for every trial (host onsets) is
     # skipped, which equals its `where` against the baseline ---
+    changed = None
     if scen is not None:
         on = scenlib.axes_on(scen, state.tick)
         if checks and not on["formation"]:
@@ -430,12 +459,16 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                 inv = invlib.record(inv, invlib.nonfinite_points(pts),
                                     "scen_points", trial_ticks)
             changed = changed[..., None, None]
-            formation = replace(
-                formation, points=pts,
-                dstar_xy=torch.where(changed, _pdistmat(pts[..., :2]),
-                                     formation.dstar_xy),
-                dstar_z=torch.where(changed, _pdistmat(pts[..., 2:3]),
-                                    formation.dstar_z))
+            if block is None:
+                formation = replace(
+                    formation, points=pts,
+                    dstar_xy=torch.where(changed, _pdistmat(pts[..., :2]),
+                                         formation.dstar_xy),
+                    dstar_z=torch.where(changed, _pdistmat(pts[..., 2:3]),
+                                        formation.dstar_z))
+            else:
+                # the block's distance rows follow its vehicles' points
+                formation = replace(formation, points=pts)
         scen_event = scenlib.scenario_event_at(scen, trial_ticks)
     else:
         scen_event = None
@@ -459,22 +492,28 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                     "tables to exist")
             raise ValueError("cfg.localization='flooded' needs "
                              "init_state(..., localization=True)")
+        # a block floods its receivers against the gathered senders
+        rows_kw = {} if block is None else {"lo": block.lo,
+                                            "gather": block.gather}
         if cfg.flood_phases == 1:
-            loc = loclib.tick(loc, swarm.q, formation.adjmat, v2f,
+            loc = loclib.tick(loc, swarm.q, adj, v2f,
                               shared_tick % cfg.flood_every == 0,
                               target_block=cfg.flood_block,
-                              link_mask=link_mask)
+                              link_mask=link_mask, **rows_kw)
         else:
-            loc = loclib.tick_phased(loc, swarm.q, formation.adjmat, v2f,
+            loc = loclib.tick_phased(loc, swarm.q, adj, v2f,
                                      shared_tick, cfg.flood_every,
                                      cfg.flood_phases,
                                      target_block=cfg.flood_block,
-                                     link_mask=link_mask)
+                                     link_mask=link_mask, **rows_kw)
         # (b) sensor noise on the consumed view only; the carry stays clean
         loc_view = loc
         if scen is not None and on["noise"]:
-            loc_view = loclib.noised_view(loc, scenlib.est_noise_at(
-                scen, trial_ticks, n, swarm.q.dtype))
+            draw, noisy = scenlib.est_noise_at(scen, trial_ticks, n,
+                                               swarm.q.dtype)
+            if block is not None:
+                draw = draw[block.lo:block.hi]
+            loc_view = loclib.noised_view(loc, (draw, noisy))
 
     # --- auto-auction, decimated on the host tick; the airborne, enabled
     # and (e) re-matching gates select on the candidate as in the
@@ -484,31 +523,50 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     warm = state.cbaa_warm if cfg.assignment == "cbaa" else None
     new_warm = state.cbaa_warm
     cand_rounds = None
-    if cfg.assignment != "none" and shared_tick % cfg.assign_every == 0:
-        bidders = swarm
+    auction = cfg.assignment != "none" \
+        and shared_tick % cfg.assign_every == 0
+    if auction:
+        # a block's solvers run replicated on the whole inputs
+        bidders = swarm if block is None else SwarmState(q=q, vel=None)
+        solver_form, solver_est, link, warm_all = (formation, est,
+                                                   link_mask, warm)
+        if block is not None:
+            cb = cfg.assignment == "cbaa"
+            solver_form = Formation(points=formation.points, adjmat=adj,
+                                    gains=None, dstar_xy=None, dstar_z=None)
+            solver_est = whole(est) if cb and est is not None else None
+            link = whole(link_mask) if cb and link_mask is not None \
+                else None
+            if warm is not None:
+                warm_all = CbaaTables(price=whole(warm.price),
+                                      who=whole(warm.who))
         if scen is not None and on["byz"]:
             # (d) the solvers see the reported positions, byzantine rows
             # lying; control and dynamics keep the true state
+            byz = scen if block is None else replace(
+                scen, byz_mask=whole(scen.byz_mask))
             bidders = SwarmState(q=scenlib.reported_positions(
-                scen, swarm.q, trial_ticks), vel=swarm.vel)
-        solver_form, solver_est = formation, est
+                byz, bidders.q, trial_ticks), vel=bidders.vel)
         if checks:
             # the solvers see non-finite inputs as 0: LAPACK and the
             # rounding refuse a NaN pose, which is the sanitizer's to
             # report (finite inputs pass through bit for bit)
             bidders = SwarmState(q=torch.nan_to_num(bidders.q),
                                  vel=bidders.vel)
-            solver_form = replace(formation, points=torch.nan_to_num(
-                formation.points))
-            if est is not None:
-                solver_est = torch.nan_to_num(est)
+            solver_form = replace(solver_form, points=torch.nan_to_num(
+                solver_form.points))
+            if solver_est is not None:
+                solver_est = torch.nan_to_num(solver_est)
         outs = assign(bidders, solver_form, v2f, cfg, est=solver_est,
                       first=state.first_auction, alive=alive,
-                      link_mask=link_mask, warm=warm, check=checks,
+                      link_mask=link, warm=warm_all, check=checks,
                       tel=tel_on)
         take = state.assign_enabled
         if cfg.flight_fsm:
-            take = take & torch.all(flying, dim=-1)
+            all_flying = torch.all(flying, dim=-1)
+            if block is not None:
+                all_flying = ~top(~all_flying)
+            take = take & all_flying
         if scen is not None:
             take = take & scenlib.rematch_ok_at(scen, trial_ticks)
         new_v2f = torch.where(take[..., None], outs[0], v2f)
@@ -524,40 +582,57 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
             i += 1
         if warm is not None:
             # a gated-off auction's tables are discarded like its v2f
+            price, who = outs[i].price, outs[i].who
+            if block is not None:
+                price, who = (price[block.lo:block.hi],
+                              who[block.lo:block.hi])
             new_warm = CbaaTables(
-                price=torch.where(take[..., None, None], outs[i].price,
+                price=torch.where(take[..., None, None], price,
                                   warm.price),
-                who=torch.where(take[..., None, None], outs[i].who,
-                                warm.who))
+                who=torch.where(take[..., None, None], who, warm.who))
     else:
         new_v2f, valid = v2f, true_
         take = torch.zeros(lead, dtype=torch.bool, device=dev)
     reassigned = take & torch.any(new_v2f != v2f, dim=-1)
     first_auction = state.first_auction & ~(take & valid)
     v2f = new_v2f
+    # the rows the state carries (a block's stay the same tensor between
+    # auctions, so its formation rows move only after one)
+    v2f_rows = v2f if block is None else (
+        v2f[block.lo:block.hi].contiguous() if auction else state.v2f)
     if checks:
         # every solver's output and the held assignment alike
         inv = invlib.record(inv, invlib.perm_violated(v2f), "assign_perm",
                             trial_ticks)
 
     # --- distributed control law -> distcmd ---
-    rel = None if loc_view is None else loclib.relative_views(loc_view)
-    ctrl_formation = formation
+    rel = None if loc_view is None else loclib.relative_views(
+        loc_view, **({} if block is None else {"lo": block.lo}))
+    alive_form = None
     if faults is not None:
         # dead vehicles leave the formation graph: their points cast no
         # edges (masked in formation space through the assignment)
         alive_form = faultmask.alive_points(alive, v2f)
-        pair_alive = alive_form[..., :, None] & alive_form[..., None, :]
-        ctrl_formation = replace(formation, adjmat=torch.where(
-            pair_alive, formation.adjmat,
-            torch.zeros((), dtype=formation.adjmat.dtype, device=dev)))
-    u = control.compute(swarm, ctrl_formation, v2f, gains, rel=rel)
+    if block is None:
+        ctrl_formation = formation
+        if faults is not None:
+            pair_alive = alive_form[..., :, None] & alive_form[..., None, :]
+            ctrl_formation = replace(formation, adjmat=torch.where(
+                pair_alive, formation.adjmat,
+                torch.zeros((), dtype=formation.adjmat.dtype, device=dev)))
+        u = control.compute(swarm, ctrl_formation, v2f, gains, rel=rel)
+    else:
+        # each vehicle's law where it lives, on its formation point's rows
+        u = control.compute_rows(
+            swarm.vel, block.formation_rows(v2f_rows, formation.points,
+                                            changed, alive_form),
+            v2f, block.lo, gains, q=q, rel=rel)
     if cfg.flight_fsm:
         u = torch.where(flying[..., None], u, torch.zeros_like(u))
     if faults is not None:
         # dead vehicles publish no distcmd
-        u = torch.where(alive[..., None], u, torch.zeros_like(u))
-    distcmd_norm = torch.linalg.vector_norm(u, dim=-1)
+        u = torch.where(alive_rows[..., None], u, torch.zeros_like(u))
+    distcmd_norm = whole(torch.linalg.vector_norm(u, dim=-1))
     if checks and faults is not None:
         inv = invlib.record(inv, invlib.dead_rows_active(distcmd_norm,
                                                          alive),
@@ -574,10 +649,10 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                                                     cfg.control_dt)
             obstacles = (obs_pos, scen.obs_radius, obs_act)
         u, ca = control.collision_avoidance(
-            swarm.q, u, sparams, max_neighbors=cfg.colavoid_neighbors,
-            neighbor_mask=alive, obstacles=obstacles)
+            q, u, sparams, max_neighbors=cfg.colavoid_neighbors,
+            neighbor_mask=alive, obstacles=obstacles, rows=span)
     else:
-        ca = torch.zeros(lead + (n,), dtype=torch.bool, device=dev)
+        ca = torch.zeros(lead + (r,), dtype=torch.bool, device=dev)
     safe_goal = control.make_safe_traj(cfg.control_dt, u, yawrate, goal,
                                        sparams)
 
@@ -590,51 +665,47 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         goal = safe_goal
 
     # --- vehicle dynamics ---
-    if cfg.dynamics == "tracking":
-        new_swarm = SwarmState(q=goal.pos, vel=goal.vel)
-    elif cfg.dynamics == "firstorder":
-        a = min(max(cfg.control_dt / cfg.tau, 0.0), 1.0)
-        vel = swarm.vel + a * (goal.vel - swarm.vel)
-        new_swarm = SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
-    else:  # doubleint: PD tracking law, semi-implicit Euler
-        acc = cfg.kp_track * (goal.pos - swarm.q) \
-            + cfg.kd_track * (goal.vel - swarm.vel)
-        vel = swarm.vel + acc * cfg.control_dt
-        new_swarm = SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
+    new_swarm = dynamics(cfg, swarm, goal)
 
     # --- (b) wind displaces the integrated positions, before the fault
     # freeze: a dead vehicle stays frozen in wind ---
     if scen is not None and on["wind"]:
         dq, wind_on = scenlib.wind_at(scen, trial_ticks, cfg.control_dt, n,
                                       swarm.q.dtype)
+        if block is not None:
+            dq = dq[block.lo:block.hi]
         new_swarm = SwarmState(
             q=torch.where(wind_on[..., None, None], new_swarm.q + dq,
                           new_swarm.q), vel=new_swarm.vel)
 
     # --- fault freeze: dead vehicles hold pose, goal and flight mode ---
     if faults is not None:
-        row = alive[..., None]
+        row = alive_rows[..., None]
 
         def hold(new, old):
-            return torch.where(row if new.ndim > alive.ndim else alive,
-                               new, old)
+            return torch.where(row if new.ndim > alive_rows.ndim
+                               else alive_rows, new, old)
 
         new_swarm = typeslib.tree_map(hold, new_swarm, swarm)
         goal = typeslib.tree_map(hold, goal, state.goal)
         fs = typeslib.tree_map(hold, fs, state.flight)
-        ca = ca & alive
+        ca = ca & alive_rows
 
     if checks:
         if faults is not None:
-            inv = invlib.record(inv, invlib.dead_rows_moved(
-                new_swarm.q, swarm.q, alive), "dead_frozen", trial_ticks)
+            inv = invlib.record(inv, top(invlib.dead_rows_moved(
+                new_swarm.q, swarm.q, alive_rows)), "dead_frozen",
+                trial_ticks)
         # finiteness before bounds: a NaN pose fails the inside test too
-        inv = invlib.record(inv, invlib.nonfinite_state(new_swarm, goal),
+        inv = invlib.record(inv, top(invlib.nonfinite_state(new_swarm,
+                                                            goal)),
                             "state_finite", trial_ticks)
-        inv = invlib.record(inv, invlib.out_of_bounds(new_swarm.q, sparams),
+        inv = invlib.record(inv, top(invlib.out_of_bounds(new_swarm.q,
+                                                          sparams)),
                             "state_bounds", trial_ticks)
 
     # --- counters, after every mask is final (`ca` is what flew) ---
+    ca_all = whole(ca)
     if tel_on:
         rounds = tel.assign_rounds
         if cand_rounds is not None:
@@ -642,29 +713,47 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
                                           torch.zeros_like(cand_rounds))
         stale = tel.flood_stale_max
         if cfg.localization == "flooded":
-            stale = torch.maximum(stale, torch.amax(
-                loc.age, dim=(-2, -1)).to(torch.int32))
+            stale = torch.maximum(stale, top(torch.amax(
+                loc.age, dim=(-2, -1)).to(torch.int32)))
         tel = replace(tel, auctions=tel.auctions + take.to(torch.int32),
                       assign_rounds=rounds,
                       reassigns=tel.reassigns + reassigned.to(torch.int32),
-                      ca_ticks=tel.ca_ticks + torch.sum(ca, dim=-1,
+                      ca_ticks=tel.ca_ticks + torch.sum(ca_all, dim=-1,
                                                         dtype=torch.int32),
                       flood_stale_max=stale)
 
-    new_state = SimState(swarm=new_swarm, goal=goal, v2f=v2f,
+    new_state = SimState(swarm=new_swarm, goal=goal, v2f=v2f_rows,
                          tick=state.tick + 1, flight=fs, loc=loc,
                          first_auction=first_auction,
                          assign_enabled=state.assign_enabled,
                          cbaa_warm=new_warm, faults=faults, scenario=scen,
                          inv=inv, tel=tel)
-    return new_state, StepMetrics(distcmd_norm=distcmd_norm, ca_active=ca,
-                                  assign_valid=valid, reassigned=reassigned,
-                                  auctioned=take, q=new_swarm.q,
-                                  mode=fs.mode, v2f=v2f, alive=alive,
+    return new_state, StepMetrics(distcmd_norm=distcmd_norm,
+                                  ca_active=ca_all, assign_valid=valid,
+                                  reassigned=reassigned, auctioned=take,
+                                  q=whole(new_swarm.q),
+                                  mode=whole(fs.mode), v2f=v2f, alive=alive,
                                   fault_event=fault_event,
                                   scen_event=scen_event,
                                   inv_code=inv.code if checks else None,
                                   tel=tel if tel_on else None)
+
+
+def dynamics(cfg: SimConfig, swarm: SwarmState,
+             goal: control.TrajGoal) -> SwarmState:
+    """The vehicles' response to their goals over one tick, row by row:
+    'tracking' lands on the goal, 'firstorder' lags its velocity by
+    ``tau``, 'doubleint' is a PD tracking law (semi-implicit Euler)."""
+    if cfg.dynamics == "tracking":
+        return SwarmState(q=goal.pos, vel=goal.vel)
+    if cfg.dynamics == "firstorder":
+        a = min(max(cfg.control_dt / cfg.tau, 0.0), 1.0)
+        vel = swarm.vel + a * (goal.vel - swarm.vel)
+        return SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
+    acc = cfg.kp_track * (goal.pos - swarm.q) \
+        + cfg.kd_track * (goal.vel - swarm.vel)
+    vel = swarm.vel + acc * cfg.control_dt
+    return SwarmState(q=swarm.q + vel * cfg.control_dt, vel=vel)
 
 
 def _stack_metrics(per_tick: list) -> StepMetrics | None:

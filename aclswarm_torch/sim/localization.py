@@ -13,6 +13,13 @@ int, so deciding whether (and which stripe) to flood never reads the card.
 A batch of trials adds a leading ``(B,)`` axis to the tables, the
 positions, the graphs and the assignments; the trials share the host tick,
 and one K3 launch merges the whole batch.
+
+Sharded over the agent axis (`aclswarm_torch.parallel`), a rank holds the
+tables of its own receivers, rows ``[lo, lo + r)``: ``lo`` offsets their
+own entries, and ``gather`` (the mesh's row all-gather) brings every
+sender's ages and estimates of the flooded targets to each rank, which
+then merges only its receivers (K3 on a receiver block, the reference's
+all-gather layout, docs/SCALING.md).
 """
 from __future__ import annotations
 
@@ -51,20 +58,24 @@ def comm_mask(adjmat: torch.Tensor, v2f: torch.Tensor) -> torch.Tensor:
     return permutil.comm_mask(adjmat, v2f, self_loop=False)
 
 
-def observe_self(table: EstimateTable, q_true: torch.Tensor) -> EstimateTable:
-    """Each vehicle's own entry is ground truth with a fresh stamp."""
-    n = q_true.shape[-2]
-    d = torch.arange(n, dtype=torch.int64, device=q_true.device)
+def observe_self(table: EstimateTable, q_true: torch.Tensor,
+                 lo: int = 0) -> EstimateTable:
+    """Each vehicle's own entry is ground truth with a fresh stamp.
+    ``q_true`` holds the table's vehicles, rows ``lo`` on."""
+    r = q_true.shape[-2]
+    d = torch.arange(r, dtype=torch.int64, device=q_true.device)
+    own = d if lo == 0 else d + lo
     est = table.est.clone()
-    est[..., d, d, :] = q_true
+    est[..., d, own, :] = q_true
     age = table.age.clone()
-    age[..., d, d] = 0
+    age[..., d, own] = 0
     return EstimateTable(est=est, age=age)
 
 
 def flood(table: EstimateTable, comm: torch.Tensor,
           target_block: int | None = None, merge_impl: str = "auto",
-          stripe: tuple[int, int] | None = None) -> EstimateTable:
+          stripe: tuple[int, int] | None = None,
+          gather=None) -> EstimateTable:
     """One synchronous flood round: receivers merge their neighbors' tables
     with newest-stamp-wins (ties keep the receiver's own entry; among
     equally fresh senders the lowest id wins).
@@ -73,6 +84,10 @@ def flood(table: EstimateTable, comm: torch.Tensor,
     CPU (``target_block`` blocks the plain version's target axis).
     ``stripe=(start, width)`` (host ints) merges only targets
     ``[start, start + width)`` — the phased-flood mode.
+
+    A receiver block (the tables' r rows, ``comm`` (r, n)) takes every
+    sender's rows from ``gather``, which maps a row block of the tables
+    to all n rows.
     """
     if merge_impl != "auto":
         raise ValueError(f"unknown merge impl {merge_impl!r}")
@@ -89,8 +104,9 @@ def flood(table: EstimateTable, comm: torch.Tensor,
     # materializes it as the contiguous (n, width) block K3 takes
     age_t = age[..., start:start + width]
     est_t = est[..., start:start + width, :]
+    senders = age_t if gather is None else gather(age_t.contiguous())
     ids = torch.arange(n, dtype=torch.int32, device=age.device)
-    packed = (torch.clamp(age_t, max=AGE_CAP) << 16) | ids[:, None]
+    packed = (torch.clamp(senders, max=AGE_CAP) << 16) | ids[:, None]
     best_packed = ops.flood_merge(packed, comm, target_block)
     best = best_packed >> 16                    # freshest neighbor age
     take = best < torch.clamp(age_t, max=AGE_CAP)   # strictly newer wins
@@ -98,7 +114,8 @@ def flood(table: EstimateTable, comm: torch.Tensor,
     # past the table: the reference's gather clamps it and the `take`
     # select discards it; torch.gather would fault, so mask it to row 0
     src = torch.where(take, best_packed & 0xFFFF, 0).long()
-    est_new = torch.gather(est_t, -3, src[..., None].expand(*src.shape, 3))
+    est_s = est_t if gather is None else gather(est_t.contiguous())
+    est_new = torch.gather(est_s, -3, src[..., None].expand(*src.shape, 3))
     new_est_t = torch.where(take[..., None], est_new, est_t)
     new_age_t = torch.where(take, best, age_t)
     if stripe is None:
@@ -123,10 +140,12 @@ def noised_view(table: EstimateTable, noise) -> EstimateTable:
 
 
 def _advance(table: EstimateTable, q_true: torch.Tensor, adjmat, v2f,
-             link_mask) -> tuple[EstimateTable, torch.Tensor]:
+             link_mask, lo: int = 0) -> tuple[EstimateTable, torch.Tensor]:
     table = observe_self(EstimateTable(est=table.est, age=table.age + 1),
-                         q_true)
-    comm = comm_mask(adjmat, v2f)
+                         q_true, lo)
+    r = q_true.shape[-2]
+    comm = comm_mask(adjmat, v2f) if r == v2f.shape[-1] else \
+        permutil.comm_mask(adjmat, v2f, rows=(lo, lo + r))
     if link_mask is not None:
         comm = comm & link_mask
     return table, comm
@@ -135,42 +154,53 @@ def _advance(table: EstimateTable, q_true: torch.Tensor, adjmat, v2f,
 def tick(table: EstimateTable, q_true: torch.Tensor, adjmat: torch.Tensor,
          v2f: torch.Tensor, do_flood: bool,
          target_block: int | None = None,
-         link_mask: torch.Tensor | None = None) -> EstimateTable:
+         link_mask: torch.Tensor | None = None, lo: int = 0,
+         gather=None) -> EstimateTable:
     """One control tick: ages advance, own state refreshes, and on
     decimated ticks (host bool ``do_flood``) the flood round runs.
-    ``link_mask`` ((n, n) bool, receiver-major) restricts deliveries."""
-    table, comm = _advance(table, q_true, adjmat, v2f, link_mask)
-    return flood(table, comm, target_block) if do_flood else table
+    ``link_mask`` ((n, n) bool, receiver-major) restricts deliveries.
+    A receiver block: the tables, ``q_true`` and ``link_mask`` hold rows
+    ``lo`` on, ``v2f`` and ``adjmat`` are whole, and ``gather`` is the
+    mesh's row all-gather (`flood`)."""
+    table, comm = _advance(table, q_true, adjmat, v2f, link_mask, lo)
+    return flood(table, comm, target_block, gather=gather) if do_flood \
+        else table
 
 
 def tick_phased(table: EstimateTable, q_true: torch.Tensor,
                 adjmat: torch.Tensor, v2f: torch.Tensor, tick_idx: int,
                 flood_every: int, phases: int,
                 target_block: int | None = None,
-                link_mask: torch.Tensor | None = None) -> EstimateTable:
+                link_mask: torch.Tensor | None = None, lo: int = 0,
+                gather=None) -> EstimateTable:
     """Phased flood: the target axis splits into ``phases`` stripes and
     stripe ``p`` merges on ticks where ``tick % flood_every ==
     p * (flood_every // phases)``; every target still refreshes every
-    ``flood_every`` ticks. ``tick_idx`` is a host int."""
+    ``flood_every`` ticks. ``tick_idx`` is a host int. The stripes cut
+    the target axis, so a receiver block (``lo``, ``gather``: `tick`)
+    keeps its rows."""
     if flood_every % phases:
         raise ValueError(f"flood_phases={phases} must divide "
                          f"flood_every={flood_every}")
-    n = q_true.shape[-2]
+    n = v2f.shape[-1]
     width = -(-n // phases)                 # ceil: stripes cover [0, n)
-    table, comm = _advance(table, q_true, adjmat, v2f, link_mask)
+    table, comm = _advance(table, q_true, adjmat, v2f, link_mask, lo)
     gap = flood_every // phases
     slot = int(tick_idx) % flood_every
     if slot % gap:
         return table
     start = min((slot // gap) * width, n - width)  # clamp: full last stripe
-    return flood(table, comm, target_block, stripe=(start, width))
+    return flood(table, comm, target_block, stripe=(start, width),
+                 gather=gather)
 
 
-def relative_views(table: EstimateTable) -> torch.Tensor:
-    """(n, n, 3) rel[v, w] = v's estimate of (w's position − its own)."""
-    n = table.est.shape[-2]
-    d = torch.arange(n, dtype=torch.int64, device=table.est.device)
-    return table.est - table.est[..., d, d, :][..., :, None, :]
+def relative_views(table: EstimateTable, lo: int = 0) -> torch.Tensor:
+    """(n, n, 3) rel[v, w] = v's estimate of (w's position − its own); a
+    receiver block's (r, n, 3) rows, its vehicles ``lo`` on."""
+    r = table.est.shape[-3]
+    d = torch.arange(r, dtype=torch.int64, device=table.est.device)
+    own = d if lo == 0 else d + lo
+    return table.est - table.est[..., d, own, :][..., :, None, :]
 
 
 def staleness(table: EstimateTable, q_true: torch.Tensor) -> torch.Tensor:

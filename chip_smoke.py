@@ -56,7 +56,11 @@ and prints no result line:
              from a flooded table) on the card against the CPU, then a
              second auction seeded with the first's tables; rounds, ms per
              round and per auction, the local alignment's ms; and n=64
-             dense against `task_block=16`, bit-identical;
+             dense against `task_block=16`, bit-identical. The CPU
+             auctions (and the CPU alignment) run in a child process from
+             the card's inputs while the later phases run, and are joined
+             and held against the card's before the kernels line
+             (``cbaa_join``);
 10. slice_cbaa — the `simform1000_cbaa_flooded` deployment, 121 ticks (two
              auctions), with the launch counters read around that run: K3
              once per tick, K1 and K2 never; ms per tick on and off
@@ -255,7 +259,19 @@ and prints no result line:
              (`analysis.model.refine_dir`, a process fleet's slots as
              fragments) in their own phases; this phase reports the
              journals, requests and events refined;
-34. the `kernels` line, then the result line. Each kernel row carries the
+34. parallel — the agent-axis sharding (`aclswarm_torch.parallel`):
+             `simform1000_flooded` at n=1000, 20 ticks from tick 0, as a
+             two-rank gloo world on the one card (two child processes)
+             and a one-rank NCCL world, each against the unsharded
+             `sim.rollout` on the card (assignment, ages and flight modes
+             equal, |dq| and |dest| within 1e-4 m), with each rank's ms
+             per tick, collectives' ms and bytes per tick, peak memory
+             and K1/K2/K3 launches; the launch program as two processes
+             on the card (`--backend gloo --n 1000 --ticks 20`), equal
+             digests within 1e-3 of the one-rank run's; K3 on receiver
+             blocks (r=500 at offsets 0 and 500, w=500 and 1000) against
+             its plain version, bit for bit, with its bound;
+35. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
    batch_kernels figures); K2's row also its rounds and the dense bound
@@ -1452,27 +1468,78 @@ def _cbaa_agrees(info: dict) -> bool:
             and info["valid"] == info["valid_cpu"])
 
 
-def phase_cbaa(seed: int) -> None:
+# the CPU half of the `cbaa` phase, in a child process: the four n=1000
+# auctions (cold, warm from the cold tables, cold at seeds + 1 and + 2) and
+# the local alignment, from the card's inputs in argv[1], to argv[2]. One
+# thread, pinned to the CPU argv[3], at the lowest priority: the later
+# phases' host work keeps every other core to itself
+_CPU_CBAA = """
+import os
+import sys
+import time
+import torch
+os.nice(19)
+torch.set_num_threads(1)
+os.sched_setaffinity(0, {int(sys.argv[3])})
+from aclswarm_torch.assignment import cbaa
+from aclswarm_torch.core import geometry
+t0 = time.perf_counter()
+inp = torch.load(sys.argv[1], weights_only=False)
+block = inp["block"]
+
+def keep(res):
+    return {k: getattr(res, k) for k in ("v2f", "f2v", "who", "price",
+                                         "rounds", "valid")}
+
+out = {}
+for i, case in enumerate(inp["cases"]):
+    args = (case["q"], case["points"], case["adjmat"], case["v2f"])
+    cold = cbaa.cbaa_from_state(*args, est=case["est"], task_block=block)
+    out[i] = {"cold": keep(cold)}
+    if i == 0:
+        out[i]["warm"] = keep(cbaa.cbaa_from_state(
+            *args, est=case["est"], task_block=block,
+            warm=cbaa.CbaaTables(price=cold.price, who=cold.who)))
+        out[i]["align"] = geometry.align_formation_local(
+            *args[:3], args[3], est=case["est"])
+out["seconds"] = time.perf_counter() - t0
+torch.save(out, sys.argv[2])
+"""
+
+
+def phase_cbaa(seed: int):
     """CBAA at n=1000, float32, `task_block=64`, estimates from a flooded
-    table: a cold auction and one seeded with its tables, each on the card
-    against the CPU from the same q, est and v2f; then the cold auction
-    card against CPU at seeds ``seed`` + 1 and + 2, one line each (a
-    near-tie within the alignments' ~1e-6 would flip a winner at one seed
-    and not another)."""
+    table: a cold auction and one seeded with its tables on the card, then
+    the cold auction on the card at seeds ``seed`` + 1 and + 2 (a near-tie
+    within the alignments' ~1e-6 would flip a winner at one seed and not
+    another), and n=64 dense against `task_block=16` on the card, bit for
+    bit. The same auctions on the CPU, from the card's inputs, run in a
+    child process while the later phases run: the returned `_CbaaPending`
+    joins it and holds each card auction against its CPU twin before the
+    kernels line."""
     from aclswarm_torch.assignment import cbaa
     from aclswarm_torch.core import geometry
 
     dev = torch.device("cuda")
-    formation, q, est, v2f = _flooded_inputs(seed, dev)
-    pts, adj = formation.points, formation.adjmat
     block = ENGINE_CBAA["cbaa_task_block"]
+    inputs = [_flooded_inputs(s, dev) for s in (seed, seed + 1, seed + 2)]
+    formation, q, est, v2f = inputs[0]
+    pts, adj = formation.points, formation.adjmat
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_cbaa_"))
+    torch.save({"block": block, "cases": [
+        {"q": qq.cpu(), "points": f.points.cpu(), "adjmat": f.adjmat.cpu(),
+         "v2f": vv.cpu(), "est": ee.cpu()} for f, qq, ee, vv in inputs]},
+        scratch / "in.pt")
+    child = subprocess.Popen(
+        [sys.executable, "-c", _CPU_CBAA, str(scratch / "in.pt"),
+         str(scratch / "out.pt"), str(max(os.sched_getaffinity(0)))],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
 
-    def run(warm=None, on=dev):
-        tab = None if warm is None else cbaa.CbaaTables(
-            price=warm.price.to(on), who=warm.who.to(on))
-        return cbaa.cbaa_from_state(q.to(on), pts.to(on), adj.to(on),
-                                    v2f.to(on), est=est.to(on),
-                                    task_block=block, warm=tab)
+    def run(warm=None):
+        return cbaa.cbaa_from_state(q, pts, adj, v2f, est=est,
+                                    task_block=block, warm=warm)
 
     cbaa.cbaa_from_state(q, pts, adj, v2f, est=est, task_block=block,
                          n_iters=2)                          # warm-up
@@ -1482,48 +1549,16 @@ def phase_cbaa(seed: int) -> None:
     cold, cold_ms = _sync_ms(run)
     peak = torch.cuda.max_memory_allocated()
     cold_prof = _device_profile(run)
-    cold_cpu = run(on="cpu")
-    carried = cbaa.CbaaTables(price=cold.price, who=cold.who)
-    warm, warm_ms = _sync_ms(lambda: run(carried))
-    warm_cpu = run(cbaa.CbaaTables(price=cold_cpu.price, who=cold_cpu.who),
-                   on="cpu")
-    # the card's and the CPU's alignments come from two SVD libraries
+    warm, warm_ms = _sync_ms(lambda: run(cbaa.CbaaTables(price=cold.price,
+                                                         who=cold.who)))
     al = geometry.align_formation_local(q, pts, adj, v2f, est=est)
-    al_cpu = geometry.align_formation_local(q.cpu(), pts.cpu(), adj.cpu(),
-                                            v2f.cpu(), est=est.cpu())
-    for label, card, cpu, ms in (("cold", cold, cold_cpu, cold_ms),
-                                 ("warm", warm, warm_cpu, warm_ms)):
-        info = {"phase": "cbaa", "auction": label, "seed": seed, "n": N,
-                "dtype": "float32", "task_block": block,
-                **_same_cbaa(card, cpu), "poll_every": cbaa.POLL_EVERY,
-                "ms": ms, "ms_per_round": (ms - align_ms)
-                / max(int(card.rounds), 1), "align_ms": align_ms}
-        if label == "cold":
-            info.update(**cold_prof, peak_memory_bytes=peak,
-                        align_max_abs_diff=(al.cpu() - al_cpu).abs().max()
-                        .item())
-        emit(info)
-        if not _cbaa_agrees(info):
-            raise AssertionError(f"cbaa check failed: {info}")
-    # float32 sums of up to n weighted positions in two orders: the two
-    # alignments may differ by ~1e-4 m on a 130 m formation
-    if not (bool(cold.valid) and bool(warm.valid)
-            and (al.cpu() - al_cpu).abs().max().item() <= 1e-2):
-        raise AssertionError("cbaa: an auction at n=1000 was invalid, or "
-                             "the card's alignment is off the CPU's")
-
-    for s in (seed + 1, seed + 2):
-        formation, q, est, v2f = _flooded_inputs(s, dev)
-        args = (formation.points, formation.adjmat, v2f)
+    lines = [("cold", seed, cold, cold_ms,
+              dict(**cold_prof, peak_memory_bytes=peak)),
+             ("warm", seed, warm, warm_ms, {})]
+    for s, (f, qq, ee, vv) in zip((seed + 1, seed + 2), inputs[1:]):
         card, ms = _sync_ms(lambda: cbaa.cbaa_from_state(
-            q, *args, est=est, task_block=block))
-        cpu = cbaa.cbaa_from_state(q.cpu(), *(a.cpu() for a in args),
-                                   est=est.cpu(), task_block=block)
-        info = {"phase": "cbaa", "auction": "cold", "seed": s, "n": N,
-                **_same_cbaa(card, cpu), "ms": ms}
-        emit(info)
-        if not _cbaa_agrees(info):
-            raise AssertionError(f"cbaa check failed at seed {s}: {info}")
+            qq, f.points, f.adjmat, vv, est=ee, task_block=block))
+        lines.append(("cold", s, card, ms, {}))
 
     # dense against blocked on the card, bit for bit
     n = 64
@@ -1537,6 +1572,68 @@ def phase_cbaa(seed: int) -> None:
           "valid": bool(dense.valid)})
     if not same:
         raise AssertionError("cbaa: task_block=16 differs from dense")
+    return _CbaaPending(child, scratch, lines, al, align_ms, block, seed)
+
+
+class _CbaaPending:
+    """The `cbaa` phase's CPU child, joined before the kernels line."""
+
+    def __init__(self, child, scratch, lines, al, align_ms, block, seed):
+        self.child, self.scratch, self.lines = child, scratch, lines
+        self.al, self.align_ms, self.block, self.seed = (al, align_ms,
+                                                         block, seed)
+        self.t0 = time.perf_counter()
+
+    def join(self) -> dict:
+        """Wait for the CPU auctions (900 s at most) and hold every card
+        auction against its CPU twin: winners, tables and rounds equal,
+        the alignments within 1e-2 m. Raises on any failure."""
+        from types import SimpleNamespace
+
+        from aclswarm_torch.assignment import cbaa
+
+        try:
+            _, err = self.child.communicate(timeout=900)
+        finally:
+            if self.child.poll() is None:
+                self.child.kill()
+                self.child.wait()
+        try:
+            if self.child.returncode != 0:
+                raise AssertionError(f"cbaa: the CPU auctions failed (exit "
+                                     f"{self.child.returncode}):\n"
+                                     f"{err[-4000:]}")
+            cpu = torch.load(self.scratch / "out.pt", weights_only=False)
+        finally:
+            shutil.rmtree(self.scratch, ignore_errors=True)
+        joined_s = time.perf_counter() - self.t0
+        twins = [cpu[0]["cold"], cpu[0]["warm"], cpu[1]["cold"],
+                 cpu[2]["cold"]]
+        for (label, s, card, ms, extra), twin in zip(self.lines, twins):
+            info = {"phase": "cbaa", "auction": label, "seed": s, "n": N,
+                    "dtype": "float32", "task_block": self.block,
+                    **_same_cbaa(card, SimpleNamespace(**twin)), "ms": ms}
+            if s == self.seed:
+                info.update(poll_every=cbaa.POLL_EVERY, ms_per_round=(
+                    ms - self.align_ms) / max(int(card.rounds), 1),
+                    align_ms=self.align_ms)
+            if label == "cold" and s == self.seed:
+                info.update(**extra, align_max_abs_diff=(
+                    self.al.cpu() - cpu[0]["align"]).abs().max().item(),
+                    cpu_child_seconds=cpu["seconds"],
+                    joined_after_seconds=joined_s)
+            emit(info)
+            if not _cbaa_agrees(info):
+                raise AssertionError(f"cbaa check failed: {info}")
+            if not bool(card.valid):
+                raise AssertionError(f"cbaa: an auction at n=1000 was "
+                                     f"invalid: {info}")
+        # float32 sums of up to n weighted positions in two orders: the two
+        # alignments may differ by ~1e-4 m on a 130 m formation
+        if (self.al.cpu() - cpu[0]["align"]).abs().max().item() > 1e-2:
+            raise AssertionError("cbaa: the card's alignment is off the "
+                                 "CPU's")
+        return {"cpu_child_seconds": cpu["seconds"]}
 
 
 def _cbaa_tick_inputs(state, formation, cfg):
@@ -5496,6 +5593,298 @@ def phase_audit(seed: int) -> dict:
     return info
 
 
+PARALLEL_TICKS = 20        # from tick 0, an auction tick
+PARALLEL_DQ_BOUND = 1e-4   # m: sharded against unsharded over the ticks
+LAUNCH_DIGEST_TOL = 1e-3   # m: the launch's 2-rank digest against 1-rank
+PARALLEL_BLOCK = N // 2    # K3's receiver block: one of two ranks' rows
+
+# one rank of the two-rank gloo world on the card
+_PARALLEL_RANK = """
+import sys
+import torch.distributed as dist
+d, rank, port = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+import chip_smoke
+chip_smoke._parallel_rank(d, "gloo")
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_rank(d: str, label: str) -> None:
+    """One rank of the sharded cell (`phase_parallel`): the problem from
+    ``d``/problem.pt on the card, a warm-up rollout, the measured rollout
+    (ms per tick, launches, collectives' bytes, peak memory), the same
+    rollout with every collective bracketed by synchronizations (the
+    collectives' ms); its report to ``d``/``label``_<rank>.json and, from
+    the first rank, the gathered final state to ``d``/``label``.pt."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.ops import _build
+    from aclswarm_torch.parallel import collectives as coll
+    from aclswarm_torch.parallel import mesh as meshlib
+    from aclswarm_torch.parallel.rollout import sharded_rollout_fn
+
+    dev = torch.device("cuda")
+    inp = torch.load(f"{d}/problem.pt", weights_only=False)
+    mesh = meshlib.make_mesh(n_agents=N, device=dev)
+    form, state = (coll.map_tree(lambda x: x.to(dev), inp[k])
+                   for k in ("formation", "state"))
+    local, lform, st_sh, _ = meshlib.shard_problem(state, form, mesh)
+    cfg = sim.SimConfig(**ENGINE)
+
+    def roll():
+        out = sharded_rollout_fn(mesh, lform, inp["gains"], inp["sparams"],
+                                 cfg, PARALLEL_TICKS)(local)
+        torch.cuda.synchronize()
+        return out
+
+    roll()
+    _build.reset_launches()
+    coll.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final, _ = roll()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    moved = coll.stats()
+    peak = torch.cuda.max_memory_allocated()
+    coll.reset_stats()
+    with coll.timing():
+        roll()
+    timed = coll.stats()
+    whole = meshlib.gather_state(final, st_sh)
+    # the one collective the cell's path does not take: all_reduce on a
+    # card tensor (the checks', faults' and flight gate's flags)
+    top = coll.reduce_max(torch.tensor([mesh.rank], device=dev), mesh)
+    per = {k: {"calls": moved[k]["calls"] / PARALLEL_TICKS,
+               "bytes": moved[k]["bytes"] / PARALLEL_TICKS,
+               "ms": timed[k]["seconds"] * 1e3 / PARALLEL_TICKS}
+           for k in moved if moved[k]["calls"]}
+    report = {"rank": mesh.rank, "ranks": mesh.size, "rows": mesh.rows(N),
+              "ms_per_tick": ms / PARALLEL_TICKS, "launches": launches,
+              "collectives_per_tick": per,
+              "collective_ms_per_tick": sum(v["ms"] for v in per.values()),
+              "collective_bytes_per_tick": sum(v["bytes"]
+                                               for v in per.values()),
+              "peak_memory_bytes": peak, "all_reduce_max": int(top)}
+    Path(f"{d}/{label}_{mesh.rank}.json").write_text(json.dumps(report))
+    if mesh.index == 0:
+        torch.save({"q": whole.swarm.q.cpu(), "est": whole.loc.est.cpu(),
+                    "age": whole.loc.age.cpu(), "v2f": whole.v2f.cpu(),
+                    "mode": whole.flight.mode.cpu()}, f"{d}/{label}.pt")
+
+
+def _parallel_world(label: str, d: Path, ref, ranks: int) -> dict:
+    """Read a world's rank reports and hold its final state against the
+    unsharded rollout ``ref``: assignment, ages and flight modes equal,
+    positions and estimates within `PARALLEL_DQ_BOUND`; each rank launched
+    K1 and K2 once (the tick-0 auction) and K3 every tick."""
+    got = torch.load(d / f"{label}.pt", weights_only=False)
+    reports = [json.loads((d / f"{label}_{r}.json").read_text())
+               for r in range(ranks)]
+    dq = (got["q"] - ref.swarm.q.cpu()).abs().max().item()
+    dest = (got["est"] - ref.loc.est.cpu()).abs().max().item()
+    info = {"phase": "parallel", "world": label, "ranks": ranks,
+            "backend": label, "n": N, "ticks": PARALLEL_TICKS,
+            "v2f_equal": torch.equal(got["v2f"], ref.v2f.cpu()),
+            "age_equal": torch.equal(got["age"], ref.loc.age.cpu()),
+            "mode_equal": torch.equal(got["mode"],
+                                      ref.flight.mode.cpu()),
+            "max_abs_dq": dq, "max_abs_dest": dest,
+            "bit_identical": dq == 0.0 and dest == 0.0,
+            "dq_bound": PARALLEL_DQ_BOUND, "per_rank": reports}
+    emit(info)
+    want = {"sinkhorn_log": 1, "round_dominant": 1,
+            "flood_merge": PARALLEL_TICKS}
+    if not (info["v2f_equal"] and info["age_equal"] and info["mode_equal"]
+            and dq <= PARALLEL_DQ_BOUND and dest <= PARALLEL_DQ_BOUND
+            and all(r["launches"] == want
+                    and r["all_reduce_max"] == ranks - 1 for r in reports)):
+        raise AssertionError(f"parallel {label}: the sharded rollout is "
+                             f"off the unsharded one: {info}")
+    return info
+
+
+def _k3_blocks(formation, state) -> dict:
+    """K3 on receiver blocks at n=1000 (the sharded flood's launch) against
+    the plain version, bit for bit: r = N/2 rows at offsets 0 and N/2 of
+    the cell's comm graph, w = N/2 and N; the blocks together equal the
+    square launch, which equals the plain version. ms from CUDA events,
+    bound from the block's comm pairs (2 nnz w operations) and bytes."""
+    from aclswarm_torch import ops
+    from aclswarm_torch.sim import localization as loclib
+
+    dev = torch.device("cuda")
+    comm = loclib.comm_mask(formation.adjmat, state.v2f).contiguous()
+    rng = np.random.default_rng(7)
+    age = torch.tensor(rng.integers(0, 200, (N, N)), dtype=torch.int32,
+                       device=dev)
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    out, r = {}, PARALLEL_BLOCK
+    for w in (N // 2, N):
+        packed = ((torch.clamp(age[:, :w], max=loclib.AGE_CAP) << 16)
+                  | ids[:, None]).contiguous()
+        full, launches = _counted("flood_merge",
+                                  lambda: ops.flood_merge(packed, comm))
+        blocks = []
+        for lo in (0, N - r):
+            rows = comm[lo:lo + r].contiguous()
+            got, k = _counted("flood_merge",
+                              lambda: ops.flood_merge(packed, rows))
+            ref = ops.flood_merge_plain(packed, rows, block=64)
+            nnz = int(rows.sum())
+            b, by = bound_ms(2 * nnz * w, 4 * N * w + r * N + 4 * r * w)
+            out[f"w{w}_lo{lo}"] = dict(
+                r=r, w=w, lo=lo, launches=k, comm_nnz=nnz,
+                bit_identical=torch.equal(got, ref), bound_ms=b,
+                bound_by=by,
+                ms=time_ms(lambda: ops.flood_merge(packed, rows), 50),
+                plain_ms=time_ms(lambda: ops.flood_merge_plain(
+                    packed, rows), 3))
+            blocks.append(got)
+            if not (out[f"w{w}_lo{lo}"]["bit_identical"] and k == 1):
+                raise AssertionError(f"K3 receiver block: "
+                                     f"{out[f'w{w}_lo{lo}']}")
+        square = dict(w=w, launches=launches,
+                      blocks_equal_square=torch.equal(torch.cat(blocks),
+                                                       full),
+                      square_equals_plain=torch.equal(
+                          full, ops.flood_merge_plain(packed, comm,
+                                                      block=64)))
+        out[f"w{w}_square"] = square
+        if not (square["blocks_equal_square"]
+                and square["square_equals_plain"] and launches == 1):
+            raise AssertionError(f"K3 square launch: {square}")
+    for name, v in out.items():
+        emit({"phase": "parallel", "k3_block": name, **v})
+    return out
+
+
+def _launch_pair(n: int, ticks: int) -> tuple[list, float]:
+    """`python -m aclswarm_torch.parallel.launch` as two processes on the
+    card over gloo: their JSON lines and the seconds both took."""
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "aclswarm_torch.parallel.launch",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(i), "--backend", "gloo", "--n", str(n),
+         "--ticks", str(ticks)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent) for i in (1, 0)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for p, (o, e) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel launch failed (exit "
+                                 f"{p.returncode}):\n{o}\n{e[-4000:]}")
+        lines.append(json.loads([ln for ln in o.splitlines()
+                                 if ln.startswith("{")][-1]))
+    return lines, time.perf_counter() - t0
+
+
+def phase_parallel(seed: int) -> dict:
+    """The agent-axis sharding (`aclswarm_torch.parallel`) on the card.
+    (a) `simform1000_flooded` at n=1000, float32, 20 ticks from tick 0:
+    a two-rank world on the one card (two child processes over gloo,
+    which carries the CUDA tensors through the host; NCCL refuses two
+    ranks on one device), then a one-rank NCCL world in this process,
+    each held against the unsharded `sim.rollout` on the card
+    (`_parallel_world`), with each rank's ms per tick, collectives' ms
+    and bytes per tick, peak memory and launches; (b) the launch program
+    as users run it, two ranks on the card at n=1000, 20 ticks: equal
+    digests, within `LAUNCH_DIGEST_TOL` of the one-rank run's; (c) K3 on
+    receiver blocks (`_k3_blocks`). The two-rank world's first rank's
+    launches are the path's (`launches`)."""
+    import torch.distributed as dist
+
+    from aclswarm_torch import sim
+    from aclswarm_torch.parallel import launch as plaunch
+
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = problem(
+        N, seed, dev, torch.float32, 2 * SUITE["init_radius"])
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        from aclswarm_torch.parallel.collectives import map_tree
+
+        torch.save({"formation": map_tree(lambda x: x.cpu(), formation),
+                    "state": map_tree(lambda x: x.cpu(), state),
+                    "gains": gains, "sparams": sparams},
+                   scratch / "problem.pt")
+        t0 = time.perf_counter()
+        port = _free_port()
+        kids = [subprocess.Popen(
+            [sys.executable, "-c", _PARALLEL_RANK, str(scratch), str(r),
+             str(port)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=Path(__file__).resolve().parent)
+            for r in (1, 0)]
+        try:
+            ref, _ = sim.rollout(state, formation, gains, sparams,
+                                 sim.SimConfig(**ENGINE), PARALLEL_TICKS)
+            outs = [k.communicate(timeout=300) for k in kids]
+        finally:
+            for k in kids:
+                if k.poll() is None:
+                    k.kill()
+                    k.wait()
+        for k, (o, e) in zip(kids, outs):
+            if k.returncode != 0:
+                raise AssertionError(f"parallel: a gloo rank failed (exit "
+                                     f"{k.returncode}):\n{o}\n"
+                                     f"{e[-4000:]}")
+        gloo_s = time.perf_counter() - t0
+        gloo = _parallel_world("gloo", scratch, ref, 2)
+
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{_free_port()}", rank=0, world_size=1)
+        try:
+            _parallel_rank(str(scratch), "nccl")
+        finally:
+            dist.destroy_process_group()
+        nccl_s = time.perf_counter() - t0
+        nccl = _parallel_world("nccl", scratch, ref, 1)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    blocks = _k3_blocks(formation, state)
+
+    lines, launch_s = _launch_pair(N, PARALLEL_TICKS)
+    one = plaunch.run(N, PARALLEL_TICKS, 0, device=dev)
+    launch = {"phase": "parallel", "launch": "2 ranks, gloo, on the card",
+              "n": N, "ticks": PARALLEL_TICKS, "lines": lines,
+              "one_rank_digest": one["digest"], "seconds": launch_s,
+              "digests_equal": lines[0]["digest"] == lines[1]["digest"],
+              "digest_diff": abs(lines[0]["digest"] - one["digest"]),
+              "tolerance": LAUNCH_DIGEST_TOL}
+    emit(launch)
+    if not (launch["digests_equal"]
+            and launch["digest_diff"] <= LAUNCH_DIGEST_TOL
+            and all(x["processes"] == 2 and x["global_devices"] == 2
+                    and x["backend"] == "gloo" for x in lines)):
+        raise AssertionError(f"parallel launch: {launch}")
+    info = {"phase": "parallel", "gloo_world_seconds": gloo_s,
+            "nccl_world_seconds": nccl_s,
+            "launches": gloo["per_rank"][0]["launches"]}
+    emit(info)
+    return dict(info, gloo=gloo, nccl=nccl, k3_blocks=blocks, launch=launch)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -5529,7 +5918,7 @@ def main(argv=None) -> int:
                  "serve_recovery": phase_serve_recovery,
                  "serve_watch": phase_serve_watch,
                  "serve_procs": phase_serve_procs, "bridge": phase_bridge,
-                 "audit": phase_audit}
+                 "audit": phase_audit, "parallel": phase_parallel}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
@@ -5568,6 +5957,8 @@ def main(argv=None) -> int:
                 done[name] = timed(name, fn, args.seed, done.get("serve"))
             else:
                 done[name] = timed(name, table[name], args.seed)
+        if "cbaa" in done:
+            timed("cbaa_join", done["cbaa"].join)
         print("chip_smoke: partial run (--phases), no result line",
               flush=True)
         return 0
@@ -5580,7 +5971,7 @@ def main(argv=None) -> int:
     timed("profile", phase_profile, args.seed, sl_random["ms_per_tick"],
           "random")
     au = timed("auction", phase_auction, args.seed)
-    timed("cbaa", phase_cbaa, args.seed)
+    cb = timed("cbaa", phase_cbaa, args.seed)
     sl_cbaa = timed("slice_cbaa", phase_slice_cbaa, args.seed)
     sl_auction = timed("slice_auction", phase_slice_auction, args.seed, au)
     tr = timed("trial", phase_trial, args.seed)
@@ -5606,6 +5997,8 @@ def main(argv=None) -> int:
     br = timed("bridge", phase_bridge, args.seed)
     off = timed("offline", phase_offline, args.seed, tr, kern)
     timed("audit", phase_audit, args.seed)
+    par = timed("parallel", phase_parallel, args.seed)
+    timed("cbaa_join", cb.join)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
                                 "aclswarm_tpu/ops/sinkhorn_pallas.py:81"),
@@ -5660,7 +6053,8 @@ def main(argv=None) -> int:
                    "serve_watch": sh["launches"][name],
                    "serve_procs": spr["launches"][name],
                    "bridge": br["launches"][name],
-                   "offline": off["launches"][name]},
+                   "offline": off["launches"][name],
+                   "parallel": par["launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -115,11 +115,40 @@ def test_sinkhorn_assign(masked, n):
             out.row_to_col.numpy()[pinned], kw["pin"].argmax(1)[pinned])
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_sinkhorn_assign_staged_matches_reference(masked):
+    """``stage_shardings`` on a one-rank mesh (the row-sharded iteration
+    and the replicated rounding of `parallel`; two ranks are
+    `tests/test_torch_parallel.py`'s): the reference's decisions, its
+    plan at ATOL."""
+    from aclswarm_torch.parallel import mesh as tmesh
+    n = 48
+    q, p = _points(n, 21)
+    kw = {}
+    if masked:
+        alive = np.ones(n, bool)
+        alive[::5] = False
+        pin, forbid = masking.pin_forbid(jnp.asarray(alive),
+                                         jnp.arange(n, dtype=jnp.int32))
+        kw = dict(pin=np.array(pin), forbid=np.array(forbid))
+    ref = _j_assign(jnp.asarray(q), jnp.asarray(p),
+                    **{k: jnp.asarray(v) for k, v in kw.items()})
+    mesh = tmesh.make_mesh(device="cpu")
+    out = sinkhorn.sinkhorn_assign(
+        _t(q), _t(p), stage_shardings=(tmesh.row_sharding(mesh),
+                                       tmesh.replicated(mesh)),
+        **{k: torch.as_tensor(v) for k, v in kw.items()})
+    np.testing.assert_array_equal(out.row_to_col.numpy(),
+                                  np.asarray(ref.row_to_col))
+    np.testing.assert_allclose(out.plan_log.numpy(), np.asarray(ref.plan_log),
+                               rtol=0, atol=ATOL)
+
+
 def test_sinkhorn_assign_argument_rules():
     q = torch.zeros(4, 3, dtype=torch.float64)
     with pytest.raises(ValueError, match="together"):
         sinkhorn.sinkhorn_assign(q, q, pin=torch.zeros(4, 4, dtype=bool))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="stage_shardings"):
         sinkhorn.sinkhorn_assign(q, q, stage_shardings=(None, None))
     with pytest.raises(ValueError, match="rounding"):
         sinkhorn.sinkhorn_assign(q + torch.arange(4.0)[:, None], q,

@@ -29,12 +29,12 @@ def _imported(path: Path) -> set[str]:
 
 
 def _file_id(path: Path) -> str:
-    """The file's name; under the analysis, telemetry, serve, utils and
-    interop subpackages its path in the package, so a shared name
-    (`registry.py`, `__init__.py`) leaves the other files' ids as they
-    were."""
+    """The file's name; under the analysis, telemetry, serve, utils,
+    interop and parallel subpackages its path in the package, so a shared
+    name (`registry.py`, `__init__.py`) leaves the other files' ids as
+    they were."""
     if path.parent.name in ("analysis", "telemetry", "serve", "utils",
-                            "interop"):
+                            "interop", "parallel"):
         return f"{path.parent.name}/{path.name}"
     return path.name
 
@@ -62,10 +62,13 @@ def test_scan_covers_the_package():
             "cbaa_ref.py", "planner.py", "bridge.py", "operator.py",
             "viz_markers.py", "ros_fakes.py", "ros_bridge.py", "timing.py",
             "reference.py", "sdp.py", "precalc.py", "libgen.py",
-            "replay.py", "overhead.py", "viz.py", "liveplot.py"} <= names
+            "replay.py", "overhead.py", "viz.py", "liveplot.py",
+            "mesh.py", "rollout.py", "multihost.py", "launch.py",
+            "collectives.py"} <= names
     assert (ROOT / "aclswarm_torch" / "core" / "registry.py") in FILES
     assert ROOT / "aclswarm_torch" / "resilience" / "smoke.py" in FILES
-    for sub in ("analysis", "telemetry", "serve", "utils", "interop"):
+    for sub in ("analysis", "telemetry", "serve", "utils", "interop",
+                "parallel"):
         assert ROOT / "aclswarm_torch" / sub / "__init__.py" in FILES
 
 

@@ -470,6 +470,27 @@ def test_flood_batched_equals_single_launches(card, B, n, w):
     assert torch.equal(out, ops.flood_merge_plain(packed, comm, block=100))
 
 
+@pytest.mark.parametrize("lo,r,w", [(0, N // 2, N // 2), (N // 2, N // 2, N),
+                                    (0, N, N // 2), (3, 37, 37)])
+def test_flood_kernel_receiver_block(card, lo, r, w):
+    """K3 on a receiver block (the sharded flood's launch): comm rows
+    [lo, lo + r), every sender's packed row; bit-identical to the plain
+    version and to those rows of the whole launch, one launch each."""
+    g = torch.Generator(device=card).manual_seed(lo + r + w)
+    packed = torch.randint(0, 2**30, (N, w), generator=g, device=card,
+                           dtype=torch.int32)
+    comm = torch.rand(N, N, generator=g, device=card) < 0.3
+    comm[lo] = False
+    block = comm[lo:lo + r].contiguous()
+    before = ops.LAUNCHES["flood_merge"]
+    out = ops.flood_merge(packed, block)
+    assert ops.LAUNCHES["flood_merge"] - before == 1
+    assert out.shape == (r, w)
+    assert torch.equal(out, ops.flood_merge_plain(packed, block, block=100))
+    assert torch.equal(out, ops.flood_merge(packed, comm)[lo:lo + r])
+    assert (out[0] == SENTINEL).all()
+
+
 def test_batched_rollout_on_the_card_equals_serial_assignments(card):
     """A small flooded Sinkhorn wave on the card: the batched rollout's
     assignments and auction flags equal the serial rollouts', and K3 runs

@@ -239,6 +239,27 @@ def test_flood_blocked_plain_is_identical(block):
         ops.flood_merge_plain(p, c).numpy())
 
 
+@pytest.mark.parametrize("n,w,lo,r", [(64, 64, 0, 32), (64, 64, 32, 32),
+                                      (130, 65, 7, 50), (7, 3, 6, 1),
+                                      (40, 33, 0, 40)])
+def test_flood_plain_receiver_block(n, w, lo, r):
+    """A receiver block (comm rows [lo, lo + r) against every sender's
+    packed row) is those rows of the whole merge, and of the reference's
+    Pallas merge; a comm that is not (r, n) is refused."""
+    packed, comm = _flood_case(n, w, n + w + lo)
+    p, c = torch.from_numpy(packed), torch.from_numpy(comm)
+    ref = np.asarray(flood_merge_pallas(jnp.asarray(packed),
+                                        jnp.asarray(comm), interpret=True))
+    out = ops.flood_merge(p, c[lo:lo + r].contiguous())
+    assert out.shape == (r, w)
+    np.testing.assert_array_equal(out.numpy(), ref[lo:lo + r])
+    np.testing.assert_array_equal(
+        ops.flood_merge_plain(p, c[lo:lo + r], block=5).numpy(),
+        ref[lo:lo + r])
+    with pytest.raises(ValueError, match="comm"):
+        ops.flood_merge_plain(p, c[lo:lo + r, :-1])
+
+
 def _masked_umin(packed, comm, form):
     """numpy model of `csrc/flood.cu`'s arithmetic: comm packed into one
     32-bit word per (receiver, 32-sender chunk) (bit l = sender 32k + l, as
