@@ -25,6 +25,8 @@ from pathlib import Path
 
 import numpy as np
 
+from aclswarm_torch.utils.host import to_host
+
 
 @dataclasses.dataclass
 class AuctionRecord:
@@ -38,12 +40,6 @@ class AuctionRecord:
     v2f_new: np.ndarray  # (n,) sigma2: assignment after
 
 
-def _host(x) -> np.ndarray:
-    if hasattr(x, "detach"):             # a torch tensor, on any device
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 def record_auctions(metrics, q0, v2f0, formation) -> list[AuctionRecord]:
     """Extract auction events from rollout metrics (`sim.StepMetrics`
     stacked over time, on any device; host copies are made once).
@@ -51,15 +47,15 @@ def record_auctions(metrics, q0, v2f0, formation) -> list[AuctionRecord]:
     The engine auctions on the pre-step state, so the inputs of an auction
     at tick t are the tick t-1 outputs (q0/v2f0 for t = 0).
     """
-    auctioned = _host(metrics.auctioned)
-    q = _host(metrics.q)
-    v2f = _host(metrics.v2f)
-    points = _host(formation.points)
-    adjmat = _host(formation.adjmat)
+    auctioned = to_host(metrics.auctioned)
+    q = to_host(metrics.q)
+    v2f = to_host(metrics.v2f)
+    points = to_host(formation.points)
+    adjmat = to_host(formation.adjmat)
     out = []
     for t in np.nonzero(auctioned)[0]:
-        q_in = q[t - 1] if t > 0 else _host(q0)
-        v2f_in = v2f[t - 1] if t > 0 else _host(v2f0)
+        q_in = q[t - 1] if t > 0 else to_host(q0)
+        v2f_in = v2f[t - 1] if t > 0 else to_host(v2f0)
         out.append(AuctionRecord(q=q_in, points=points, adjmat=adjmat,
                                  v2f_prev=v2f_in, v2f_new=v2f[t]))
     return out
@@ -69,7 +65,7 @@ def save_records(records: list[AuctionRecord], path: str | Path) -> None:
     arrays = {}
     for k, r in enumerate(records):
         for f in dataclasses.fields(AuctionRecord):
-            arrays[f"{k}_{f.name}"] = _host(getattr(r, f.name))
+            arrays[f"{k}_{f.name}"] = to_host(getattr(r, f.name))
     np.savez_compressed(path, n_records=len(records), **arrays)
 
 
@@ -112,7 +108,7 @@ def replay_record(rec: AuctionRecord, device=None) -> dict:
     oracle = cbaa_ref.cbaa_oracle(rec.q, rec.points, rec.adjmat,
                                   rec.v2f_prev)
     dev = replay_device(rec, device)
-    dev_f2v = _host(dev.f2v)
+    dev_f2v = to_host(dev.f2v)
     dev_valid = bool(dev.valid)
     return {
         "oracle": oracle,

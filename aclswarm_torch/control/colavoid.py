@@ -157,12 +157,12 @@ def collision_avoidance(q: torch.Tensor, vel_des: torch.Tensor,
 
     Returns ((n, 3) safe velocities, (n,) bool avoidance-active flags); a
     leading trial axis of ``q``, ``vel_des`` (and ``neighbor_mask``) comes
-    back on both. With ``rows=(lo, hi)`` (unbatched) ``vel_des`` holds
-    those agents' rows and so do both results.
+    back on both. With ``rows=(lo, hi)`` ``vel_des`` holds those agents'
+    rows (of every trial) and so do both results.
     """
     n = q.shape[-2]
     lo, hi = (0, n) if rows is None else rows
-    own = q if rows is None else q[lo:hi]
+    own = q if rows is None else q.narrow(-2, lo, hi - lo)
     # (..., i, j, 3): j relative to i
     qij = q[..., None, :, :] - own[..., :, None, :]
     dxy = torch.linalg.vector_norm(qij[..., :2], dim=-1)

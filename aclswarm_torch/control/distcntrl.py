@@ -70,26 +70,52 @@ def compute_rows(vel: torch.Tensor, rows_form: Formation,
                  v2f: torch.Tensor, lo: int, gains: ControlGains,
                  q: torch.Tensor | None = None,
                  rel: torch.Tensor | None = None) -> torch.Tensor:
-    """`compute` for the vehicles ``[lo, lo + r)`` alone: (r, 3).
+    """`compute` for the vehicles ``[lo, lo + r)`` alone: ([B,] r, 3).
 
     ``rows_form`` holds the adjacency, gain and desired-distance rows of
-    those vehicles' formation points, ``v2f[lo:lo + r]`` in vehicle order
-    (``points`` unused); ``vel`` their velocities; ``v2f`` the whole
+    those vehicles' formation points, ``v2f[..., lo:lo + r]`` in vehicle
+    order (``points`` unused); ``vel`` their velocities; ``v2f`` the whole
     assignment. The views come from the whole positions ``q`` (truth) or
-    from the vehicles' own relative views ``rel`` ((r, n, 3), flooded).
-    Each row contracts in formation order as `compute` does, so the rows
-    equal `compute`'s."""
-    r = vel.shape[0]
+    from the vehicles' own relative views ``rel`` (([B,] r, n, 3),
+    flooded). Each row contracts in formation order as `compute` does, so
+    the rows equal `compute`'s. A leading trial axis on every input takes
+    the trials' rows as more rows, as `compute` does; its gain products
+    run where `compute`'s would (`_rows_product`), so a batch's rows equal
+    `compute`'s bit for bit on the card too."""
+    r = vel.shape[-2]
     f2v = permutil.invert(v2f).long()
+    lead = f2v.ndim - 1
     if rel is None:
         # vehicle v sits at its own point: q_form[v2f[v]] is q[v]
-        qij = q[f2v][None, :, :] - q[lo:lo + r, None, :]
-    else:
+        qij = permutil.take(q, f2v, lead)[..., None, :, :] \
+            - q[..., lo:lo + r, None, :]
+    elif lead == 0:
         qij = rel[:, f2v, :]
+    else:
+        qij = permutil.take(rel, f2v, lead + 1)
     adj = (rows_form.adjmat > 0).to(vel.dtype)
     F = scale_control(qij, rows_form.dstar_xy, rows_form.dstar_z, gains)
     g = rows_form.gains
-    lin = torch.einsum("ijab,ijb->ija", g, qij)
+    lin = torch.einsum("ijab,ijb->ija", g, qij) if lead == 0 \
+        else _rows_product(g, qij, v2f[..., lo:lo + r].long())
     up = torch.sum(adj[..., None] * (lin + F * qij), dim=-2)
     deg = torch.sum(adj, dim=-1)
     return gains.kp * up - gains.kd * deg[..., None] * vel
+
+
+def _rows_product(g: torch.Tensor, qij: torch.Tensor,
+                  points: torch.Tensor) -> torch.Tensor:
+    """The gain products of a batch's block of rows, (B, r, n, 3), each row
+    at its formation point's place (``points``, (B, r)) in one batched
+    product the size of `compute`'s, the other rows zero. The card's
+    batched product rounds an entry by its place in the batch, so a
+    product of the block alone would leave `compute`'s bits."""
+    B, r, n = qij.shape[:3]
+    b = torch.arange(B, dtype=torch.int64, device=qij.device)[:, None]
+    g_all = g.new_zeros((B, n, n, 3, 3))
+    g_all[b, points] = g
+    q_all = qij.new_zeros((B, n, n, 3))
+    q_all[b, points] = qij
+    lin = torch.einsum("ijab,ijb->ija", g_all.reshape(-1, n, 3, 3),
+                       q_all.reshape(-1, n, 3))
+    return lin.reshape(B, n, n, 3)[b, points]

@@ -74,15 +74,20 @@ def comm_mask(adjmat: torch.Tensor, v2f: torch.Tensor,
     a pointwise (n, n) gather serializes on its chip; on the GPU the
     double gather is one cheap kernel and the two n^3 products are not, so
     the port gathers. Boolean-identical results. ``self_loop=True`` adds
-    the diagonal. ``rows=(lo, hi)`` (unbatched) gives receivers
-    ``[lo, hi)`` only: the rows of the whole graph, bit for bit."""
+    the diagonal. ``rows=(lo, hi)`` gives receivers ``[lo, hi)`` only:
+    the rows of the whole graph, bit for bit."""
     idx = v2f.long()
     if rows is not None:
         lo, hi = rows
-        comm = adjmat[idx[lo:hi]][:, idx] > 0
+        if idx.ndim == 1:
+            comm = adjmat[idx[lo:hi]][:, idx] > 0
+        else:
+            lead = idx.ndim - 1
+            comm = take(take(adjmat, idx[..., lo:hi], lead), idx,
+                        lead + 1) > 0
         if self_loop:
             d = torch.arange(hi - lo, dtype=torch.int64, device=v2f.device)
-            comm[d, d + lo] = True
+            comm[..., d, d + lo] = True
         return comm
     if idx.ndim == 1:
         comm = adjmat[idx][:, idx] > 0

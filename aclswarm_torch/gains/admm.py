@@ -57,6 +57,7 @@ import torch
 from aclswarm_torch.analysis import invariants as invlib
 from aclswarm_torch.core.types import gains_from_flat, resolve_device
 from aclswarm_torch.gains.params import AdmmParams
+from aclswarm_torch.utils.host import to_host
 
 # Newton steps between host reads of the stall flag on a CUDA device
 POLL_EVERY = 4
@@ -102,15 +103,9 @@ def init_carry(n: int, planar: bool = False, dtype=torch.float32,
                      iters=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()  # torchcheck: disable=JC001 the caller's host input
-    return np.asarray(x)  # torchcheck: disable=JC001 the caller's host input
-
-
 def _host_float(x) -> np.ndarray:
     """Host copy in the input's float dtype (other inputs: float64)."""
-    a = _host(x)
+    a = to_host(x)
     return a if a.dtype in (np.float32, np.float64) else a.astype(np.float64)
 
 
@@ -118,7 +113,7 @@ def planar_of(points, params: AdmmParams | None = None) -> bool:
     """The solver's planarity rule: the z coordinates' sample standard
     deviation (ddof=1) below ``params.thr_planar``."""
     params = params or AdmmParams()
-    return bool(np.std(_host(points)[:, 2], ddof=1) < params.thr_planar)
+    return bool(np.std(to_host(points)[:, 2], ddof=1) < params.thr_planar)
 
 
 def _mT(x: torch.Tensor) -> torch.Tensor:
@@ -549,7 +544,7 @@ def solve_gains(points, adj,  # torchcheck: device-path
     check = check_mode == "on"
     dev = _device_of(points, device)
     pts = _host_float(points)
-    adj_np = _host(adj)
+    adj_np = to_host(adj)
     n = adj_np.shape[0]
     planar = planar_of(pts, params)
     if carry is not None:
@@ -604,7 +599,7 @@ def solve_gains_f32(points, adj, params: AdmmParams | None = None,
     if isinstance(points, torch.Tensor):
         pts32 = points.to(torch.float32)
     else:
-        pts32 = np.asarray(_host(points), np.float32)
+        pts32 = np.asarray(to_host(points), np.float32)
     out = solve_gains(pts32, adj, params=params, max_nonedges=max_nonedges,
                       carry=carry, device=device)
     gains, new_carry = out if carry is not None else (out, None)
@@ -634,7 +629,7 @@ def solve_gains_batch(points, adjs,  # torchcheck: device-path
     params = params or AdmmParams()
     dev = _device_of(points, device)
     pts = _host_float(points)
-    adjs_np = _host(adjs)
+    adjs_np = to_host(adjs)
     if pts.ndim != 3 or adjs_np.ndim != 3:
         raise ValueError("solve_gains_batch wants stacked (B, n, 3) points "
                          f"and (B, n, n) adjacencies, got {pts.shape} / "
@@ -655,8 +650,8 @@ def validate_gains(A, points, thr_planar: float = 1e-2,
     negative. ``tol`` bounds the kernel eigenvalues: 1e-6 is the
     reference's float64 check; float32 solves leave ~3e-5 there and are
     checked at 1e-4 or 2e-4. Returns booleans and the sorted eigenvalues."""
-    A = _host(A)
-    points = _host(points)
+    A = to_host(A)
+    points = to_host(points)
     flat = np.std(points[:, 2]) <= thr_planar
     nullity = 5 if flat else 6
     w = np.sort(np.real(np.linalg.eigvals(A)))

@@ -33,13 +33,10 @@ import numpy as np
 import torch
 
 from aclswarm_torch.harness.supervisor import NAMES, TrialFSM
+from aclswarm_torch.utils.host import to_host
 
 FIELDS = ("q", "distcmd_norm", "ca_active", "reassigned", "auctioned",
           "assign_valid", "mode", "v2f")
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def record(path: str, metrics, dt: float = 0.01, **meta) -> str:
@@ -50,7 +47,7 @@ def record(path: str, metrics, dt: float = 0.01, **meta) -> str:
         return metrics[f] if isinstance(metrics, dict) \
             else getattr(metrics, f)
 
-    arrays = {f: _host(get(f)) for f in FIELDS}
+    arrays = {f: to_host(get(f)) for f in FIELDS}
     arrays["dt"] = np.asarray(dt)
     for k, v in meta.items():
         arrays[f"meta_{k}"] = np.asarray(v)

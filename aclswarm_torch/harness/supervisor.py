@@ -15,13 +15,25 @@ the same states, buffer-reset semantics, thresholds and timeouts:
   CONVERGED_WAIT, so it includes the 1 s confirmation dwell.
 
 `TrialFSM` steps tick by tick; `SummaryTrialFSM`, the batched driver's,
-reaches the same decisions from per-chunk device summaries.
+reaches the same decisions from per-chunk device summaries. `evaluate` is
+the post-hoc oracle a user applies to a recorded `sim.rollout`: `run_fsm`
+replays the post-takeoff states (FLYING / IN_FORMATION / GRIDLOCK /
+COMPLETE / TERMINATE) over the recorded series, and the distance and
+avoidance metrics stop at the tick where logging stops.
+
+    final, m = sim.rollout(state, formation, gains, sparams, cfg, T)
+    res = harness.evaluate(m.distcmd_norm, m.ca_active, m.q,
+                           m.reassigned, m.assign_valid, cfg.control_dt)
+    row = res.csv_row(trial=0)
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 
 import numpy as np
+
+from aclswarm_torch.utils.host import to_host
 
 BUFFER_SECONDS = 1.0
 ZERO_POS_THR = 0.05            # m
@@ -68,6 +80,182 @@ class _Buffer:
             for row in np.asarray(snap):
                 b.push(row)
         return b
+
+
+def rolling_mean(x, window: int) -> np.ndarray:
+    """Rolling mean over the leading (time) axis, in float64: row t
+    averages the window ending at t; rows before a full window are NaN."""
+    x = np.asarray(x, dtype=np.float64)
+    out = np.full_like(x, np.nan, dtype=np.float64)
+    if x.shape[0] < window:
+        return out
+    c = np.cumsum(x, axis=0)
+    out[window - 1] = c[window - 1] / window
+    out[window:] = (c[window:] - c[:-window]) / window
+    return out
+
+
+@dataclasses.dataclass
+class TrialResult:
+    """One formation's outcome, with the reference CSV's columns
+    (`csv_row`: trial, one distance per vehicle, time, time_avoidance,
+    assignments)."""
+
+    converged: bool
+    convergence_time_s: float | None    # FLYING -> out of IN_FORMATION
+    gridlocked: bool                    # ever entered GRIDLOCK
+    gridlock_terminated: bool           # GRIDLOCK persisted >= 90 s
+    timed_out: bool                     # the trial watchdog fired
+    last_gridlock_episode_s: float      # the CSV's time_avoidance
+    time_in_avoidance_s: np.ndarray     # (n,) per vehicle
+    dist_traveled_m: np.ndarray         # (n,) EWMA-smoothed planar distance
+    n_reassignments: int
+    invalid_auctions: int
+
+    def csv_row(self, trial: int) -> list:
+        # the assignment counter starts at 1 when logging starts
+        return ([trial] + self.dist_traveled_m.tolist()
+                + [self.convergence_time_s if self.converged else np.nan]
+                + [self.last_gridlock_episode_s]
+                + [1 + self.n_reassignments])
+
+
+def distance_traveled(q, alpha: float = EWMA_ALPHA) -> np.ndarray:
+    """Per-vehicle planar distance of the (T, n, 3) positions through an
+    EWMA position filter: x and y are smoothed and the |delta| of the
+    filtered signal accumulates, so hover jitter is not travel."""
+    q = np.asarray(q)
+    fx = q[0, :, 0].copy()
+    fy = q[0, :, 1].copy()
+    dist = np.zeros(q.shape[1])
+    for t in range(1, q.shape[0]):
+        nx = alpha * fx + (1 - alpha) * q[t, :, 0]
+        ny = alpha * fy + (1 - alpha) * q[t, :, 1]
+        dist += np.hypot(nx - fx, ny - fy)
+        fx, fy = nx, ny
+    return dist
+
+
+# the post-takeoff states `run_fsm` replays
+FLYING, IN_FORMATION, GRIDLOCK, COMPLETE, TERMINATE = range(5)
+
+
+def run_fsm(distcmd_norm, ca_active, dt: float,
+            trial_timeout: float = TRIAL_TIMEOUT):
+    """Replay the supervisor over a recorded rollout of one formation.
+
+    Returns (converged, convergence_time_s, entered_gridlock,
+    gridlock_terminated, timed_out, last_gridlock_episode_s,
+    log_stop_tick). ``log_stop_tick`` is where metric logging stops: the
+    tick of COMPLETE or TERMINATE entry, else the recording's last."""
+    distcmd_norm = np.asarray(distcmd_norm)
+    ca_active = np.asarray(ca_active, dtype=np.float64)
+    T = distcmd_norm.shape[0]
+    window = max(1, int(round(BUFFER_SECONDS / dt)))
+
+    state = FLYING
+    ticks_in_state = -1          # a transition resets to -1, ++ per tick
+    conv = _Buffer(window)
+    grid = _Buffer(window)
+    log_start_t = 0
+    conv_time = None
+    entered_gridlock = False
+    grid_terminated = False
+    timed_out = False
+    grid_enter_t = None
+    last_episode = 0.0
+    log_stop_t = T - 1
+
+    def elapsed(secs):
+        return ticks_in_state * dt >= secs
+
+    def has_converged(t):
+        conv.push(distcmd_norm[t])
+        return conv.full and bool(np.all(conv.mean() < ORIG_ZERO_VEL_THR))
+
+    def has_gridlocked(t):
+        grid.push(ca_active[t])
+        return grid.full and bool(np.any(grid.mean() > AVG_ACTIVE_CA_THR))
+
+    def next_state(new, t, reset=True):
+        nonlocal state, ticks_in_state, conv, grid, grid_enter_t, \
+            last_episode, entered_gridlock
+        if new == GRIDLOCK:
+            grid_enter_t = t
+            entered_gridlock = True
+        if state == GRIDLOCK and grid_enter_t is not None:
+            last_episode = (t - grid_enter_t) * dt
+            grid_enter_t = None
+        state = new
+        ticks_in_state = -1
+        if reset:
+            conv = _Buffer(window)
+            grid = _Buffer(window)
+
+    for t in range(T):
+        ticks_in_state += 1
+        if state == FLYING:
+            if elapsed(FORMATION_RECEIVED_WAIT):
+                if has_converged(t):
+                    next_state(IN_FORMATION, t, reset=False)
+                elif has_gridlocked(t):
+                    next_state(GRIDLOCK, t)
+        elif state == IN_FORMATION:
+            if elapsed(CONVERGED_WAIT):
+                conv_time = (t - log_start_t) * dt
+                log_stop_t = t
+                next_state(COMPLETE, t)
+                break
+            elif not has_converged(t):
+                next_state(FLYING, t)
+        elif state == GRIDLOCK:
+            # left: a full buffer whose predicate is false
+            if (not has_gridlocked(t)) and grid.full:
+                next_state(FLYING, t)
+            elif elapsed(GRIDLOCK_TIMEOUT):
+                grid_terminated = True
+                log_stop_t = t
+                next_state(TERMINATE, t)
+                break
+        if t * dt > trial_timeout:                   # the watchdog
+            timed_out = True
+            log_stop_t = t
+            next_state(TERMINATE, t)
+            break
+
+    # a recording that ends mid-gridlock closes the open episode, so the
+    # CSV's time_avoidance reflects it
+    if state == GRIDLOCK and grid_enter_t is not None:
+        last_episode = (T - 1 - grid_enter_t) * dt
+
+    return (state == COMPLETE, conv_time, entered_gridlock,
+            grid_terminated, timed_out, last_episode, log_stop_t)
+
+
+def evaluate(distcmd_norm, ca_active, q, reassigned, assign_valid,
+             dt: float) -> TrialResult:
+    """The oracle on a recorded rollout: the time-major `StepMetrics`
+    leaves of one trial, numpy arrays or tensors (on the card each crosses
+    to the host once): (T, n) |distcmd|, (T, n) avoidance flags, (T, n, 3)
+    positions, (T,) reassignment and auction-validity flags; ``dt`` is the
+    control tick (s)."""
+    distcmd_norm, ca_active, q, reassigned, assign_valid = (
+        to_host(x) for x in (distcmd_norm, ca_active, q, reassigned,
+                           assign_valid))
+    (converged, conv_time, entered, grid_term, timed_out, last_ep,
+     log_stop) = run_fsm(distcmd_norm, ca_active, dt)
+    ca = np.asarray(ca_active, dtype=np.float64)
+    return TrialResult(
+        converged=converged,
+        convergence_time_s=conv_time,
+        gridlocked=entered,
+        gridlock_terminated=grid_term,
+        timed_out=timed_out,
+        last_gridlock_episode_s=last_ep,
+        time_in_avoidance_s=np.sum(ca[:log_stop + 1], axis=0) * dt,
+        dist_traveled_m=distance_traveled(q[:log_stop + 1]),
+        n_reassignments=int(np.sum(reassigned[:log_stop + 1])),
+        invalid_auctions=int(np.sum(~assign_valid[:log_stop + 1])))
 
 
 class TrialState:

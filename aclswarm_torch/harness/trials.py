@@ -101,6 +101,7 @@ from aclswarm_torch.sim import summary as sumlib
 from aclswarm_torch.sim.vehicle import CMD_GO, ExternalInputs
 from aclswarm_torch.telemetry import device as devtel
 from aclswarm_torch.telemetry import get_registry
+from aclswarm_torch.utils.host import to_host
 
 
 @dataclasses.dataclass
@@ -331,16 +332,12 @@ def _dispatch_gains(cfg: TrialConfig, spec: FormationSpec, n: int,
     return g, carry if warm else None, st
 
 
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def _carry_payload(carry):
     """`AdmmCarry` -> checkpoint payload (dict of arrays | None), so a
     resumed trial's next dispatch is as warm as the uninterrupted run's."""
     if carry is None:
         return None
-    return {k: _host(v) for k, v in carry._asdict().items()}
+    return {k: to_host(v) for k, v in carry._asdict().items()}
 
 
 def _carry_restore(d, device, dtype):
@@ -610,7 +607,7 @@ def run_trial(cfg: TrialConfig, trial_idx: int) -> TrialFSM:
             payload = {
                 "state": convert.sim_state_to_numpy(state),
                 "fsm": fsm.snapshot(),
-                "gains_cache": {str(k): _host(v)
+                "gains_cache": {str(k): to_host(v)
                                 for k, v in gains_cache.items()},
                 "admm_carry": _carry_payload(admm_carry),
                 "pending_go": pending_go,
@@ -662,7 +659,7 @@ def _batch_inputs(chunk: int, batch: int, n: int, go: list, device,
 
 
 def _formation_payload(f) -> dict:
-    return {k: _host(v) for k, v in vars(f).items()}
+    return {k: to_host(v) for k, v in vars(f).items()}
 
 
 def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
@@ -916,7 +913,7 @@ def run_trial_batch(cfg: TrialConfig, trial_indices: list[int]
                 "scarry": convert.summary_carry_to_numpy(scarry),
                 "fsms": [f.snapshot() for f in all_fsms],
                 "live_rows": [row_of[t] for t in torig],
-                "gains_cache": [{str(k): _host(v) for k, v in g.items()}
+                "gains_cache": [{str(k): to_host(v) for k, v in g.items()}
                                 for g in gains_cache],
                 "admm_carries": [_carry_payload(c) for c in admm_carries],
                 "pending_go": list(pending_go),

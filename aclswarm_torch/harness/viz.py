@@ -24,11 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
-
-def _host(x) -> np.ndarray:
-    if hasattr(x, "detach"):             # a torch tensor, on any device
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+from aclswarm_torch.utils.host import to_host
 
 
 def _mpl():
@@ -50,12 +46,12 @@ def aligned_formation(q, points, v2f) -> np.ndarray:
     from aclswarm_torch.core import geometry
     from aclswarm_torch.core import perm as permutil
 
-    q = torch.as_tensor(_host(q))
-    v2f = torch.as_tensor(_host(v2f).astype(np.int32))
+    q = torch.as_tensor(to_host(q))
+    v2f = torch.as_tensor(to_host(v2f).astype(np.int32))
     q_form = permutil.veh_to_formation_order(q, v2f)
-    aligned = geometry.align(torch.as_tensor(_host(points), dtype=q.dtype),
+    aligned = geometry.align(torch.as_tensor(to_host(points), dtype=q.dtype),
                              q_form, d=2)
-    return _host(aligned)[_host(v2f)]        # vehicle order
+    return to_host(aligned)[to_host(v2f)]        # vehicle order
 
 
 def plot_rollout(metrics, formation, out: str, tick: int = -1,
@@ -63,13 +59,13 @@ def plot_rollout(metrics, formation, out: str, tick: int = -1,
     """3D view at one tick: trajectories (trail), vehicles, the aligned
     desired formation + graph edges, and distcmd arrows."""
     plt = _mpl()
-    q_all = _host(metrics.q)                   # (T, n, 3)
+    q_all = to_host(metrics.q)                   # (T, n, 3)
     T, n, _ = q_all.shape
     t = tick % T
     q = q_all[t]
-    v2f = _host(metrics.v2f)[t]
-    pts = _host(formation.points)
-    adj = _host(formation.adjmat)
+    v2f = to_host(metrics.v2f)[t]
+    pts = to_host(formation.points)
+    adj = to_host(formation.adjmat)
     goal = aligned_formation(q, pts, v2f)
 
     fig = plt.figure(figsize=(8, 7))
@@ -103,9 +99,9 @@ def plot_timeseries(metrics, out: str, dt: float = 0.01):
     convergence predicate input) and collision-avoidance activity (its
     gridlock predicate input), plus assignment-change events."""
     plt = _mpl()
-    dn = _host(metrics.distcmd_norm)           # (T, n)
-    ca = _host(metrics.ca_active)              # (T, n)
-    re = _host(metrics.reassigned)             # (T,)
+    dn = to_host(metrics.distcmd_norm)           # (T, n)
+    ca = to_host(metrics.ca_active)              # (T, n)
+    re = to_host(metrics.reassigned)             # (T,)
     tt = np.arange(dn.shape[0]) * dt
 
     fig, axes = plt.subplots(2, 1, figsize=(9, 6), sharex=True)

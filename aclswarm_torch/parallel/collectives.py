@@ -6,7 +6,8 @@ data between ranks only through the functions below, so the bytes and the
 time of each kind can be counted in one place (`STATS`):
 
 - ``gather``: `torch.distributed.all_gather` of each rank's row block,
-  concatenated along the agent axis. Its bytes are the gathered output's.
+  concatenated along the agent axis (axis 0, or 1 behind a trial axis).
+  Its bytes are the gathered output's.
 - ``reduce``: `torch.distributed.all_reduce` (MAX) of a small flag or
   counter vector. Its bytes are the vector's.
 - ``broadcast``: `torch.distributed.broadcast` of one rank's block (the
@@ -16,8 +17,10 @@ time of each kind can be counted in one place (`STATS`):
   outside it (an uneven world), after one small tensor of the leaves'
   shapes. Its bytes are the leaves' and the shapes'.
 
-A mesh without a process group (one process, no distributed runtime) makes
-every call the identity and counts nothing. Bool tensors cross as uint8:
+Every call takes a leaf whole, so a trial batch (a leading (B,) axis)
+moves B times the bytes in the same number of calls. A mesh without a
+process group (one process, no distributed runtime) makes every call the
+identity and counts nothing. Bool tensors cross as uint8:
 gloo reduces and gathers no bool.
 
 ``STATS[kind]`` holds ``calls``, ``bytes`` and ``seconds``. The seconds
@@ -86,9 +89,10 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
     return (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
 
 
-def gather(x: torch.Tensor, mesh) -> torch.Tensor:
+def gather(x: torch.Tensor, mesh, axis: int = 0) -> torch.Tensor:
     """Every mesh rank's ``x`` (the same shape on each: a row block) in
-    rank order, concatenated along axis 0."""
+    rank order, concatenated along the agent axis ``axis`` (1 for a leaf
+    with a leading trial axis: one call moves the whole batch)."""
     if mesh.group is None:
         return x
     import torch.distributed as dist
@@ -97,7 +101,7 @@ def gather(x: torch.Tensor, mesh) -> torch.Tensor:
     parts = [torch.empty_like(w) for _ in range(mesh.size)]
     with _counted("gather", w.numel() * w.element_size() * mesh.size, w):
         dist.all_gather(parts, w, group=mesh.group)
-    out = torch.cat(parts, dim=0)
+    out = torch.cat(parts, dim=axis)
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 

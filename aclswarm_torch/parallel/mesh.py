@@ -231,14 +231,23 @@ def formation_sharding(mesh: AgentMesh) -> Formation:
                      dstar_xy=row, dstar_z=row)
 
 
+def batch_axis(placements):
+    """A placement tree lifted to trial-batched leaves (a leading (B,)
+    axis): the trial axis replicated, the agent axis placed as before."""
+    return map_placements(
+        lambda p: Placement(p.mesh, (None,) + p.spec), placements)
+
+
 def state_sharding_of(state: sim.SimState, mesh: AgentMesh) -> sim.SimState:
-    """`sim_state_sharding` with every flag read off ``state``."""
-    return sim_state_sharding(
+    """`sim_state_sharding` with every flag read off ``state``, lifted by
+    `batch_axis` for a batch of trials (a (B, n) ``v2f``)."""
+    sh = sim_state_sharding(
         mesh, localization=state.loc is not None,
         faults=state.faults is not None, checks=state.inv is not None,
         telemetry=state.tel is not None,
         scenario=state.scenario is not None,
         cbaa_warm=state.cbaa_warm is not None)
+    return batch_axis(sh) if state.v2f.ndim > 1 else sh
 
 
 def _local(x: torch.Tensor, p: Placement, n: int) -> torch.Tensor:
@@ -260,9 +269,12 @@ def shard_problem(state: sim.SimState, formation: Formation,
                   mesh: AgentMesh):
     """Place a global state and formation on the mesh with the standard
     layout: ``(local state, local formation, state placements, formation
-    placements)``."""
+    placements)``. A batch of trials (leaves (B, ...)) takes the batched
+    layout, the trial axis replicated."""
     st_sh = state_sharding_of(state, mesh)
     f_sh = formation_sharding(mesh)
+    if formation.points.ndim > 2:
+        f_sh = batch_axis(f_sh)
     n = formation.points.shape[-2]
     return (place(state, st_sh, n), place(formation, f_sh, n), st_sh,
             f_sh)
@@ -271,10 +283,7 @@ def shard_problem(state: sim.SimState, formation: Formation,
 def _global(x: torch.Tensor, p: Placement) -> torch.Tensor:
     if p.axis is None or p.mesh.index is None:
         return x
-    if p.axis == 0:
-        return coll.gather(x, p.mesh)
-    return coll.gather(x.movedim(p.axis, 0).contiguous(),
-                       p.mesh).movedim(0, p.axis)
+    return coll.gather(x, p.mesh, axis=p.axis)
 
 
 def gather_state(tree, placements):

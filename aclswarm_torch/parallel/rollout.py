@@ -24,7 +24,8 @@ counts its whole output):
     formation point move to it instead, once per change of the local
     assignment (k broadcasts of each rank's formation block, n^2 x 11
     floats: 44 MB per re-assignment; the whole adjacency, n^2 floats =
-    4 MB, is gathered once, at the first tick);
+    4 MB, is gathered once, at the first tick). One trial's gain
+    products run on the rank's rows alone; a batch's do not (below);
   - collision avoidance (dense and k-nearest), the rank's rows against
     the whole positions;
 - per row, no communication: observe-self, the saturation, the mux, the
@@ -49,19 +50,39 @@ and the truth-mode tick 21 KB, plus 44 MB per re-assignment. A rank
 outside the mesh (an uneven world) receives the replicated outputs from
 the mesh's first rank (`collectives.spill`, on the device).
 
-`batched_rollout_fn` rolls a batch of trials trial by trial through
-`sharded_rollout_fn`, each trial at its own tick: the trials are
-independent, and the port's batched engine is bit-identical to its serial
-one, so the results are the batched rollout's.
+`batched_rollout_fn` composes both scaling axes in one program, as the
+reference's does: each tick is one `sim.step` on the rank's rows of every
+trial of the batch (leaves ``(B, r, ...)``), and every collective above
+carries the trial axis. So a batch of B trials makes the same collective
+calls per tick as one trial and moves B times the bytes (a flooded tick:
+about B x 8.0 MB per rank at n=1000 with two phases; B x 44 MB per
+re-assignment), K3 merges every trial's receivers in one launch per tick,
+and K1 and K2 solve the whole batch's assignment once per auction tick
+(K1's residency waves, K2's split grid). The trials share the decimation
+phase, the tick of the rollout (`sim.batched_rollout`'s ``shared_tick``
+from a first tick of 0), and their ticks must agree with each other
+modulo ``assign_every`` and, flooded, ``flood_every``.
+
+One stage of the batch is not partitioned: the control law's 3x3 gain
+products. The card's batched product rounds an entry by its place in the
+batch, so each rank places its rows at their formation points in a
+product of the unsharded size (`control.distcntrl._rows_product`) and the
+batch stays bit for bit. Every rank so zero-fills a (B, n, n, 3, 3) gain
+tensor and a (B, n, n, 3) view tensor and runs the product over all
+B x n rows, whatever k: 9 B n^2 multiply-adds over 15 B n^2 floats
+(n=1000 in float32: 9 B million and 60 B MB a tick; a rank's peak was
+0.58 GB at B = 2 against 0.20 GB for one trial on the H100, PERF.md). A
+product that rounds the same at every place would let each rank compute
+its own rows (ROADMAP).
 """
 from __future__ import annotations
 
 from dataclasses import replace
 
+import numpy as np
 import torch
 
-from aclswarm_torch.core import geometry
-from aclswarm_torch.core import types as typeslib
+from aclswarm_torch.core import perm as permutil
 from aclswarm_torch.core.types import Formation
 from aclswarm_torch.parallel import collectives as coll
 from aclswarm_torch.parallel import mesh as meshlib
@@ -76,12 +97,15 @@ class _Block:
     adjacency (gathered at the first tick) and the formation rows of the
     rank's vehicles (``formation_rows``), kept for the local assignment
     tensor they were moved for (a tick without an auction passes that
-    tensor on unchanged)."""
+    tensor on unchanged). A trial-batched formation (leaves (B, ...))
+    makes a batched block: the agent axis is axis 1 of every leaf, and
+    each collective moves the whole batch."""
 
     def __init__(self, mesh, formation: Formation):
         self.mesh = mesh
         self.form = formation
         self.n = formation.points.shape[-2]
+        self.axis = formation.points.ndim - 2    # 1 behind a trial axis
         self.lo, self.hi = mesh.rows(self.n)
         self.carry = None
         self._adj = None
@@ -89,7 +113,7 @@ class _Block:
         self._rows = None
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        return coll.gather(x, self.mesh)
+        return coll.gather(x, self.mesh, axis=self.axis)
 
     def top(self, x: torch.Tensor) -> torch.Tensor:
         return coll.reduce_max(x, self.mesh)
@@ -113,22 +137,24 @@ class _Block:
         at a time)."""
         if self._rows_for is v2f_rows:
             return self._rows
-        mesh, n = self.mesh, self.n
+        mesh, n, lead = self.mesh, self.n, self.axis
         fr = v2f_rows.long()
         per = n // mesh.size
         mine = (self.form.gains, self.form.dstar_xy, self.form.dstar_z)
-        out = [x.new_zeros((fr.shape[0],) + x.shape[1:]) for x in mine]
+        out = [x.new_zeros(fr.shape + x.shape[fr.ndim:]) for x in mine]
         for p in range(mesh.size):
             sel = (fr >= p * per) & (fr < (p + 1) * per)
             at = torch.clamp(fr - p * per, 0, per - 1)
             for i, x in enumerate(mine):
                 blk = coll.broadcast(x if mesh.index == p else None, p, x,
                                      mesh)
-                pick = blk[at]
+                pick = permutil.take(blk, at, lead)
                 out[i] = torch.where(
-                    sel.view((-1,) + (1,) * (pick.ndim - 1)), pick, out[i])
+                    sel.view(sel.shape + (1,) * (pick.ndim - sel.ndim)),
+                    pick, out[i])
         self._rows = Formation(points=self.form.points,
-                               adjmat=self.adjacency()[fr],
+                               adjmat=permutil.take(self.adjacency(), fr,
+                                                    lead),
                                gains=out[0], dstar_xy=out[1],
                                dstar_z=out[2])
         self._rows_for = v2f_rows
@@ -141,17 +167,20 @@ class _Block:
         of the tick's points where a scenario stage ``changed`` them, the
         edges of dead points (``alive_form``, by point) cut."""
         rows = self._vehicle_rows(v2f_rows)
-        fr = v2f_rows.long()
+        fr, lead = v2f_rows.long(), self.axis
         if changed is not None:
             rows = replace(
                 rows,
-                dstar_xy=torch.where(changed, geometry.pdistmat(
-                    points[:, :2])[fr], rows.dstar_xy),
-                dstar_z=torch.where(changed, geometry.pdistmat(
-                    points[:, 2:3])[fr], rows.dstar_z))
+                dstar_xy=torch.where(changed, permutil.take(
+                    _engine._pdistmat(points[..., :2]), fr, lead),
+                    rows.dstar_xy),
+                dstar_z=torch.where(changed, permutil.take(
+                    _engine._pdistmat(points[..., 2:3]), fr, lead),
+                    rows.dstar_z))
         if alive_form is not None:
             rows = replace(rows, adjmat=torch.where(
-                alive_form[fr][:, None] & alive_form[None, :], rows.adjmat,
+                permutil.take(alive_form, fr, lead)[..., :, None]
+                & alive_form[..., None, :], rows.adjmat,
                 torch.zeros((), dtype=rows.adjmat.dtype,
                             device=rows.adjmat.device)))
         return rows
@@ -169,15 +198,17 @@ def _check_carries(state: SimState, cfg, localization, checks) -> None:
                          f"localization={loc}, checks={chk}")
 
 
-def _tick(st: SimState, blk: _Block, gains, sparams, cfg):
-    """One tick of this rank's rows (`sim.step` on the block): (local
-    state, replicated metrics). The ranks outside the mesh take the
-    replicated outputs from the mesh's first rank."""
+def _tick(st: SimState, blk: _Block, gains, sparams, cfg, **phase):
+    """One tick of this rank's rows (`sim.step` on the block; ``phase``:
+    a batch's ``shared_tick`` and ``trial_ticks``): (local state,
+    replicated metrics). The ranks outside the mesh take the replicated
+    outputs from the mesh's first rank."""
     if blk.mesh.index is None:
         got = coll.spill(_spill_like(st, cfg), blk.mesh)
-        new = replace(st, tick=int(st.tick) + 1, **got["state"])
+        new = replace(st, tick=st.tick + 1, **got["state"])
         return new, got["metrics"]
-    new, m = _engine.step(st, blk.form, gains, sparams, cfg, block=blk)
+    new, m = _engine.step(st, blk.form, gains, sparams, cfg, block=blk,
+                          **phase)
     coll.spill({"state": {"first_auction": new.first_auction,
                           "inv": new.inv, "tel": new.tel},
                 "metrics": m}, blk.mesh)
@@ -233,20 +264,33 @@ def sharded_rollout_fn(mesh, formation_sharded, gains, sparams, cfg,
 
     def roll(state: SimState):
         _check_carries(state, cfg, localization, checks)
-        per_tick = []
-        blk.carry = None
-        for _ in range(n_ticks):
-            state, m = _tick(state, blk, gains, sparams, cfg)
-            blk.carry = (m.q, m.v2f)
-            per_tick.append(m)
-        return state, _engine._stack_metrics(per_tick)
+        return _roll(state, blk, gains, sparams, cfg, n_ticks)
 
     return roll
 
 
-def _batch_axis(placements):
-    return meshlib.map_placements(
-        lambda p: meshlib.Placement(p.mesh, (None,) + p.spec), placements)
+def _roll(state: SimState, blk: _Block, gains, sparams, cfg, n_ticks: int,
+          batched: bool = False):
+    """``n_ticks`` ticks of this rank's rows; the whole positions and
+    assignment a tick ends with start the next tick. A batch (``batched``)
+    passes `sim.batched_rollout`'s phase with a first tick of 0: tick t is
+    ``shared_tick`` t, and with faults, scenarios or checks each trial's
+    own tick crosses to the device once, as its offset from t."""
+    offset = None
+    if batched and (state.faults is not None or state.scenario is not None
+                    or cfg.check_mode == "on"):
+        offset = torch.as_tensor(np.asarray(state.tick).astype(
+            np.int32)).to(state.v2f.device)
+    per_tick = []
+    blk.carry = None
+    for t in range(n_ticks):
+        phase = {} if not batched else {
+            "shared_tick": t,
+            "trial_ticks": None if offset is None else offset + t}
+        state, m = _tick(state, blk, gains, sparams, cfg, **phase)
+        blk.carry = (m.q, m.v2f)
+        per_tick.append(m)
+    return state, _engine._stack_metrics(per_tick)
 
 
 def batched_sim_state_sharding(mesh, localization: bool = False,
@@ -254,37 +298,47 @@ def batched_sim_state_sharding(mesh, localization: bool = False,
     """Placement tree for a trial-batched `SimState` (leaves (B, ...)):
     the batch axis replicated, the agent axis as in
     `mesh.sim_state_sharding`."""
-    return _batch_axis(meshlib.sim_state_sharding(
+    return meshlib.batch_axis(meshlib.sim_state_sharding(
         mesh, localization=localization, checks=checks))
 
 
 def batched_formation_sharding(mesh) -> Formation:
     """Placement tree for a (B, ...)-stacked `Formation`."""
-    return _batch_axis(meshlib.formation_sharding(mesh))
+    return meshlib.batch_axis(meshlib.formation_sharding(mesh))
+
+
+def _check_phases(ticks, cfg) -> None:
+    """The batched engine's rule: the trials share one decimation phase,
+    so their ticks agree modulo the auction period and, flooded, the
+    flood cadence."""
+    t = np.asarray(ticks, dtype=np.int64)
+    periods = ((("assign_every", cfg.assign_every),)
+               if cfg.assignment != "none" else ()) + \
+        ((("flood_every", cfg.flood_every),)
+         if cfg.localization == "flooded" else ())
+    for what, k in periods:
+        if np.any((t - t[0]) % k):
+            raise ValueError(f"the trials' ticks {t.tolist()} disagree "
+                             f"modulo {what}={k}: a batch shares one "
+                             "decimation phase")
 
 
 def batched_rollout_fn(mesh, formation_batched, gains, sparams, cfg,
                        n_ticks: int, localization: bool | None = None,
                        checks: bool | None = None):
-    """A rollout of a trial batch over the mesh: this rank's part of a
-    (B, ...)-batched state (`batched_sim_state_sharding`) -> (its part of
-    the final batched state, `StepMetrics` with leaves (n_ticks, B, ...),
-    replicated). Trial by trial through `sharded_rollout_fn`, each at
-    its own tick."""
+    """A rollout of a trial batch over the mesh, both axes in one program:
+    this rank's part of a (B, ...)-batched state (`mesh.shard_problem`,
+    or `place` with `batched_sim_state_sharding`) -> (its part of the
+    final batched state, `StepMetrics` with leaves (n_ticks, B, ...),
+    replicated). Each tick is one `sim.step` on the rank's rows of every
+    trial; tick t's decimation phase is t and the fault and scenario masks
+    key on each trial's own tick, as `sim.batched_rollout` has them, whose
+    results these are bit for bit."""
+    blk = _Block(mesh, formation_batched)
 
     def roll(state: SimState):
-        finals, metrics = [], []
-        for b in range(formation_batched.points.shape[0]):
-            form_b = typeslib.row(formation_batched, b)
-            out, m = sharded_rollout_fn(mesh, form_b, gains, sparams, cfg,
-                                        n_ticks, localization, checks)(
-                _engine.trial(state, b))
-            finals.append(out)
-            metrics.append(m)
-        stacked = typeslib.tree_map(lambda *xs: torch.stack(xs, dim=1),
-                                    *metrics)
-        return _engine.stack_states(finals), stacked
+        _check_carries(state, cfg, localization, checks)
+        _check_phases(state.tick, cfg)
+        return _roll(state, blk, gains, sparams, cfg, n_ticks, batched=True)
 
     return roll
-
-

@@ -17,7 +17,8 @@ from aclswarm_torch.resilience.checkpoint import (CheckpointCorrupt,
                                                   make_manifest,
                                                   restore_state,
                                                   write_checkpoint)
-from aclswarm_torch.resilience.crash import (CrashPlan, InjectedCrash, arm,
+from aclswarm_torch.resilience.crash import (CrashPlan, InjectedCrash,
+                                             active_plan, active_plans, arm,
                                              arm_many, maybe_crash)
 from aclswarm_torch.resilience.executor import (ChunkExecutor,
                                                 is_transient_device_error)
@@ -27,6 +28,7 @@ __all__ = [
     "clear_checkpoints", "config_hash", "dtype_fingerprint",
     "expected_manifest", "latest_checkpoint", "load_checkpoint",
     "make_manifest", "restore_state", "write_checkpoint",
-    "CrashPlan", "InjectedCrash", "arm", "arm_many", "maybe_crash",
+    "CrashPlan", "InjectedCrash", "active_plan", "active_plans", "arm",
+    "arm_many", "maybe_crash",
     "ChunkExecutor", "is_transient_device_error",
 ]

@@ -129,7 +129,8 @@ def _decode(spec, arrays: list) -> Any:
 # ---------------------------------------------------------------------------
 # frame codec
 
-def _crc(b: bytes) -> int:
+def zlib_crc(b: bytes) -> int:
+    """The frame's body checksum: CRC-32 as an unsigned 32-bit int."""
     return zlib.crc32(b) & 0xFFFFFFFF
 
 
@@ -149,7 +150,7 @@ def dumps(payload, manifest: dict) -> bytes:
                      + struct.pack("<Q", len(raw)) + raw)
     body = b"".join(parts)
     return _HDR.pack(MAGIC, FORMAT_VERSION, 0, 0, len(meta), len(arrays),
-                     _crc(body)) + body
+                     zlib_crc(body)) + body
 
 
 def loads(buf: bytes, path="<bytes>") -> tuple[Any, dict]:
@@ -169,7 +170,7 @@ def loads(buf: bytes, path="<bytes>") -> tuple[Any, dict]:
         raise CheckpointMismatch(
             path, [("format_version", FORMAT_VERSION, ver)])
     body = buf[_HDR.size:]
-    if _crc(body) != crc:
+    if zlib_crc(body) != crc:
         raise CheckpointCorrupt(path, "crc mismatch (truncated or "
                                 "bit-rotted body)")
     if meta_len > len(body):

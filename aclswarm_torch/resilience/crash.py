@@ -78,6 +78,22 @@ def arm_many(plans: List[CrashPlan]) -> None:
         _armed = list(plans)
 
 
+def active_plan() -> Optional[CrashPlan]:
+    """The first armed in-process plan, else the first ``ACLSWARM_CRASH``
+    plan (inspection only: `maybe_crash` consumes)."""
+    plans = active_plans()
+    return plans[0] if plans else None
+
+
+def active_plans() -> List[CrashPlan]:
+    """Every armed plan: the in-process set, else the environment's."""
+    with _plan_lock:
+        if _armed:
+            return list(_armed)
+    spec = os.environ.get(ENV_VAR)
+    return CrashPlan.decode_many(spec) if spec else []
+
+
 def _consume(site: str, boundary: int) -> Optional[CrashPlan]:
     """Claim the plan matching (site, boundary), if any; the rest stay
     armed."""

@@ -28,8 +28,9 @@ holds as a device tensor (`batched_rollout` builds it once per call, not
 per tick). `no_faults` and `no_scenario` are bit-identical to None.
 
 `parallel.rollout` runs `step` on one rank's agent rows of a sharded
-state (its ``block`` argument): the same stages, the O(n^2) ones on the
-rank's rows against gathered inputs, the sequential loops replicated.
+state, one trial's or a whole batch's (its ``block`` argument): the same
+stages, the O(n^2) ones on the rank's rows against gathered inputs, the
+sequential loops replicated.
 
 ``SimConfig.check_mode='on'`` records the first violated invariant of
 each trial into the ``SimState.inv`` carry (`analysis.invariants`), and
@@ -371,14 +372,15 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     trial's own tick: ``trial_ticks`` (optional, ([B,]) int32 on the
     device) is ``state.tick`` already there.
 
-    ``block`` (`parallel.rollout`'s row block, unbatched) runs the tick on
-    one rank's agent rows ``[block.lo, block.hi)`` of a sharded state:
-    ``state`` and ``formation`` hold that rank's part
-    (`parallel.mesh.shard_problem`); the flood, the control law and the
-    avoidance compute the rank's rows against whole inputs
-    (``block.gather``); the assignment and the masks run on the whole,
-    and the metrics come back whole. Every such site is gated in Python,
-    so without ``block`` the operations are the unsharded step's."""
+    ``block`` (`parallel.rollout`'s row block) runs the tick on one rank's
+    agent rows ``[block.lo, block.hi)`` of a sharded state, of one trial
+    or of every trial of a batch (``([B,] r, ...)`` leaves): ``state`` and
+    ``formation`` hold that rank's part (`parallel.mesh.shard_problem`);
+    the flood, the control law and the avoidance compute the rank's rows
+    against whole inputs (``block.gather``, which moves a batch whole);
+    the assignment and the masks run on the whole, and the metrics come
+    back whole. Every such site is gated in Python, so without ``block``
+    the operations are the unsharded step's."""
     _check_cfg(cfg)
     swarm, goal, v2f, fs = state.swarm, state.goal, state.v2f, state.flight
     r = swarm.q.shape[-2]               # the rows this step advances
@@ -512,7 +514,7 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
             draw, noisy = scenlib.est_noise_at(scen, trial_ticks, n,
                                                swarm.q.dtype)
             if block is not None:
-                draw = draw[block.lo:block.hi]
+                draw = draw.narrow(-3, block.lo, block.hi - block.lo)
             loc_view = loclib.noised_view(loc, (draw, noisy))
 
     # --- auto-auction, decimated on the host tick; the airborne, enabled
@@ -584,8 +586,9 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
             # a gated-off auction's tables are discarded like its v2f
             price, who = outs[i].price, outs[i].who
             if block is not None:
-                price, who = (price[block.lo:block.hi],
-                              who[block.lo:block.hi])
+                price, who = (
+                    price.narrow(-2, block.lo, block.hi - block.lo),
+                    who.narrow(-2, block.lo, block.hi - block.lo))
             new_warm = CbaaTables(
                 price=torch.where(take[..., None, None], price,
                                   warm.price),
@@ -599,7 +602,8 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
     # the rows the state carries (a block's stay the same tensor between
     # auctions, so its formation rows move only after one)
     v2f_rows = v2f if block is None else (
-        v2f[block.lo:block.hi].contiguous() if auction else state.v2f)
+        v2f.narrow(-1, block.lo, block.hi - block.lo).contiguous()
+        if auction else state.v2f)
     if checks:
         # every solver's output and the held assignment alike
         inv = invlib.record(inv, invlib.perm_violated(v2f), "assign_perm",
@@ -673,7 +677,7 @@ def step(state: SimState, formation: Formation, gains: ControlGains,
         dq, wind_on = scenlib.wind_at(scen, trial_ticks, cfg.control_dt, n,
                                       swarm.q.dtype)
         if block is not None:
-            dq = dq[block.lo:block.hi]
+            dq = dq.narrow(-2, block.lo, block.hi - block.lo)
         new_swarm = SwarmState(
             q=torch.where(wind_on[..., None, None], new_swarm.q + dq,
                           new_swarm.q), vel=new_swarm.vel)

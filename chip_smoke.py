@@ -269,8 +269,15 @@ and prints no result line:
              and K1/K2/K3 launches; the launch program as two processes
              on the card (`--backend gloo --n 1000 --ticks 20`), equal
              digests within 1e-3 of the one-rank run's; K3 on receiver
-             blocks (r=500 at offsets 0 and 500, w=500 and 1000) against
-             its plain version, bit for bit, with its bound;
+             blocks (r=500 at offsets 0 and 500, w=500 and 1000, one
+             problem and a B=2 batch) against its plain version, bit for
+             bit, with its bound. In the same two gloo ranks, after the
+             one problem: a B=2 batch (seeds S and S+1) through
+             `batched_rollout_fn`, both axes in one program, against the
+             unsharded `sim.batched_rollout` on the card, final state and
+             metrics bit for bit, with ms per batched tick, collective
+             calls (those of the one problem) and bytes per tick, K1/K2/K3
+             launches (K3 20) and peak memory;
 35. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
@@ -5597,6 +5604,7 @@ PARALLEL_TICKS = 20        # from tick 0, an auction tick
 PARALLEL_DQ_BOUND = 1e-4   # m: sharded against unsharded over the ticks
 LAUNCH_DIGEST_TOL = 1e-3   # m: the launch's 2-rank digest against 1-rank
 PARALLEL_BLOCK = N // 2    # K3's receiver block: one of two ranks' rows
+PARALLEL_BATCH = 2         # the sharded batch: seeds S and S+1
 
 # one rank of the two-rank gloo world on the card
 _PARALLEL_RANK = """
@@ -5619,15 +5627,56 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _measured_roll(roll, mesh) -> tuple:
+    """``roll()`` (warmed up) measured on this rank: once with the launch
+    and collective counters and the peak memory reset, then once with
+    every collective bracketed by synchronizations (the collectives' ms):
+    (the first roll's output, its report: ms per tick, launches,
+    collectives' calls, bytes and ms per tick, peak memory)."""
+    from aclswarm_torch.ops import _build
+    from aclswarm_torch.parallel import collectives as coll
+
+    _build.reset_launches()
+    coll.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = roll()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    moved = coll.stats()
+    peak = torch.cuda.max_memory_allocated()
+    coll.reset_stats()
+    with coll.timing():
+        roll()
+    timed = coll.stats()
+    per = {k: {"calls": moved[k]["calls"] / PARALLEL_TICKS,
+               "bytes": moved[k]["bytes"] / PARALLEL_TICKS,
+               "ms": timed[k]["seconds"] * 1e3 / PARALLEL_TICKS}
+           for k in moved if moved[k]["calls"]}
+    return out, {"rank": mesh.rank, "ranks": mesh.size,
+                 "rows": mesh.rows(N), "ms_per_tick": ms / PARALLEL_TICKS,
+                 "launches": launches, "collectives_per_tick": per,
+                 "collective_ms_per_tick": sum(v["ms"]
+                                               for v in per.values()),
+                 "collective_bytes_per_tick": sum(v["bytes"]
+                                                  for v in per.values()),
+                 "peak_memory_bytes": peak}
+
+
+def _save_whole(whole, path: str, **extra) -> None:
+    torch.save({"q": whole.swarm.q.cpu(), "est": whole.loc.est.cpu(),
+                "age": whole.loc.age.cpu(), "v2f": whole.v2f.cpu(),
+                "mode": whole.flight.mode.cpu(), **extra}, path)
+
+
 def _parallel_rank(d: str, label: str) -> None:
     """One rank of the sharded cell (`phase_parallel`): the problem from
     ``d``/problem.pt on the card, a warm-up rollout, the measured rollout
-    (ms per tick, launches, collectives' bytes, peak memory), the same
-    rollout with every collective bracketed by synchronizations (the
-    collectives' ms); its report to ``d``/``label``_<rank>.json and, from
-    the first rank, the gathered final state to ``d``/``label``.pt."""
+    and its collectives' ms (`_measured_roll`); its report to
+    ``d``/``label``_<rank>.json and, from the first rank, the gathered
+    final state to ``d``/``label``.pt. A world of more than one rank then
+    rolls the batch (`_parallel_batch_rank`)."""
     from aclswarm_torch import sim
-    from aclswarm_torch.ops import _build
     from aclswarm_torch.parallel import collectives as coll
     from aclswarm_torch.parallel import mesh as meshlib
     from aclswarm_torch.parallel.rollout import sharded_rollout_fn
@@ -5647,46 +5696,109 @@ def _parallel_rank(d: str, label: str) -> None:
         return out
 
     roll()
-    _build.reset_launches()
-    coll.reset_stats()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    final, _ = roll()
-    ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(_build.LAUNCHES)
-    moved = coll.stats()
-    peak = torch.cuda.max_memory_allocated()
-    coll.reset_stats()
-    with coll.timing():
-        roll()
-    timed = coll.stats()
+    (final, metrics), report = _measured_roll(roll, mesh)
     whole = meshlib.gather_state(final, st_sh)
     # the one collective the cell's path does not take: all_reduce on a
     # card tensor (the checks', faults' and flight gate's flags)
-    top = coll.reduce_max(torch.tensor([mesh.rank], device=dev), mesh)
-    per = {k: {"calls": moved[k]["calls"] / PARALLEL_TICKS,
-               "bytes": moved[k]["bytes"] / PARALLEL_TICKS,
-               "ms": timed[k]["seconds"] * 1e3 / PARALLEL_TICKS}
-           for k in moved if moved[k]["calls"]}
-    report = {"rank": mesh.rank, "ranks": mesh.size, "rows": mesh.rows(N),
-              "ms_per_tick": ms / PARALLEL_TICKS, "launches": launches,
-              "collectives_per_tick": per,
-              "collective_ms_per_tick": sum(v["ms"] for v in per.values()),
-              "collective_bytes_per_tick": sum(v["bytes"]
-                                               for v in per.values()),
-              "peak_memory_bytes": peak, "all_reduce_max": int(top)}
+    report["all_reduce_max"] = int(coll.reduce_max(
+        torch.tensor([mesh.rank], device=dev), mesh))
     Path(f"{d}/{label}_{mesh.rank}.json").write_text(json.dumps(report))
     if mesh.index == 0:
-        torch.save({"q": whole.swarm.q.cpu(), "est": whole.loc.est.cpu(),
-                    "age": whole.loc.age.cpu(), "v2f": whole.v2f.cpu(),
-                    "mode": whole.flight.mode.cpu()}, f"{d}/{label}.pt")
+        _save_whole(whole, f"{d}/{label}.pt",
+                    distcmd=metrics.distcmd_norm.cpu())
+    if mesh.size > 1:
+        _parallel_batch_rank(d, f"{label}_batch", mesh, inp, cfg)
 
 
-def _parallel_world(label: str, d: Path, ref, ranks: int) -> dict:
+_BATCH_METRICS = ("q", "distcmd_norm", "v2f", "mode", "ca_active",
+                  "auctioned", "assign_valid", "reassigned")
+
+
+def _parallel_batch_rank(d: str, label: str, mesh, inp: dict, cfg) -> None:
+    """The sharded batch in a rank of the sharded cell: ``d``/batch.pt's
+    B trials through `batched_rollout_fn` on this rank's rows, after a
+    two-tick warm-up, measured as the one problem is (`_measured_roll`,
+    ms per batched tick); its report to ``d``/``label``_<rank>.json and,
+    from the first rank, the gathered final state and the metrics to
+    ``d``/``label``.pt."""
+    from aclswarm_torch.parallel import collectives as coll
+    from aclswarm_torch.parallel import mesh as meshlib
+    from aclswarm_torch.parallel.rollout import batched_rollout_fn
+
+    dev = torch.device("cuda")
+    batch = torch.load(f"{d}/batch.pt", weights_only=False)
+    form, state = (coll.map_tree(lambda x: x.to(dev), batch[k])
+                   for k in ("formation", "state"))
+    local, lform, st_sh, _ = meshlib.shard_problem(state, form, mesh)
+
+    def roll(ticks=PARALLEL_TICKS):
+        out = batched_rollout_fn(mesh, lform, inp["gains"], inp["sparams"],
+                                 cfg, ticks)(local)
+        torch.cuda.synchronize()
+        return out
+
+    roll(2)
+    (final, metrics), report = _measured_roll(roll, mesh)
+    whole = meshlib.gather_state(final, st_sh)
+    report["batch"] = int(state.v2f.shape[0])
+    Path(f"{d}/{label}_{mesh.rank}.json").write_text(json.dumps(report))
+    if mesh.index == 0:
+        _save_whole(whole, f"{d}/{label}.pt", metrics={
+            k: getattr(metrics, k).cpu() for k in _BATCH_METRICS})
+
+
+def _parallel_batch_world(label: str, d: Path, ref, ref_metrics,
+                          single: dict) -> dict:
+    """Hold the sharded batch of ``label``'s ranks against the unsharded
+    `sim.batched_rollout` (``ref``, ``ref_metrics``) bit for bit, each
+    rank's collective calls per tick against the one problem's
+    (``single``, `_parallel_world`), and its launches: K1 and K2 once for
+    the batch (the tick-0 auction), K3 once a tick."""
+    got = torch.load(d / f"{label}.pt", weights_only=False)
+    ranks = single["ranks"]
+    reports = [json.loads((d / f"{label}_{r}.json").read_text())
+               for r in range(ranks)]
+    final = {"q": ref.swarm.q, "est": ref.loc.est, "age": ref.loc.age,
+             "v2f": ref.v2f, "mode": ref.flight.mode}
+    equal = {k: torch.equal(got[k], v.cpu()) for k, v in final.items()}
+    equal.update({f"metrics.{k}": torch.equal(
+        got["metrics"][k], getattr(ref_metrics, k).cpu())
+        for k in _BATCH_METRICS})
+    calls = [{k: v["calls"] for k, v in r["collectives_per_tick"].items()}
+             for r in reports]
+    calls_single = [{k: v["calls"]
+                     for k, v in r["collectives_per_tick"].items()}
+                    for r in single["per_rank"]]
+    bytes_ratio = [r["collective_bytes_per_tick"]
+                   / s["collective_bytes_per_tick"]
+                   for r, s in zip(reports, single["per_rank"])]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {"sinkhorn_log": K1_WAVES[PARALLEL_BATCH] if sms == 132
+            else reports[0]["launches"].get("sinkhorn_log"),
+            "round_dominant": 1, "flood_merge": PARALLEL_TICKS}
+    info = {"phase": "parallel", "world": label, "ranks": ranks,
+            "batch": PARALLEL_BATCH, "n": N, "ticks": PARALLEL_TICKS,
+            "bit_identical": all(equal.values()), "equal": equal,
+            "calls_per_tick_equal_single": calls == calls_single,
+            "bytes_per_tick_over_single": bytes_ratio,
+            "launches_want": want, "per_rank": reports}
+    emit(info)
+    if not (info["bit_identical"] and info["calls_per_tick_equal_single"]
+            and all(r["launches"] == want for r in reports)):
+        raise AssertionError(f"parallel {label}: the sharded batch is off "
+                             f"the unsharded batch: {info}")
+    return info
+
+
+def _parallel_world(label: str, d: Path, ref, ref_distcmd,
+                    ranks: int) -> dict:
     """Read a world's rank reports and hold its final state against the
     unsharded rollout ``ref``: assignment, ages and flight modes equal,
     positions and estimates within `PARALLEL_DQ_BOUND`; each rank launched
-    K1 and K2 once (the tick-0 auction) and K3 every tick."""
+    K1 and K2 once (the tick-0 auction) and K3 every tick. Also counts the
+    (tick, vehicle) |distcmd| entries off the unsharded ``ref_distcmd``
+    (one trial's block computes its gain products at its own size, and
+    the card's batched product rounds an entry by its place: ROADMAP)."""
     got = torch.load(d / f"{label}.pt", weights_only=False)
     reports = [json.loads((d / f"{label}_{r}.json").read_text())
                for r in range(ranks)]
@@ -5700,7 +5812,11 @@ def _parallel_world(label: str, d: Path, ref, ranks: int) -> dict:
                                       ref.flight.mode.cpu()),
             "max_abs_dq": dq, "max_abs_dest": dest,
             "bit_identical": dq == 0.0 and dest == 0.0,
-            "dq_bound": PARALLEL_DQ_BOUND, "per_rank": reports}
+            "dq_bound": PARALLEL_DQ_BOUND,
+            "distcmd_entries": got["distcmd"].numel(),
+            "distcmd_differ": int((got["distcmd"]
+                                   != ref_distcmd.cpu()).sum()),
+            "per_rank": reports}
     emit(info)
     want = {"sinkhorn_log": 1, "round_dominant": 1,
             "flood_merge": PARALLEL_TICKS}
@@ -5713,59 +5829,101 @@ def _parallel_world(label: str, d: Path, ref, ranks: int) -> dict:
     return info
 
 
-def _k3_blocks(formation, state) -> dict:
+def _k3_blocks(formation, state, tag: str = "") -> dict:
     """K3 on receiver blocks at n=1000 (the sharded flood's launch) against
     the plain version, bit for bit: r = N/2 rows at offsets 0 and N/2 of
     the cell's comm graph, w = N/2 and N; the blocks together equal the
-    square launch, which equals the plain version. ms from CUDA events,
-    bound from the block's comm pairs (2 nnz w operations) and bytes."""
+    square launch, which equals the plain version. A batched ``formation``
+    and ``state`` (a leading trial axis) give the (B, r, n) launch of the
+    sharded batch, every trial's blocks in one launch. ms from CUDA
+    events, bound from the block's comm pairs (2 nnz w operations) and
+    bytes."""
     from aclswarm_torch import ops
     from aclswarm_torch.sim import localization as loclib
 
     dev = torch.device("cuda")
     comm = loclib.comm_mask(formation.adjmat, state.v2f).contiguous()
+    lead = tuple(comm.shape[:-2])
+    B = lead[0] if lead else 1
     rng = np.random.default_rng(7)
-    age = torch.tensor(rng.integers(0, 200, (N, N)), dtype=torch.int32,
-                       device=dev)
+    age = torch.tensor(rng.integers(0, 200, lead + (N, N)),
+                       dtype=torch.int32, device=dev)
     ids = torch.arange(N, dtype=torch.int32, device=dev)
     out, r = {}, PARALLEL_BLOCK
     for w in (N // 2, N):
-        packed = ((torch.clamp(age[:, :w], max=loclib.AGE_CAP) << 16)
+        packed = ((torch.clamp(age[..., :w], max=loclib.AGE_CAP) << 16)
                   | ids[:, None]).contiguous()
         full, launches = _counted("flood_merge",
                                   lambda: ops.flood_merge(packed, comm))
         blocks = []
         for lo in (0, N - r):
-            rows = comm[lo:lo + r].contiguous()
+            rows = comm[..., lo:lo + r, :].contiguous()
             got, k = _counted("flood_merge",
                               lambda: ops.flood_merge(packed, rows))
             ref = ops.flood_merge_plain(packed, rows, block=64)
             nnz = int(rows.sum())
-            b, by = bound_ms(2 * nnz * w, 4 * N * w + r * N + 4 * r * w)
-            out[f"w{w}_lo{lo}"] = dict(
-                r=r, w=w, lo=lo, launches=k, comm_nnz=nnz,
+            b, by = bound_ms(2 * nnz * w,
+                             B * (4 * N * w + r * N + 4 * r * w))
+            out[f"{tag}w{w}_lo{lo}"] = dict(
+                batch=B, r=r, w=w, lo=lo, launches=k, comm_nnz=nnz,
                 bit_identical=torch.equal(got, ref), bound_ms=b,
                 bound_by=by,
                 ms=time_ms(lambda: ops.flood_merge(packed, rows), 50),
                 plain_ms=time_ms(lambda: ops.flood_merge_plain(
                     packed, rows), 3))
             blocks.append(got)
-            if not (out[f"w{w}_lo{lo}"]["bit_identical"] and k == 1):
+            if not (out[f"{tag}w{w}_lo{lo}"]["bit_identical"] and k == 1):
                 raise AssertionError(f"K3 receiver block: "
-                                     f"{out[f'w{w}_lo{lo}']}")
-        square = dict(w=w, launches=launches,
-                      blocks_equal_square=torch.equal(torch.cat(blocks),
-                                                       full),
+                                     f"{out[f'{tag}w{w}_lo{lo}']}")
+        square = dict(batch=B, w=w, launches=launches,
+                      blocks_equal_square=torch.equal(
+                          torch.cat(blocks, dim=-2), full),
                       square_equals_plain=torch.equal(
                           full, ops.flood_merge_plain(packed, comm,
                                                       block=64)))
-        out[f"w{w}_square"] = square
+        out[f"{tag}w{w}_square"] = square
         if not (square["blocks_equal_square"]
                 and square["square_equals_plain"] and launches == 1):
             raise AssertionError(f"K3 square launch: {square}")
     for name, v in out.items():
         emit({"phase": "parallel", "k3_block": name, **v})
     return out
+
+
+def _product_place(dev) -> dict:
+    """Whether the card's products round an entry by its place in the
+    batch, the reason a batched block computes its gain products at
+    `compute`'s places (`control.distcntrl._rows_product`): the control
+    law's product (``"ijab,ijb->ija"``, `einsum` -> `bmm`) on (N, N, 3, 3)
+    random gains against the same entries rolled by 7 places and rolled
+    back, and against two halves of the rows; `vector_norm` over (2, N, 3)
+    against its two halves. Counts of outputs that differ; a finding, not
+    a check."""
+    def prod(g, q):
+        return torch.einsum("ijab,ijb->ija", g, q)
+
+    h = N // 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn(N, N, 3, 3, device=dev, generator=gen)
+    q = torch.randn(N, N, 3, device=dev, generator=gen)
+    u = torch.randn(2, N, 3, device=dev, generator=gen) * 3
+    whole = prod(g, q)
+    rolled = torch.roll(prod(torch.roll(g, 7, 0), torch.roll(q, 7, 0)),
+                        -7, 0)
+    halves = torch.cat([prod(g[:h].contiguous(), q[:h].contiguous()),
+                        prod(g[h:].contiguous(), q[h:].contiguous())])
+    norm = torch.linalg.vector_norm(u, dim=-1)
+    norm_halves = torch.cat([torch.linalg.vector_norm(
+        u[:, a:b].contiguous(), dim=-1) for a, b in ((0, h), (h, N))], 1)
+    info = {"phase": "parallel", "product_place": "einsum/bmm, vector_norm",
+            "outputs": whole.numel(),
+            "repeat_equal": torch.equal(whole, prod(g, q)),
+            "rolled_differ": int((whole != rolled).sum()),
+            "halves_differ": int((whole != halves).sum()),
+            "norm_outputs": norm.numel(),
+            "norm_halves_differ": int((norm != norm_halves).sum())}
+    emit(info)
+    return info
 
 
 def _launch_pair(n: int, ticks: int) -> tuple[list, float]:
@@ -5808,16 +5966,30 @@ def phase_parallel(seed: int) -> dict:
     and bytes per tick, peak memory and launches; (b) the launch program
     as users run it, two ranks on the card at n=1000, 20 ticks: equal
     digests, within `LAUNCH_DIGEST_TOL` of the one-rank run's; (c) K3 on
-    receiver blocks (`_k3_blocks`). The two-rank world's first rank's
-    launches are the path's (`launches`)."""
+    receiver blocks (`_k3_blocks`), of one problem and of a batch; (d)
+    where the card's products round (`_product_place`). The
+    two gloo ranks then roll a `PARALLEL_BATCH` batch (seeds S, S+1)
+    through `batched_rollout_fn`, held bit for bit against the unsharded
+    `sim.batched_rollout` that this process rolls meanwhile
+    (`_parallel_batch_world`). The two-rank world's first rank's
+    launches are the path's (`launches`, and `batch_launches` for the
+    batch)."""
     import torch.distributed as dist
 
     from aclswarm_torch import sim
+    from aclswarm_torch.core import types
     from aclswarm_torch.parallel import launch as plaunch
 
     dev = torch.device("cuda")
     formation, gains, sparams, state = problem(
         N, seed, dev, torch.float32, 2 * SUITE["init_radius"])
+    starts = [(formation, state)]
+    for s in range(seed + 1, seed + PARALLEL_BATCH):
+        form_s, _, _, state_s = problem(N, s, dev, torch.float32,
+                                        2 * SUITE["init_radius"])
+        starts.append((form_s, state_s))
+    bform = types.stack([f for f, _ in starts])
+    bstate = sim.stack_states([st for _, st in starts])
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
     try:
         from aclswarm_torch.parallel.collectives import map_tree
@@ -5826,6 +5998,9 @@ def phase_parallel(seed: int) -> dict:
                     "state": map_tree(lambda x: x.cpu(), state),
                     "gains": gains, "sparams": sparams},
                    scratch / "problem.pt")
+        torch.save({"formation": map_tree(lambda x: x.cpu(), bform),
+                    "state": map_tree(lambda x: x.cpu(), bstate)},
+                   scratch / "batch.pt")
         t0 = time.perf_counter()
         port = _free_port()
         kids = [subprocess.Popen(
@@ -5834,8 +6009,11 @@ def phase_parallel(seed: int) -> dict:
             text=True, cwd=Path(__file__).resolve().parent)
             for r in (1, 0)]
         try:
-            ref, _ = sim.rollout(state, formation, gains, sparams,
-                                 sim.SimConfig(**ENGINE), PARALLEL_TICKS)
+            ref, rm = sim.rollout(state, formation, gains, sparams,
+                                  sim.SimConfig(**ENGINE), PARALLEL_TICKS)
+            bref, bm = sim.batched_rollout(bstate, bform, gains, sparams,
+                                           sim.SimConfig(**ENGINE),
+                                           PARALLEL_TICKS)
             outs = [k.communicate(timeout=300) for k in kids]
         finally:
             for k in kids:
@@ -5848,7 +6026,8 @@ def phase_parallel(seed: int) -> dict:
                                      f"{k.returncode}):\n{o}\n"
                                      f"{e[-4000:]}")
         gloo_s = time.perf_counter() - t0
-        gloo = _parallel_world("gloo", scratch, ref, 2)
+        gloo = _parallel_world("gloo", scratch, ref, rm.distcmd_norm, 2)
+        batch = _parallel_batch_world("gloo_batch", scratch, bref, bm, gloo)
 
         t0 = time.perf_counter()
         dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
@@ -5858,11 +6037,13 @@ def phase_parallel(seed: int) -> dict:
         finally:
             dist.destroy_process_group()
         nccl_s = time.perf_counter() - t0
-        nccl = _parallel_world("nccl", scratch, ref, 1)
+        nccl = _parallel_world("nccl", scratch, ref, rm.distcmd_norm, 1)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
     blocks = _k3_blocks(formation, state)
+    blocks.update(_k3_blocks(bform, bstate, f"b{PARALLEL_BATCH}_"))
+    place = _product_place(dev)
 
     lines, launch_s = _launch_pair(N, PARALLEL_TICKS)
     one = plaunch.run(N, PARALLEL_TICKS, 0, device=dev)
@@ -5880,9 +6061,11 @@ def phase_parallel(seed: int) -> dict:
         raise AssertionError(f"parallel launch: {launch}")
     info = {"phase": "parallel", "gloo_world_seconds": gloo_s,
             "nccl_world_seconds": nccl_s,
-            "launches": gloo["per_rank"][0]["launches"]}
+            "launches": gloo["per_rank"][0]["launches"],
+            "batch_launches": batch["per_rank"][0]["launches"]}
     emit(info)
-    return dict(info, gloo=gloo, nccl=nccl, k3_blocks=blocks, launch=launch)
+    return dict(info, gloo=gloo, nccl=nccl, batch=batch, k3_blocks=blocks,
+                product_place=place, launch=launch)
 
 
 def main(argv=None) -> int:
@@ -6054,7 +6237,8 @@ def main(argv=None) -> int:
                    "serve_procs": spr["launches"][name],
                    "bridge": br["launches"][name],
                    "offline": off["launches"][name],
-                   "parallel": par["launches"][name]},
+                   "parallel": par["launches"][name],
+                   "parallel_batch": par["batch_launches"][name]},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,

@@ -17,6 +17,12 @@ the CPU.
 - A three-rank world at n=16: the mesh takes two ranks and the third
   holds no rows; every rank's metrics and the gathered final state equal
   the reference's.
+- The batch as one program, in both worlds: a B=3 flooded, faulted,
+  checked and counted batch (n=16, 24 ticks) through `batched_rollout_fn`
+  bit for bit against the unsharded `sim.batched_rollout` and within atol
+  1e-12 of the reference's; the same collective calls per tick as trial
+  0 alone through `sharded_rollout_fn` (B times the bytes); and the raise
+  on trials whose ticks disagree modulo ``assign_every``.
 
 Beyond the reference's cases, a faulted fleet (dead rows, lossy links,
 checked and counted) and CBAA with its carried warm tables.
@@ -157,6 +163,13 @@ UNEVEN = {
 }
 BATCH = dict(B=2, n=16, T=40, cfg=dict(assignment="auction",
                                        assign_every=20))
+# the batch as one program: flooded, faulted, checked and counted
+BATCH3 = dict(B=3, n=16, T=24, cfg=dict(
+    assignment="sinkhorn", localization="flooded", flood_phases=2,
+    assign_every=6, colavoid_neighbors=4, check_mode="on",
+    telemetry="on"))
+BATCH3_FAULTS = dict(dropout_frac=0.25, drop_tick=3, rejoin_tick=15,
+                     link_loss=0.3)
 SINKHORN_N = 64
 
 
@@ -183,6 +196,39 @@ def _batch_problem():
                          *[jsim.init_state(jnp.asarray(p[2]))
                            for p in probs])
     return form, probs[0][1], state
+
+
+def _batch3_problem():
+    """B=3 rings, each with its own start and fault schedule."""
+    probs = [_ring(BATCH3["n"], 20 + b) for b in range(BATCH3["B"])]
+    form = jax.tree.map(lambda *xs: jnp.stack(xs), *[p[0] for p in probs])
+    state = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        jsim.init_state(jnp.asarray(p[2]), localization=True, checks=True,
+                        telemetry=True, faults=jfaults.sample_schedule(
+                            30 + b, BATCH3["n"], dtype=jnp.float64,
+                            **BATCH3_FAULTS))
+        for b, p in enumerate(probs)])
+    return form, probs[0][1], state
+
+
+def _batch3_inputs() -> dict:
+    """The batch, trial 0 alone (the B=1 collective calls) and the batch
+    with trial 1 one tick ahead (the phase raise)."""
+    form, sp, state = _batch3_problem()
+    tform, tsp, tstate = _port(form, sp, state)
+    out = {"batch3": dict(kind="batched_any", ticks=BATCH3["T"],
+                          cfg=BATCH3["cfg"], form=tform, sp=tsp,
+                          state=tstate),
+           "batch3_trial0": dict(kind="rollout", ticks=BATCH3["T"],
+                                 cfg=BATCH3["cfg"],
+                                 form=ttypes.row(tform, 0), sp=tsp,
+                                 state=sim.trial(tstate, 0))}
+    late = dataclasses.replace(tstate, tick=tstate.tick + np.asarray(
+        [0, 1, 0]))
+    out["batch3_phase"] = dict(kind="batched_bad", ticks=2,
+                               cfg=BATCH3["cfg"], form=tform, sp=tsp,
+                               state=late)
+    return out
 
 
 def _sinkhorn_problem():
@@ -218,6 +264,7 @@ def _all_inputs() -> dict:
     q, p = _sinkhorn_problem()
     out["sinkhorn"] = dict(kind="sinkhorn", q=torch.as_tensor(q),
                            p=torch.as_tensor(p))
+    out.update(_batch3_inputs())
     return out
 
 
@@ -263,10 +310,22 @@ for name, c in torch.load(f"{d}/inputs.pt", weights_only=False).items():
     else:
         local, form, st_sh, _ = M.shard_problem(c["state"], c["form"], mesh)
         fn = (R.sharded_step_fn(mesh, form, *args) if c["kind"] == "step"
-              else R.sharded_rollout_fn(mesh, form, *args, c["ticks"]))
+              else R.sharded_rollout_fn(mesh, form, *args, c["ticks"])
+              if c["kind"] == "rollout"
+              else R.batched_rollout_fn(mesh, form, *args, c["ticks"]))
+    if c["kind"] == "batched_bad":
+        try:
+            fn(local)
+        except ValueError as e:
+            out[name] = {"raised": str(e)}
+        else:
+            out[name] = {"raised": None}
+        continue
+    coll.reset_stats()
     final, metrics = fn(local)
+    moved = coll.stats()
     out[name] = {"final": M.gather_state(final, st_sh), "metrics": metrics,
-                 "mesh": mesh.size, "rows": mesh.rows(n)}
+                 "mesh": mesh.size, "rows": mesh.rows(n), "stats": moved}
 torch.save(out, f"{d}/out{rank}.pt")
 dist.destroy_process_group()
 """
@@ -302,7 +361,8 @@ def two_ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def three_ranks(tmp_path_factory):
-    return _world(tmp_path_factory.mktemp("world3"), 3, _inputs(UNEVEN))
+    return _world(tmp_path_factory.mktemp("world3"), 3,
+                  dict(_inputs(UNEVEN), **_batch3_inputs()))
 
 
 # --------------------------------------------------------------- reference
@@ -534,3 +594,99 @@ def test_uneven_world_third_rank_holds_nothing(three_ranks, name):
         _check_final(r[name]["final"], jfinal,
                      est=UNEVEN[name][2].get("localization", False))
         _check_metrics(r[name]["metrics"], jm, step=name == "step")
+
+
+# --------------------------------------------------------------- the batch
+
+WORLDS = ["two_ranks", "three_ranks"]
+
+
+@pytest.fixture(scope="module")
+def batch3_reference():
+    """The unsharded port's and the reference's batched rollouts."""
+    form, sp, state = _batch3_problem()
+    tform, tsp, tstate = _port(form, sp, state)
+    port = sim.batched_rollout(tstate, tform, ttypes.ControlGains(), tsp,
+                               sim.SimConfig(**BATCH3["cfg"]), BATCH3["T"])
+    ref = jsim.batched_rollout(jax.tree.map(jnp.copy, state), form,
+                               JControlGains(), sp,
+                               jsim.SimConfig(**BATCH3["cfg"]), BATCH3["T"])
+    return port, ref
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_batch_equals_unsharded_batch(world, batch3_reference,
+                                              request):
+    results = request.getfixturevalue(world)
+    (final, m), _ = batch3_reference
+    for r in results:
+        got, gm = r["batch3"]["final"], r["batch3"]["metrics"]
+        for a, b in ((got.swarm.q, final.swarm.q), (got.v2f, final.v2f),
+                     (got.loc.est, final.loc.est),
+                     (got.loc.age, final.loc.age),
+                     (got.flight.mode, final.flight.mode),
+                     (got.inv.code, final.inv.code),
+                     (got.tel.ca_ticks, final.tel.ca_ticks)):
+            assert torch.equal(a, b)
+        for k in ("q", "distcmd_norm", "v2f", "mode", "ca_active",
+                  "auctioned", "assign_valid", "reassigned", "alive",
+                  "fault_event", "inv_code"):
+            assert torch.equal(getattr(gm, k), getattr(m, k)), k
+        assert np.array_equal(got.tick, final.tick)
+    assert not m.alive.all() and m.auctioned.any()
+
+
+def test_sharded_batch_matches_reference(two_ranks, batch3_reference):
+    _, (jfinal, jm) = batch3_reference
+    res = two_ranks[0]["batch3"]
+    assert res["metrics"].q.shape == (BATCH3["T"], BATCH3["B"],
+                                      BATCH3["n"], 3)
+    _check_final(res["final"], jfinal, est=True)
+    _check_metrics(res["metrics"], jm)
+    np.testing.assert_array_equal(res["metrics"].alive.numpy(),
+                                  np.asarray(jm.alive))
+    np.testing.assert_array_equal(res["metrics"].inv_code.numpy(),
+                                  np.asarray(jm.inv_code))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_batch_calls_do_not_depend_on_batch(world, request):
+    """B=3 makes trial 0's collective calls per tick and moves B times
+    its bytes (the spill's shape header excepted)."""
+    for r in request.getfixturevalue(world):
+        one, three = r["batch3_trial0"]["stats"], r["batch3"]["stats"]
+        assert {k: v["calls"] for k, v in three.items()} \
+            == {k: v["calls"] for k, v in one.items()}
+        for k in ("gather", "reduce", "broadcast"):
+            assert three[k]["bytes"] == BATCH3["B"] * one[k]["bytes"], k
+        kinds = ("spill",) if r["batch3"]["rows"] == (0, 0) \
+            else ("gather", "reduce", "broadcast")
+        assert all(one[k]["calls"] > 0 for k in kinds), one
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_batch_rejects_disagreeing_phases(world, request):
+    for r in request.getfixturevalue(world):
+        assert "assign_every=6" in r["batch3_phase"]["raised"]
+
+
+def test_disagreeing_phases_raise_before_any_collective():
+    form, sp, state = _port(*_batch3_problem())
+    mesh = tmesh.make_mesh(device="cpu")
+    cfg = sim.SimConfig(**BATCH3["cfg"])
+    fn = trollout.batched_rollout_fn(mesh, form, ttypes.ControlGains(), sp,
+                                     cfg, 1)
+    for ticks, what in (([0, 6, 12], None), ([0, 2, 4], "assign_every=6"),
+                        ([0, 6, 7], "assign_every=6")):
+        st = dataclasses.replace(state, tick=np.asarray(ticks, np.int64))
+        if what is None:
+            fn(st)
+        else:
+            with pytest.raises(ValueError, match=what):
+                fn(st)
+    truth = sim.SimConfig(assignment="sinkhorn", assign_every=6,
+                          flood_every=4)
+    trollout._check_phases(np.asarray([0, 6]), truth)
+    with pytest.raises(ValueError, match="flood_every=4"):
+        trollout._check_phases(np.asarray([0, 6]), dataclasses.replace(
+            truth, localization="flooded"))
