@@ -89,10 +89,11 @@ RULES = {
 }
 
 # parameter names presumed static even without annotation — the
-# codebase's conventional config/static spellings (JC002 allowlist)
+# codebase's conventional config/static spellings (JC002 allowlist); the
+# port adds its torch.device and its `parallel.mesh.AgentMesh`
 STATIC_PARAM_NAMES = {
     "self", "cls", "cfg", "config", "params", "dtype", "shape", "axis",
-    "n", "d", "mode", "impl", "static", "planar", "window", "device",
+    "n", "d", "mode", "impl", "static", "planar", "window", "device", "mesh",
 }
 
 # annotations that mark a parameter as a Python-static value

@@ -159,7 +159,9 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
     ``stage_shardings`` = ``(row_sharding(mesh), replicated(mesh))``
     (`parallel.mesh`) stages the solve over the mesh: ``q`` and
     ``p_aligned`` are whole on every rank, each rank prices and iterates
-    its own rows, and every rank returns the whole result."""
+    its own rows, and every rank returns the whole result (a rank outside
+    the mesh, in an uneven world, receives it from the mesh's first rank:
+    `collectives.spill`)."""
     if (pin is None) != (forbid is None):
         raise ValueError("sinkhorn_assign: pass pin and forbid together "
                          "or not at all")
@@ -174,6 +176,8 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
             raise ValueError("stage_shardings solves one problem, not a "
                              "batch of trials")
         mesh = _staged_mesh(stage_shardings)
+        if mesh.index is None:
+            return _spilled_result(mesh, q)
         cost_raw = _gather_rows(lambda lo, hi: geometry.cdist_fast(
             q[lo:hi], p_aligned), mesh, q.shape[-2])
     # each trial's mean alone, as its serial solve reduces it
@@ -200,7 +204,24 @@ def sinkhorn_assign(q: torch.Tensor, p_aligned: torch.Tensor,
         v2f = two_opt_refine(cost_raw, v2f, sweeps=refine_sweeps)
     row_mass = torch.exp(torch.logsumexp(plan_log, dim=-1))
     err = torch.sum(torch.abs(row_mass - 1.0 / cost.shape[-1]), dim=-1)
-    return SinkhornResult(row_to_col=v2f, plan_log=plan_log, err=err)
+    out = SinkhornResult(row_to_col=v2f, plan_log=plan_log, err=err)
+    if mesh is None:
+        return out
+    from aclswarm_torch.parallel import collectives as coll
+
+    return coll.spill(out, mesh)
+
+
+def _spilled_result(mesh, q: torch.Tensor) -> SinkhornResult:
+    """A staged solve's result on a rank outside the mesh: the mesh's
+    first rank's, received leaf by leaf (`collectives.spill`)."""
+    from aclswarm_torch.parallel import collectives as coll
+
+    n = q.shape[-2]
+    return coll.spill(SinkhornResult(
+        row_to_col=torch.empty((n,), dtype=torch.int32, device=mesh.device),
+        plan_log=torch.empty((n, n), dtype=q.dtype, device=mesh.device),
+        err=torch.empty((), dtype=q.dtype, device=mesh.device)), mesh)
 
 
 def _staged_mesh(stage_shardings):

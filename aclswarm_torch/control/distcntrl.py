@@ -5,10 +5,13 @@ As in the reference: the damping term scales with the degree of the
 vehicle's formation point (``deg * kd * -vel``), the scale term has
 per-axis deadbands, and everything is computed in formation space.
 
-`compute` also takes a batch of trials (a leading ``(B,)`` axis on the
-state, the formation and ``v2f``). The trial axis is folded into the agent
-axis for the gain contraction, so each vehicle's 3x3 block products are
-the very operation of a single trial.
+The 3x3 gain products (`_gain_product`) are elementwise: each output is
+its own three products and two adds in one fixed order, with no
+reduction across entries, so an entry rounds the same at every place in
+the batch. The sum over a row's neighbours (`_row_sum`) is a fixed
+pairwise fold of elementwise adds for the same reason. `compute` also
+takes a batch of trials (a leading ``(B,)`` axis on the state, the
+formation and ``v2f``), and a trial's rows round as they do alone.
 
 `compute_rows` is one rank's block of vehicles under the agent-axis
 sharding (`aclswarm_torch.parallel`). It computes each of its vehicles'
@@ -56,10 +59,8 @@ def compute(state: SwarmState, formation: Formation, v2f: torch.Tensor,
         qij = permutil.take_pairs(rel, permutil.invert(v2f).long())
 
     F = scale_control(qij, formation.dstar_xy, formation.dstar_z, gains)
-    g = formation.gains
-    lin = torch.einsum("ijab,ijb->ija", g.reshape(-1, *g.shape[-3:]),
-                       qij.reshape(-1, *qij.shape[-2:])).reshape(qij.shape)
-    up = torch.sum(adj[..., None] * (lin + F * qij), dim=-2)
+    lin = _gain_product(formation.gains, qij)
+    up = _row_sum(adj[..., None] * (lin + F * qij))
     deg = torch.sum(adj, dim=-1)
     up_veh = permutil.formation_to_veh_order(up, v2f)
     deg_veh = permutil.formation_to_veh_order(deg, v2f)
@@ -77,11 +78,10 @@ def compute_rows(vel: torch.Tensor, rows_form: Formation,
     order (``points`` unused); ``vel`` their velocities; ``v2f`` the whole
     assignment. The views come from the whole positions ``q`` (truth) or
     from the vehicles' own relative views ``rel`` (([B,] r, n, 3),
-    flooded). Each row contracts in formation order as `compute` does, so
-    the rows equal `compute`'s. A leading trial axis on every input takes
-    the trials' rows as more rows, as `compute` does; its gain products
-    run where `compute`'s would (`_rows_product`), so a batch's rows equal
-    `compute`'s bit for bit on the card too."""
+    flooded). Each row contracts in formation order as `compute` does,
+    with the same elementwise gain product, so the rows equal `compute`'s
+    bit for bit. A leading trial axis on every input takes the trials'
+    rows as more rows, as `compute` does."""
     r = vel.shape[-2]
     f2v = permutil.invert(v2f).long()
     lead = f2v.ndim - 1
@@ -89,33 +89,41 @@ def compute_rows(vel: torch.Tensor, rows_form: Formation,
         # vehicle v sits at its own point: q_form[v2f[v]] is q[v]
         qij = permutil.take(q, f2v, lead)[..., None, :, :] \
             - q[..., lo:lo + r, None, :]
-    elif lead == 0:
-        qij = rel[:, f2v, :]
     else:
         qij = permutil.take(rel, f2v, lead + 1)
     adj = (rows_form.adjmat > 0).to(vel.dtype)
     F = scale_control(qij, rows_form.dstar_xy, rows_form.dstar_z, gains)
-    g = rows_form.gains
-    lin = torch.einsum("ijab,ijb->ija", g, qij) if lead == 0 \
-        else _rows_product(g, qij, v2f[..., lo:lo + r].long())
-    up = torch.sum(adj[..., None] * (lin + F * qij), dim=-2)
+    lin = _gain_product(rows_form.gains, qij)
+    up = _row_sum(adj[..., None] * (lin + F * qij))
     deg = torch.sum(adj, dim=-1)
     return gains.kp * up - gains.kd * deg[..., None] * vel
 
 
-def _rows_product(g: torch.Tensor, qij: torch.Tensor,
-                  points: torch.Tensor) -> torch.Tensor:
-    """The gain products of a batch's block of rows, (B, r, n, 3), each row
-    at its formation point's place (``points``, (B, r)) in one batched
-    product the size of `compute`'s, the other rows zero. The card's
-    batched product rounds an entry by its place in the batch, so a
-    product of the block alone would leave `compute`'s bits."""
-    B, r, n = qij.shape[:3]
-    b = torch.arange(B, dtype=torch.int64, device=qij.device)[:, None]
-    g_all = g.new_zeros((B, n, n, 3, 3))
-    g_all[b, points] = g
-    q_all = qij.new_zeros((B, n, n, 3))
-    q_all[b, points] = qij
-    lin = torch.einsum("ijab,ijb->ija", g_all.reshape(-1, n, 3, 3),
-                       q_all.reshape(-1, n, 3))
-    return lin.reshape(B, n, n, 3)[b, points]
+def _gain_product(g: torch.Tensor, qij: torch.Tensor) -> torch.Tensor:
+    """``lin[..., a] = sum_b g[..., a, b] * qij[..., b]`` for (..., 3, 3)
+    gains and (..., 3) views, as three products and two adds over the
+    gain's columns, left to right. Eager elementwise operations round
+    each product and each add (no contraction into a fused multiply-add),
+    so an entry's bits do not depend on its place or on the shape around
+    it: a rank's block of rows and a batch equal the whole product. A
+    batched matrix product (`einsum` -> `bmm` on the card) rounds an entry
+    by its place in the batch."""
+    return (g[..., 0] * qij[..., 0:1] + g[..., 1] * qij[..., 1:2]
+            + g[..., 2] * qij[..., 2:3])
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(dim=-2)`` as a pairwise fold of elementwise adds (the first
+    half plus the second, an odd row left over added into the first),
+    so each output's order of additions depends on the length of the
+    summed axis alone. The card's reduction picks another order when it
+    has few outputs (a block of a few rows splits each sum over more
+    threads), so a rank's rows would leave the whole swarm's bits."""
+    while x.shape[-2] > 1:
+        m = x.shape[-2]
+        h = m // 2
+        y = x[..., :h, :] + x[..., h:2 * h, :]
+        if m % 2:
+            y[..., :1, :] += x[..., 2 * h:, :]
+        x = y
+    return x[..., 0, :]

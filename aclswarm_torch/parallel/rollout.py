@@ -24,8 +24,10 @@ counts its whole output):
     formation point move to it instead, once per change of the local
     assignment (k broadcasts of each rank's formation block, n^2 x 11
     floats: 44 MB per re-assignment; the whole adjacency, n^2 floats =
-    4 MB, is gathered once, at the first tick). One trial's gain
-    products run on the rank's rows alone; a batch's do not (below);
+    4 MB, is gathered once, at the first tick). The 3x3 gain products
+    run on the rank's rows alone, of one trial or of a batch: they are
+    elementwise (`control.distcntrl._gain_product`), so a row's bits do
+    not depend on the rows beside it;
   - collision avoidance (dense and k-nearest), the rank's rows against
     the whole positions;
 - per row, no communication: observe-self, the saturation, the mux, the
@@ -61,19 +63,9 @@ and K1 and K2 solve the whole batch's assignment once per auction tick
 (K1's residency waves, K2's split grid). The trials share the decimation
 phase, the tick of the rollout (`sim.batched_rollout`'s ``shared_tick``
 from a first tick of 0), and their ticks must agree with each other
-modulo ``assign_every`` and, flooded, ``flood_every``.
-
-One stage of the batch is not partitioned: the control law's 3x3 gain
-products. The card's batched product rounds an entry by its place in the
-batch, so each rank places its rows at their formation points in a
-product of the unsharded size (`control.distcntrl._rows_product`) and the
-batch stays bit for bit. Every rank so zero-fills a (B, n, n, 3, 3) gain
-tensor and a (B, n, n, 3) view tensor and runs the product over all
-B x n rows, whatever k: 9 B n^2 multiply-adds over 15 B n^2 floats
-(n=1000 in float32: 9 B million and 60 B MB a tick; a rank's peak was
-0.58 GB at B = 2 against 0.20 GB for one trial on the H100, PERF.md). A
-product that rounds the same at every place would let each rank compute
-its own rows (ROADMAP).
+modulo ``assign_every`` and, flooded, ``flood_every``. Every stage
+listed as partitioned stays partitioned in a batch: a rank's gain
+products are its own B x r x n rows.
 """
 from __future__ import annotations
 

@@ -161,8 +161,8 @@ and prints no result line:
              `reassigns` and `auctions` counters;
 24. serve  — a journaled one-worker `SwarmService` (`max_batch=4`, staged
              and pipelined, float32) serves eight n=1000 Sinkhorn
-             rollouts of two tenants (`simform1000`'s points, 80 ticks
-             in chunks of 20, two faulted), one n=1000 `assign` and one
+             rollouts of two tenants (`simform1000`'s points, 40 ticks
+             in chunks of 10, two faulted), one n=1000 `assign` and one
              `simform1000` `gains` design: all complete; the rollouts
              equal a `staging=False` service's bit for bit; every K1
              and K2 call of the served run (the 4-row rollout rounds,
@@ -262,27 +262,51 @@ and prints no result line:
 34. parallel — the agent-axis sharding (`aclswarm_torch.parallel`):
              `simform1000_flooded` at n=1000, 20 ticks from tick 0, as a
              two-rank gloo world on the one card (two child processes)
-             and a one-rank NCCL world, each against the unsharded
-             `sim.rollout` on the card (assignment, ages and flight modes
-             equal, |dq| and |dest| within 1e-4 m), with each rank's ms
-             per tick, collectives' ms and bytes per tick, peak memory
-             and K1/K2/K3 launches; the launch program as two processes
-             on the card (`--backend gloo --n 1000 --ticks 20`), equal
-             digests within 1e-3 of the one-rank run's; K3 on receiver
-             blocks (r=500 at offsets 0 and 500, w=500 and 1000, one
-             problem and a B=2 batch) against its plain version, bit for
-             bit, with its bound. In the same two gloo ranks, after the
-             one problem: a B=2 batch (seeds S and S+1) through
-             `batched_rollout_fn`, both axes in one program, against the
-             unsharded `sim.batched_rollout` on the card, final state and
-             metrics bit for bit, with ms per batched tick, collective
-             calls (those of the one problem) and bytes per tick, K1/K2/K3
-             launches (K3 20) and peak memory;
-35. the `kernels` line, then the result line. Each kernel row carries the
+             and a one-rank NCCL world, each bit for bit with the
+             unsharded `sim.rollout` on the card (positions, estimates,
+             ages, flight modes, assignment and every |distcmd| entry),
+             with each rank's ms per tick, collectives' ms and bytes per
+             tick, peak memory and K1/K2/K3 launches; in the same two gloo
+             ranks a B=2 batch (seeds S and S+1) through
+             `batched_rollout_fn`, both axes in one program, bit for bit
+             with `sim.batched_rollout`, metrics too, with ms per batched
+             tick, collective calls (those of the one problem), bytes per
+             tick, launches (K3 20) and peak memory; the uneven world:
+             three gloo ranks, a mesh of two, the third fed by
+             `collectives.spill`, 5 ticks, every rank bit for bit with the
+             unsharded rollout, spill's calls and bytes a tick, and the
+             staged Sinkhorn there (one plan and `v2f` on the three ranks,
+             within 5e-5 of K1 + K2's); the launch program as two
+             processes on the card (`--backend gloo --n 1000 --ticks
+             20`), equal digests, equal to the one-rank run's; K3 on
+             receiver blocks (r=500 at offsets 0 and 500, w=500 and 1000,
+             one problem and a B=2 batch) against its plain version, bit
+             for bit, with its bound; and where the card rounds by place:
+             the einsum the control law used (a finding) against its
+             elementwise gain product and row fold (0 outputs off, or the
+             phase fails);
+35. scale  — the reference's scale rows (`benchmarks/scale.py`
+             `bench_all`) on its own problem (seed 0) at n=2000, float32:
+             the control tick, streaming re-assignment (Sinkhorn every
+             tick; also at n=1000), the bulk, every-tick and phased
+             flooded ticks (`flood_block=64`), each through `sim.rollout`
+             with its ms a tick, launches, peak memory and a profiled
+             window (device busy ms and launches a tick), every state
+             finite, `v2f` a permutation every streaming tick, ages within
+             the cap; K1 (the multi-launch design, 2 n_iters + 2 launches
+             a solve), K2 and K3 ((2000, 2000) and (2000, 1000)) on the
+             rows' own inputs against their plain versions (K1 atol 5e-5,
+             masses 1e-4; K2, K3 bit for bit) with ms and bounds; five
+             sanitized ticks of two rows, each reading exactly what the
+             host finds (the problem starts vehicles outside the room);
+             `sinkhorn_assign(n_iters=50)` at n=2000, ms an instance,
+             launches and the suboptimality against the exact host LAP;
+36. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
-   batch_kernels figures); K2's row also its rounds and the dense bound
-   that earlier runs reported.
+   batch_kernels figures) and `n2000` (the scale phase's checks of the
+   kernel, with ms, plain ms and bounds); K2's row also its rounds and the
+   dense bound that earlier runs reported.
 
 Each phase is followed by a line with its seconds. The `gains` phase's
 cuSOLVER-basis finding and the `cbaa` phase's cold card-against-CPU
@@ -318,6 +342,9 @@ N = 1000
 TICKS = 240             # two auctions (ticks 0 and 120) at assign_every=120
 SINKHORN_ITERS = 200    # `sinkhorn_assign`'s default, as the engine calls it
 K1_LAUNCHES_PER_SOLVE = 1   # the persistent design at n=1000
+# K1's persistent design up to this n on an H100 (logK's stripes in shared
+# memory); past it 2 * n_iters + 2 launches a solve
+K1_STRIPE_LIMIT = 1849
 K2_LAUNCHES_PER_CALL = 1    # one cooperative launch per rounding
 # K2's designs as the profiler names their kernels: the current one and
 # the first port's single-block kernel
@@ -3874,16 +3901,18 @@ def phase_churn(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # the serving layer (`aclswarm_torch.serve`) at n=1000
 
-# 80 ticks (four chunks): the depth the card budget leaves (PERF.md §4,
-# cell 10); every check of the serve phases holds at it
-SERVE_ROLLOUT = dict(n=N, ticks=80, chunk_ticks=20, assign_every=20,
+# 40 ticks in four chunks of 10, an auction at each chunk's start: the
+# depth the card budget leaves (PERF.md §4, cell 10; 80 ticks in chunks of
+# 20 before, the same chunks, rounds and auctions); every check of the
+# serve phases holds at it
+SERVE_ROLLOUT = dict(n=N, ticks=40, chunk_ticks=10, assign_every=10,
                      assignment="sinkhorn")
 # the rollouts fly `simform1000`'s points (shipped in the request): the
 # serve default formation is a radius-3 circle whose 1000 points lie 1.9
 # cm apart, a generator of near-tied assignments (PERF.md §6)
-# the drop and the rejoin inside the horizon, an auction (every 20 ticks)
+# the drop and the rejoin inside the horizon, an auction (every 10 ticks)
 # after each
-SERVE_FAULTS = dict(dropout_frac=0.1, drop_tick=20, rejoin_tick=60)
+SERVE_FAULTS = dict(dropout_frac=0.1, drop_tick=10, rejoin_tick=30)
 SERVE_FAULTED = (1, 6)         # which of the eight rollouts carry faults
 SERVE_STAGES = ("pack", "stack", "dispatch", "device_sync", "unpack",
                 "resolve")
@@ -5601,22 +5630,58 @@ def phase_audit(seed: int) -> dict:
 
 
 PARALLEL_TICKS = 20        # from tick 0, an auction tick
-PARALLEL_DQ_BOUND = 1e-4   # m: sharded against unsharded over the ticks
-LAUNCH_DIGEST_TOL = 1e-3   # m: the launch's 2-rank digest against 1-rank
 PARALLEL_BLOCK = N // 2    # K3's receiver block: one of two ranks' rows
 PARALLEL_BATCH = 2         # the sharded batch: seeds S and S+1
+UNEVEN_RANKS = 3           # the uneven world: a mesh of two, one rank out
+UNEVEN_TICKS = 5           # from tick 0, an auction tick
+# blocks of rows whose control-law sums `_product_place` holds against the
+# whole swarm's: a row, a few rows, and the blocks of 8, 4 and 2 ranks
+PLACE_ROWS = (1, 7, N // 8, N // 4, N // 2)
 
-# one rank of the two-rank gloo world on the card
+# one rank of a gloo world on the card: two ranks run `_parallel_rank`,
+# three `_uneven_rank`
 _PARALLEL_RANK = """
 import sys
 import torch.distributed as dist
-d, rank, port = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+d, rank, port, world = sys.argv[1], int(sys.argv[2]), sys.argv[3], \
+    int(sys.argv[4])
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=2)
+                        rank=rank, world_size=world)
 import chip_smoke
-chip_smoke._parallel_rank(d, "gloo")
+if world == 2:
+    chip_smoke._parallel_rank(d, "gloo")
+    chip_smoke._parallel_batch_rank(d, "gloo_batch")
+else:
+    chip_smoke._uneven_rank(d, "uneven")
 dist.destroy_process_group()
 """
+
+
+def _start_world(d: Path, world: int) -> list:
+    """The ranks of a ``world``-rank gloo world on the card, as child
+    processes reading ``d`` (`_PARALLEL_RANK`), the last rank first."""
+    port = _free_port()
+    return [subprocess.Popen(
+        [sys.executable, "-c", _PARALLEL_RANK, str(d), str(r), str(port),
+         str(world)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=Path(__file__).resolve().parent)
+        for r in reversed(range(world))]
+
+
+def _join_world(label: str, kids: list) -> None:
+    """Wait for a world's ranks; raise with the output of one that
+    failed."""
+    try:
+        outs = [k.communicate(timeout=300) for k in kids]
+    finally:
+        for k in kids:
+            if k.poll() is None:
+                k.kill()
+                k.wait()
+    for k, (o, e) in zip(kids, outs):
+        if k.returncode != 0:
+            raise AssertionError(f"parallel: a {label} rank failed (exit "
+                                 f"{k.returncode}):\n{o}\n{e[-4000:]}")
 
 
 def _free_port() -> int:
@@ -5674,8 +5739,7 @@ def _parallel_rank(d: str, label: str) -> None:
     ``d``/problem.pt on the card, a warm-up rollout, the measured rollout
     and its collectives' ms (`_measured_roll`); its report to
     ``d``/``label``_<rank>.json and, from the first rank, the gathered
-    final state to ``d``/``label``.pt. A world of more than one rank then
-    rolls the batch (`_parallel_batch_rank`)."""
+    final state to ``d``/``label``.pt."""
     from aclswarm_torch import sim
     from aclswarm_torch.parallel import collectives as coll
     from aclswarm_torch.parallel import mesh as meshlib
@@ -5706,26 +5770,29 @@ def _parallel_rank(d: str, label: str) -> None:
     if mesh.index == 0:
         _save_whole(whole, f"{d}/{label}.pt",
                     distcmd=metrics.distcmd_norm.cpu())
-    if mesh.size > 1:
-        _parallel_batch_rank(d, f"{label}_batch", mesh, inp, cfg)
 
 
 _BATCH_METRICS = ("q", "distcmd_norm", "v2f", "mode", "ca_active",
                   "auctioned", "assign_valid", "reassigned")
 
 
-def _parallel_batch_rank(d: str, label: str, mesh, inp: dict, cfg) -> None:
-    """The sharded batch in a rank of the sharded cell: ``d``/batch.pt's
-    B trials through `batched_rollout_fn` on this rank's rows, after a
-    two-tick warm-up, measured as the one problem is (`_measured_roll`,
-    ms per batched tick); its report to ``d``/``label``_<rank>.json and,
-    from the first rank, the gathered final state and the metrics to
-    ``d``/``label``.pt."""
+def _parallel_batch_rank(d: str, label: str) -> None:
+    """The sharded batch in a rank of the two-rank world, after the one
+    problem's tensors are freed (its peak memory is the batch's alone):
+    ``d``/batch.pt's B trials through `batched_rollout_fn` on this rank's
+    rows, after a two-tick warm-up, measured as the one problem is
+    (`_measured_roll`, ms per batched tick); its report to
+    ``d``/``label``_<rank>.json and, from the first rank, the gathered
+    final state and the metrics to ``d``/``label``.pt."""
+    from aclswarm_torch import sim
     from aclswarm_torch.parallel import collectives as coll
     from aclswarm_torch.parallel import mesh as meshlib
     from aclswarm_torch.parallel.rollout import batched_rollout_fn
 
     dev = torch.device("cuda")
+    inp = torch.load(f"{d}/problem.pt", weights_only=False)
+    mesh = meshlib.make_mesh(n_agents=N, device=dev)
+    cfg = sim.SimConfig(**ENGINE)
     batch = torch.load(f"{d}/batch.pt", weights_only=False)
     form, state = (coll.map_tree(lambda x: x.to(dev), batch[k])
                    for k in ("formation", "state"))
@@ -5745,6 +5812,96 @@ def _parallel_batch_rank(d: str, label: str, mesh, inp: dict, cfg) -> None:
     if mesh.index == 0:
         _save_whole(whole, f"{d}/{label}.pt", metrics={
             k: getattr(metrics, k).cpu() for k in _BATCH_METRICS})
+
+
+def _uneven_rank(d: str, label: str) -> None:
+    """One rank of the uneven world (`phase_parallel`): the mesh is the
+    first two of three ranks (`mesh_size`: the largest count that divides
+    n=1000), so the third holds no rows and takes the replicated outputs
+    by `collectives.spill`. `UNEVEN_TICKS` of ``d``/problem.pt's rollout
+    with the launch and collective counters read around it, then the
+    staged Sinkhorn of its start (the iterations row-sharded over the
+    mesh, the rounding replicated); the gathered final state, |distcmd|
+    and the staged result to ``d``/``label``_<rank>.pt."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.assignment import sinkhorn
+    from aclswarm_torch.ops import _build
+    from aclswarm_torch.parallel import collectives as coll
+    from aclswarm_torch.parallel import mesh as meshlib
+    from aclswarm_torch.parallel.rollout import sharded_rollout_fn
+
+    dev = torch.device("cuda")
+    inp = torch.load(f"{d}/problem.pt", weights_only=False)
+    mesh = meshlib.make_mesh(n_agents=N, device=dev)
+    form, state = (coll.map_tree(lambda x: x.to(dev), inp[k])
+                   for k in ("formation", "state"))
+    local, lform, st_sh, _ = meshlib.shard_problem(state, form, mesh)
+    _build.reset_launches()
+    coll.reset_stats()
+    final, metrics = sharded_rollout_fn(mesh, lform, inp["gains"],
+                                        inp["sparams"], sim.SimConfig(
+                                            **ENGINE), UNEVEN_TICKS)(local)
+    torch.cuda.synchronize()
+    launches, moved = dict(_build.LAUNCHES), coll.stats()
+    whole = meshlib.gather_state(final, st_sh)
+    staged = sinkhorn.sinkhorn_assign(
+        state.swarm.q, form.points, stage_shardings=(
+            meshlib.row_sharding(mesh), meshlib.replicated(mesh)))
+    _save_whole(whole, f"{d}/{label}_{mesh.rank}.pt",
+                distcmd=metrics.distcmd_norm.cpu(),
+                staged_v2f=staged.row_to_col.cpu(),
+                staged_plan=staged.plan_log.cpu(),
+                report={"rank": mesh.rank, "mesh": mesh.size,
+                        "rows": mesh.rows(N), "launches": launches,
+                        "spill_per_tick": {
+                            k: moved["spill"][k] / UNEVEN_TICKS
+                            for k in ("calls", "bytes")},
+                        "collectives": moved})
+
+
+def _uneven_world(d: Path, ref, ref_distcmd, staged_ref) -> dict:
+    """Hold every rank of the uneven world against the unsharded rollout
+    ``ref`` bit for bit (positions, estimates, ages, `v2f`, modes and
+    |distcmd|), the rank outside the mesh too; the mesh's ranks launched
+    K1 and K2 once and K3 every tick, the rank outside none. The staged
+    Sinkhorn: the same `v2f` and plan on every rank, the plan within K1's
+    5e-5 of the unsharded `sinkhorn_assign` (K1 + K2) ``staged_ref``;
+    whether its `v2f` equals the unsharded one is printed."""
+    got = [torch.load(d / f"uneven_{r}.pt", weights_only=False)
+           for r in range(UNEVEN_RANKS)]
+    final = {"q": ref.swarm.q, "est": ref.loc.est, "age": ref.loc.age,
+             "v2f": ref.v2f, "mode": ref.flight.mode,
+             "distcmd": ref_distcmd}
+    equal = [{k: torch.equal(g[k], v.cpu()) for k, v in final.items()}
+             for g in got]
+    plan0, v2f0 = got[0]["staged_plan"], got[0]["staged_v2f"]
+    in_mesh = {"sinkhorn_log": 1, "round_dominant": 1,
+               "flood_merge": UNEVEN_TICKS}
+    outside = {k: 0 for k in in_mesh}
+    info = {"phase": "parallel", "world": "uneven", "ranks": UNEVEN_RANKS,
+            "n": N, "ticks": UNEVEN_TICKS,
+            "mesh": [g["report"]["mesh"] for g in got],
+            "rows": [list(g["report"]["rows"]) for g in got],
+            "bit_identical": [all(e.values()) for e in equal],
+            "equal": equal,
+            "launches": [g["report"]["launches"] for g in got],
+            "spill_per_tick": [g["report"]["spill_per_tick"] for g in got],
+            "staged_same_on_every_rank": all(
+                torch.equal(g["staged_plan"], plan0)
+                and torch.equal(g["staged_v2f"], v2f0) for g in got),
+            "staged_plan_max_abs_err": (plan0 - staged_ref.plan_log.cpu())
+            .abs().max().item(),
+            "staged_v2f_equals_unsharded": torch.equal(
+                v2f0, staged_ref.row_to_col.cpu())}
+    emit(info)
+    if not (all(info["bit_identical"])
+            and info["mesh"] == [2] * UNEVEN_RANKS
+            and info["rows"][-1] == [0, 0]
+            and info["launches"] == [in_mesh, in_mesh, outside]
+            and info["staged_same_on_every_rank"]
+            and info["staged_plan_max_abs_err"] <= 5e-5):
+        raise AssertionError(f"parallel uneven world: {info}")
+    return info
 
 
 def _parallel_batch_world(label: str, d: Path, ref, ref_metrics,
@@ -5793,12 +5950,11 @@ def _parallel_batch_world(label: str, d: Path, ref, ref_metrics,
 def _parallel_world(label: str, d: Path, ref, ref_distcmd,
                     ranks: int) -> dict:
     """Read a world's rank reports and hold its final state against the
-    unsharded rollout ``ref``: assignment, ages and flight modes equal,
-    positions and estimates within `PARALLEL_DQ_BOUND`; each rank launched
-    K1 and K2 once (the tick-0 auction) and K3 every tick. Also counts the
-    (tick, vehicle) |distcmd| entries off the unsharded ``ref_distcmd``
-    (one trial's block computes its gain products at its own size, and
-    the card's batched product rounds an entry by its place: ROADMAP)."""
+    unsharded rollout ``ref`` bit for bit: assignment, ages, flight modes,
+    positions, estimates and every (tick, vehicle) |distcmd| entry of the
+    unsharded ``ref_distcmd`` (the control law's products and sums round
+    the same on a rank's rows as on the whole swarm's); each rank launched
+    K1 and K2 once (the tick-0 auction) and K3 every tick."""
     got = torch.load(d / f"{label}.pt", weights_only=False)
     reports = [json.loads((d / f"{label}_{r}.json").read_text())
                for r in range(ranks)]
@@ -5811,17 +5967,17 @@ def _parallel_world(label: str, d: Path, ref, ref_distcmd,
             "mode_equal": torch.equal(got["mode"],
                                       ref.flight.mode.cpu()),
             "max_abs_dq": dq, "max_abs_dest": dest,
-            "bit_identical": dq == 0.0 and dest == 0.0,
-            "dq_bound": PARALLEL_DQ_BOUND,
             "distcmd_entries": got["distcmd"].numel(),
             "distcmd_differ": int((got["distcmd"]
                                    != ref_distcmd.cpu()).sum()),
             "per_rank": reports}
+    info["bit_identical"] = (dq == 0.0 and dest == 0.0
+                             and info["distcmd_differ"] == 0)
     emit(info)
     want = {"sinkhorn_log": 1, "round_dominant": 1,
             "flood_merge": PARALLEL_TICKS}
     if not (info["v2f_equal"] and info["age_equal"] and info["mode_equal"]
-            and dq <= PARALLEL_DQ_BOUND and dest <= PARALLEL_DQ_BOUND
+            and info["bit_identical"]
             and all(r["launches"] == want
                     and r["all_reduce_max"] == ranks - 1 for r in reports)):
         raise AssertionError(f"parallel {label}: the sharded rollout is "
@@ -5891,15 +6047,23 @@ def _k3_blocks(formation, state, tag: str = "") -> dict:
 
 
 def _product_place(dev) -> dict:
-    """Whether the card's products round an entry by its place in the
-    batch, the reason a batched block computes its gain products at
-    `compute`'s places (`control.distcntrl._rows_product`): the control
-    law's product (``"ijab,ijb->ija"``, `einsum` -> `bmm`) on (N, N, 3, 3)
-    random gains against the same entries rolled by 7 places and rolled
-    back, and against two halves of the rows; `vector_norm` over (2, N, 3)
-    against its two halves. Counts of outputs that differ; a finding, not
-    a check."""
-    def prod(g, q):
+    """Whether the card rounds an entry of the control law by its place,
+    at n=1000 on random (N, N, 3, 3) gains and (N, N, 3) views. The
+    batched product `compute` used before (``"ijab,ijb->ija"``, `einsum`
+    -> `bmm`) against the same entries rolled by 7 places and rolled back
+    and against two halves of the rows, and `vector_norm` over (2, N, 3)
+    against its two halves: a finding, the reason for the next line. The
+    elementwise product (`control.distcntrl._gain_product`) rolled and in
+    halves, and the row sum (`_row_sum`) of blocks of `PLACE_ROWS` rows at
+    the first and the last offset, of one trial and of two, against the
+    whole swarm's: every count 0, or the phase fails. `torch.sum` on the
+    same blocks is printed beside it, with how many of the product's
+    outputs the change of formulation moved, and the kernel launches and
+    device ms of the control law's product and row sum in each
+    formulation at n=1000 (`law_device`)."""
+    from aclswarm_torch.control import distcntrl
+
+    def bmm(g, q):
         return torch.einsum("ijab,ijb->ija", g, q)
 
     h = N // 2
@@ -5907,23 +6071,71 @@ def _product_place(dev) -> dict:
     g = torch.randn(N, N, 3, 3, device=dev, generator=gen)
     q = torch.randn(N, N, 3, device=dev, generator=gen)
     u = torch.randn(2, N, 3, device=dev, generator=gen) * 3
-    whole = prod(g, q)
-    rolled = torch.roll(prod(torch.roll(g, 7, 0), torch.roll(q, 7, 0)),
-                        -7, 0)
-    halves = torch.cat([prod(g[:h].contiguous(), q[:h].contiguous()),
-                        prod(g[h:].contiguous(), q[h:].contiguous())])
+    x = torch.randn(2, N, N, 3, device=dev, generator=gen)
+
+    def place(prod):
+        whole = prod(g, q)
+        rolled = torch.roll(prod(torch.roll(g, 7, 0), torch.roll(q, 7, 0)),
+                            -7, 0)
+        halves = torch.cat([prod(g[:h].contiguous(), q[:h].contiguous()),
+                            prod(g[h:].contiguous(), q[h:].contiguous())])
+        return whole, {"repeat_equal": torch.equal(whole, prod(g, q)),
+                       "rolled_differ": int((whole != rolled).sum()),
+                       "halves_differ": int((whole != halves).sum())}
+
+    def rows(total):
+        out = {}
+        for b in (1, 2):
+            whole = total(x[:b])
+            for r in PLACE_ROWS:
+                out[f"b{b}_r{r}"] = sum(
+                    int((total(x[:b, lo:lo + r].contiguous())
+                         != whole[:, lo:lo + r]).sum())
+                    for lo in (0, N - r))
+        return out
+
+    old, old_info = place(bmm)
     norm = torch.linalg.vector_norm(u, dim=-1)
     norm_halves = torch.cat([torch.linalg.vector_norm(
         u[:, a:b].contiguous(), dim=-1) for a, b in ((0, h), (h, N))], 1)
-    info = {"phase": "parallel", "product_place": "einsum/bmm, vector_norm",
-            "outputs": whole.numel(),
-            "repeat_equal": torch.equal(whole, prod(g, q)),
-            "rolled_differ": int((whole != rolled).sum()),
-            "halves_differ": int((whole != halves).sum()),
-            "norm_outputs": norm.numel(),
-            "norm_halves_differ": int((norm != norm_halves).sum())}
+    old_info.update({"phase": "parallel",
+                     "product_place": "einsum/bmm, vector_norm",
+                     "outputs": old.numel(), "norm_outputs": norm.numel(),
+                     "norm_halves_differ": int((norm != norm_halves).sum())})
+    emit(old_info)
+    new, info = place(distcntrl._gain_product)
+    adj = x[0, ..., :1] > 0
+    laws = {"einsum_and_sum": lambda: torch.sum(adj * bmm(g, q), dim=-2),
+            "elementwise_and_fold": lambda: distcntrl._row_sum(
+                adj * distcntrl._gain_product(g, q))}
+    info.update({"phase": "parallel",
+                 "product_place": "elementwise gain product, row fold",
+                 "outputs": new.numel(),
+                 "moved_from_einsum": int((new != old).sum()),
+                 "row_fold_differ": rows(distcntrl._row_sum),
+                 "torch_sum_differ": rows(lambda t: torch.sum(t, dim=-2)),
+                 "law_device": {k: _law_profile(f)
+                                for k, f in laws.items()}})
     emit(info)
-    return info
+    if not (info["repeat_equal"] and info["rolled_differ"] == 0
+            and info["halves_differ"] == 0
+            and not any(info["row_fold_differ"].values())):
+        raise AssertionError(f"parallel: the control law rounds by place "
+                             f"on the card: {info}")
+    return {"einsum": old_info, "elementwise": info}
+
+
+def _law_profile(fn) -> dict:
+    """Kernel launches and device ms of one call of ``fn`` from the
+    profiler (traced again, up to three times in all, while CUPTI loses
+    every record of a window), and its ms from CUDA events."""
+    for attempt in range(1, 4):
+        prof = _device_profile(fn)
+        if prof["kernel_launches"]:
+            break
+    return {"kernel_launches": prof["kernel_launches"],
+            "device_busy_ms": prof["device_busy_ms"], "attempts": attempt,
+            "event_ms": time_ms(fn, 20)}
 
 
 def _launch_pair(n: int, ticks: int) -> tuple[list, float]:
@@ -5961,22 +6173,30 @@ def phase_parallel(seed: int) -> dict:
     a two-rank world on the one card (two child processes over gloo,
     which carries the CUDA tensors through the host; NCCL refuses two
     ranks on one device), then a one-rank NCCL world in this process,
-    each held against the unsharded `sim.rollout` on the card
-    (`_parallel_world`), with each rank's ms per tick, collectives' ms
-    and bytes per tick, peak memory and launches; (b) the launch program
-    as users run it, two ranks on the card at n=1000, 20 ticks: equal
-    digests, within `LAUNCH_DIGEST_TOL` of the one-rank run's; (c) K3 on
-    receiver blocks (`_k3_blocks`), of one problem and of a batch; (d)
-    where the card's products round (`_product_place`). The
-    two gloo ranks then roll a `PARALLEL_BATCH` batch (seeds S, S+1)
-    through `batched_rollout_fn`, held bit for bit against the unsharded
-    `sim.batched_rollout` that this process rolls meanwhile
-    (`_parallel_batch_world`). The two-rank world's first rank's
-    launches are the path's (`launches`, and `batch_launches` for the
-    batch)."""
+    each held bit for bit against the unsharded `sim.rollout` on the card
+    (`_parallel_world`: state, estimates, ages, modes and every |distcmd|
+    entry), with each rank's ms per tick, collectives' ms and bytes per
+    tick, peak memory and launches. The two gloo ranks then roll a
+    `PARALLEL_BATCH` batch (seeds S, S+1) through `batched_rollout_fn`,
+    held bit for bit against the unsharded `sim.batched_rollout` that this
+    process rolls meanwhile (`_parallel_batch_world`). (b) The uneven
+    world: three gloo ranks, a mesh of the first two, the third outside
+    it fed by `collectives.spill`, `UNEVEN_TICKS` from tick 0, every rank
+    bit for bit with the unsharded rollout, spill's calls and bytes a
+    tick; the staged Sinkhorn in the same world, one plan and one `v2f`
+    on the three ranks, within 5e-5 of K1 + K2's (`_uneven_world`). (c)
+    The launch program as users run it, two ranks on the card at n=1000,
+    20 ticks: equal digests, equal to the one-rank run's. (d) K3 on
+    receiver blocks (`_k3_blocks`), of one problem and of a batch. (e)
+    Where the card rounds by place (`_product_place`): the einsum it
+    replaced does, the control law's elementwise product and row fold do
+    not. The two-rank world's first rank's launches are the path's
+    (`launches`, `batch_launches` for the batch, `uneven_launches` the
+    uneven world's first rank's)."""
     import torch.distributed as dist
 
     from aclswarm_torch import sim
+    from aclswarm_torch.assignment import sinkhorn
     from aclswarm_torch.core import types
     from aclswarm_torch.parallel import launch as plaunch
 
@@ -6002,32 +6222,30 @@ def phase_parallel(seed: int) -> dict:
                     "state": map_tree(lambda x: x.cpu(), bstate)},
                    scratch / "batch.pt")
         t0 = time.perf_counter()
-        port = _free_port()
-        kids = [subprocess.Popen(
-            [sys.executable, "-c", _PARALLEL_RANK, str(scratch), str(r),
-             str(port)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, cwd=Path(__file__).resolve().parent)
-            for r in (1, 0)]
+        kids = _start_world(scratch, 2)
         try:
             ref, rm = sim.rollout(state, formation, gains, sparams,
                                   sim.SimConfig(**ENGINE), PARALLEL_TICKS)
             bref, bm = sim.batched_rollout(bstate, bform, gains, sparams,
                                            sim.SimConfig(**ENGINE),
                                            PARALLEL_TICKS)
-            outs = [k.communicate(timeout=300) for k in kids]
         finally:
-            for k in kids:
-                if k.poll() is None:
-                    k.kill()
-                    k.wait()
-        for k, (o, e) in zip(kids, outs):
-            if k.returncode != 0:
-                raise AssertionError(f"parallel: a gloo rank failed (exit "
-                                     f"{k.returncode}):\n{o}\n"
-                                     f"{e[-4000:]}")
+            _join_world("gloo", kids)
         gloo_s = time.perf_counter() - t0
         gloo = _parallel_world("gloo", scratch, ref, rm.distcmd_norm, 2)
         batch = _parallel_batch_world("gloo_batch", scratch, bref, bm, gloo)
+
+        t0 = time.perf_counter()
+        kids = _start_world(scratch, UNEVEN_RANKS)
+        try:
+            uref, um = sim.rollout(state, formation, gains, sparams,
+                                   sim.SimConfig(**ENGINE), UNEVEN_TICKS)
+            staged_ref = sinkhorn.sinkhorn_assign(state.swarm.q,
+                                                  formation.points)
+        finally:
+            _join_world("uneven", kids)
+        uneven_s = time.perf_counter() - t0
+        uneven = _uneven_world(scratch, uref, um.distcmd_norm, staged_ref)
 
         t0 = time.perf_counter()
         dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
@@ -6051,21 +6269,392 @@ def phase_parallel(seed: int) -> dict:
               "n": N, "ticks": PARALLEL_TICKS, "lines": lines,
               "one_rank_digest": one["digest"], "seconds": launch_s,
               "digests_equal": lines[0]["digest"] == lines[1]["digest"],
-              "digest_diff": abs(lines[0]["digest"] - one["digest"]),
-              "tolerance": LAUNCH_DIGEST_TOL}
+              "digest_diff": abs(lines[0]["digest"] - one["digest"])}
     emit(launch)
-    if not (launch["digests_equal"]
-            and launch["digest_diff"] <= LAUNCH_DIGEST_TOL
+    if not (launch["digests_equal"] and launch["digest_diff"] == 0
             and all(x["processes"] == 2 and x["global_devices"] == 2
                     and x["backend"] == "gloo" for x in lines)):
         raise AssertionError(f"parallel launch: {launch}")
     info = {"phase": "parallel", "gloo_world_seconds": gloo_s,
+            "uneven_world_seconds": uneven_s,
             "nccl_world_seconds": nccl_s,
             "launches": gloo["per_rank"][0]["launches"],
-            "batch_launches": batch["per_rank"][0]["launches"]}
+            "batch_launches": batch["per_rank"][0]["launches"],
+            "uneven_launches": uneven["launches"][0]}
     emit(info)
-    return dict(info, gloo=gloo, nccl=nccl, batch=batch, k3_blocks=blocks,
-                product_place=place, launch=launch)
+    return dict(info, gloo=gloo, nccl=nccl, batch=batch, uneven=uneven,
+                k3_blocks=blocks, product_place=place, launch=launch)
+
+
+# benchmarks/scale.py's engine rows (`bench_all`, :386-482) and its
+# Sinkhorn row (`sinkhorn_throughput`, :128) on the card at the reference's
+# n=2000 (streaming also at n=1000, BASELINE.json config 5): row ->
+# (SimConfig fields, the reference's metric, its ticks, ticks here, the
+# flooded rows' start). Depth is the one cut: the ticks the budget leaves.
+SCALE_N = 2000
+SCALE_ROWS = {
+    "control_tick": (dict(assignment="none", colavoid_neighbors=16),
+                     "control_tick_n2000_k16_hz", 200, 40, False),
+    "streaming": (dict(assignment="sinkhorn", assign_every=1,
+                       dynamics="firstorder", colavoid_neighbors=16),
+                  "streaming_reassign_n2000_k16_hz", 100, 20, False),
+    "flooded": (dict(assignment="none", localization="flooded",
+                     flood_block=64, colavoid_neighbors=16),
+                "flooded_tick_n2000_k16_b64_hz", 100, 20, True),
+    "flooded_round": (dict(assignment="none", localization="flooded",
+                           flood_block=64, colavoid_neighbors=16,
+                           flood_every=1),
+                      "flooded_roundtick_n2000_k16_b64_hz", 100, 20, True),
+    "flooded_phased2": (dict(assignment="none", localization="flooded",
+                             flood_block=64, colavoid_neighbors=16,
+                             flood_phases=2),
+                        "flooded_tick_n2000_k16_b64_phased2_hz", 100, 20,
+                        True),
+}
+SCALE_STREAM_NS = (SCALE_N, N)
+SCALE_BOUNDS = ((-100.0, -100.0, 0.0), (100.0, 100.0, 20.0))
+SCALE_SINKHORN_ITERS = 50
+SCALE_INSTANCES = 8          # the reference chains 400
+SCALE_PROFILE_TICKS = 5      # one profiled window per row
+SCALE_CHECKED_TICKS = 5      # the sanitizer's windows
+
+
+def scale_arrays(n: int, rng) -> dict:
+    """`benchmarks/scale.py` `build_bench_problem` (:98-125) as numpy
+    arrays, in its draw order from ``rng``: the points, the complete
+    graph, (n, n, 3, 3) gains x 0.01 and an airborne start; then the start
+    `bench_all` draws next for the flooded rows (:425-427)."""
+    pts = rng.normal(size=(n, 3)).astype(np.float32) * 20
+    adj = (np.ones((n, n)) - np.eye(n)).astype(np.float32)
+    gains = (rng.normal(size=(n, n, 3, 3)) * 0.01).astype(np.float32)
+    q0 = rng.normal(size=(n, 3)).astype(np.float32) * 20 + [0, 0, 2]
+    q_loc = rng.normal(size=(n, 3)).astype(np.float32) * 20 + [0, 0, 2]
+    return dict(points=pts, adjmat=adj, gains=gains, q0=q0, q_loc=q_loc)
+
+
+def scale_instances(n: int, k: int, seed: int = 0) -> tuple:
+    """`sinkhorn_throughput`'s (:128) formation points and ``k`` vehicle
+    position sets, float32, in its draw order."""
+    rng = np.random.default_rng(seed)
+    p = rng.normal(size=(n, 3)).astype(np.float32) * 20
+    return p, rng.normal(size=(k, n, 3)).astype(np.float32) * 20
+
+
+def _scale_problem(arrays: dict, flooded: bool, dev, dtype, **init_kw):
+    """The port's formation, gains, safety parameters and start of
+    `scale_arrays`: the reference's default `ControlGains` and
+    `SafetyParams` within its bounds."""
+    from aclswarm_torch import sim
+    from aclswarm_torch.core import types
+
+    formation = types.make_formation(arrays["points"], arrays["adjmat"],
+                                     arrays["gains"], device=dev, dtype=dtype)
+    sparams = types.SafetyParams(bounds_min=SCALE_BOUNDS[0],
+                                 bounds_max=SCALE_BOUNDS[1])
+    state = sim.init_state(arrays["q_loc"] if flooded else arrays["q0"],
+                           localization=flooded, device=dev, dtype=dtype,
+                           **init_kw)
+    return formation, types.ControlGains(), sparams, state
+
+
+# the exact host LAP of the Sinkhorn row's first instance, in a child
+# process on one CPU at nice 19 while the card rolls the engine rows
+_SCALE_LAP = """
+import json, os, sys
+os.nice(19)
+os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[-2]})
+import numpy as np
+from aclswarm_torch.assignment.lapjv import lapjv
+import chip_smoke
+n, k, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+p, qs = chip_smoke.scale_instances(n, k)
+cost = chip_smoke.scale_host_cost(qs[0], p)
+col = lapjv(cost)
+json.dump({"opt": float(cost[np.arange(n), col].sum())}, open(out, "w"))
+"""
+
+
+def scale_host_cost(q, p) -> np.ndarray:
+    """The distances of ``q`` to ``p`` in float64 on the host."""
+    q, p = np.asarray(q, np.float64), np.asarray(p, np.float64)
+    return np.linalg.norm(q[:, None] - p[None], axis=-1)
+
+
+def _scale_row(name: str, n: int, arrays: dict) -> tuple[dict, tuple]:
+    """One engine row of `SCALE_ROWS` at ``n``: a two-tick warm-up, the
+    timed window (host clock, synchronized) with the launch counters and
+    the peak memory read around it (with the problem's tensors resident
+    before it, `resident_before_bytes`), the soundness checks (finite states;
+    on a streaming row `v2f` a permutation at every tick; ages within the
+    cap) and one profiled window (device busy ms and launches a tick).
+    Returns the row's report and (formation, gains, sparams, state, cfg)."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.sim import localization as loclib
+
+    cfg_kw, metric, ref_ticks, ticks, flooded = SCALE_ROWS[name]
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = _scale_problem(arrays, flooded, dev,
+                                                      torch.float32)
+    cfg = sim.SimConfig(**cfg_kw)
+    sim.rollout(state, formation, gains, sparams, cfg, 2)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (final, m), ms = _sync_ms(lambda: sim.rollout(state, formation, gains,
+                                                  sparams, cfg, ticks))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        final.swarm.q, final.swarm.vel, m.q, m.distcmd_norm)
+        + ((final.loc.est,) if flooded else ()))
+    perm = bool((torch.sort(m.v2f.long(), dim=-1).values
+                 == torch.arange(n, device=dev)).all())
+    ages = int(final.loc.age.max()) if flooded else None
+    counted, by_name, _ = _traced_window(
+        lambda k: sim.rollout(state, formation, gains, sparams, cfg, k),
+        SCALE_PROFILE_TICKS)
+    info = {"phase": "scale", "row": name, "n": n, "reference": metric,
+            "reference_ticks": ref_ticks, "ticks": ticks,
+            "ms_per_tick": ms / ticks, "launches": launches,
+            "peak_memory_bytes": peak, "resident_before_bytes": resident,
+            "finite": finite,
+            "v2f_permutation_every_tick": perm, "max_age": ages,
+            "age_cap": loclib.AGE_CAP,
+            "auctions": int(m.auctioned.sum()),
+            "profiled_ticks": SCALE_PROFILE_TICKS,
+            "device_busy_ms_per_tick": sum(v[1] for v in by_name.values())
+            / SCALE_PROFILE_TICKS,
+            "launches_per_tick": sum(v[0] for v in by_name.values())
+            / SCALE_PROFILE_TICKS,
+            "profiled_launches_counted": counted,
+            "top": [{"name": k, "launches": v[0], "device_ms": v[1]}
+                    for k, v in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][1])[:6]]}
+    emit(info)
+    streaming = cfg.assignment == "sinkhorn"
+    want = ({"sinkhorn_log": ticks * (2 * SINKHORN_ITERS + 2)
+             if n > K1_STRIPE_LIMIT else ticks, "round_dominant": ticks}
+            if streaming else {})
+    if not (finite and (perm or not streaming)
+            and (ages is None or ages <= loclib.AGE_CAP)
+            and all(launches.get(k) == v for k, v in want.items())
+            and (not flooded or launches.get("flood_merge", 0) > 0)):
+        raise AssertionError(f"scale {name} n={n}: {info} (launches "
+                             f"expected {want})")
+    return info, (formation, gains, sparams, state, cfg)
+
+
+def _scale_kernels(row: str, inputs: tuple) -> dict:
+    """The kernels of an n=2000 row on the inputs it hands them at its
+    first tick: on `streaming`, K1 (the multi-launch design, 2 n_iters + 2
+    launches a solve) within 5e-5 of `sinkhorn_log_plain` with masses
+    within 1e-4, and K2 on K1's plan bit for bit; on `flooded_round` and
+    `flooded_phased2`, K3 at (n, n) and (n, n/2) bit for bit; each with
+    its ms, the plain version's ms and its bound."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.ops import rounding
+
+    def first_calls(names):
+        formation, gains, sparams, state, cfg = inputs
+        return _path_kernel_calls(lambda: sim.rollout(
+            state, formation, gains, sparams, cfg, 1), names)
+
+    n, out = SCALE_N, {}
+    if row == "streaming":
+        seen = first_calls(("sinkhorn_log", "round_dominant"))
+        (cost, tau, iters), k1_launches = seen["sinkhorn_log"][0]
+        (plan, *_), _ = seen["round_dominant"][0]
+        out = {"k1": _check_sinkhorn(f"scale streaming n={n}: K1", cost,
+                                     tau, iters, 2 * iters + 2),
+               "k2": _check_rounding(f"scale streaming n={n}: K2", plan)}
+        b, by = bound_ms(10 * n * n * iters + 2 * n * n, 8 * n * n)
+        out["k1"].update(path_launches=k1_launches, iters=iters, bound_ms=b,
+                         bound_by=by,
+                         ms=time_ms(lambda: ops.sinkhorn_log(cost, tau,
+                                                             iters), 3),
+                         plain_ms=time_ms(lambda: ops.sinkhorn_log_plain(
+                             cost, tau, iters), 1))
+        seen_rows = rounding.rescans(rounding.launch(plan, None)[2], n)
+        b, by = bound_ms(2 * (2 * n * n + seen_rows["entries"]),
+                         4 * n * n + 4 * n)
+        out["k2"].update(bound_ms=b, bound_by=by,
+                         ms=device_ms(lambda: ops.round_dominant(plan), 10,
+                                      K2_KERNELS),
+                         plain_ms=time_ms(lambda: ops.round_dominant_plain(
+                             plan), 1))
+    elif row in ("flooded_round", "flooded_phased2"):
+        (packed, comm, *_), _ = first_calls(("flood_merge",))[
+            "flood_merge"][0]
+        w = packed.shape[-1]
+        info = _check_flood(f"scale {row} n={n}: K3 ({n}, {w})", packed,
+                            comm)
+        nnz = int(comm.sum())
+        b, by = bound_ms(2 * nnz * w, 4 * n * w * 2 + n * n)
+        info.update(w=w, comm_nnz=nnz, bound_ms=b, bound_by=by,
+                    ms=time_ms(lambda: ops.flood_merge(packed, comm), 20),
+                    plain_ms=time_ms(lambda: ops.flood_merge_plain(
+                        packed, comm), 1))
+        out[f"k3_{row}"] = info
+    for name, v in out.items():
+        emit({"phase": "scale", "kernel": name, "n": n, **v})
+    return out
+
+
+def _scale_checked(inputs: tuple) -> list:
+    """`SCALE_CHECKED_TICKS` of a row at n=2000 under ``check_mode='on'``
+    from its start, one tick at a time on a clean carry, so each tick's
+    reading stands alone. The reference's start puts vehicles outside the
+    room (z ~ 2 + 20 N(0, 1) against a floor at 0), so a tick must read
+    `state_bounds` exactly when the host finds a position past the room's
+    bounds plus `BOUNDS_MARGIN`, and nothing otherwise: every contract
+    recorded before it (adjacency, assignment, marginals, finite state)
+    held on that tick."""
+    from dataclasses import replace
+
+    from aclswarm_torch import sim
+    from aclswarm_torch.analysis import invariants as invlib
+
+    lo = np.asarray(SCALE_BOUNDS[0]) - invlib.BOUNDS_MARGIN
+    hi = np.asarray(SCALE_BOUNDS[1]) + invlib.BOUNDS_MARGIN
+    formation, gains, sparams, state, cfg = inputs
+    st = sim.init_state(state.swarm.q, localization=cfg.localization
+                        == "flooded", checks=True,
+                        device=state.swarm.q.device,
+                        dtype=state.swarm.q.dtype)
+    cfg_on = replace(cfg, check_mode="on")
+    ticks = []
+    for t in range(SCALE_CHECKED_TICKS):
+        st, m = sim.rollout(_with_carries(st), formation, gains, sparams,
+                            cfg_on, 1)
+        q = m.q[-1].cpu().numpy()
+        outside = int(((q < lo) | (q > hi)).any(axis=-1).sum())
+        got = _first(m.inv_code, t)
+        ticks.append({"tick": t, "first_violation": got,
+                      "outside_room": outside,
+                      "as_the_host": got == ([t, "state_bounds"] if outside
+                                             else None)})
+    return ticks
+
+
+def _scale_sinkhorn(lap_out: Path, lap) -> dict:
+    """`sinkhorn_assign(q, p, n_iters=50)` at n=2000 on `SCALE_INSTANCES`
+    seeded instances: ms an instance (host clock, synchronized), launches
+    an instance (K1's multi-launch design, K2 once), K1 on the first
+    instance's cost against its plain version, and the suboptimality of
+    the first instance's assignment against the exact host LAP (the
+    child's), both priced on the float64 host distances."""
+    from aclswarm_torch import ops
+    from aclswarm_torch.assignment import sinkhorn
+
+    n, iters, k = SCALE_N, SCALE_SINKHORN_ITERS, SCALE_INSTANCES
+    dev = torch.device("cuda")
+    p, qs = scale_instances(n, k)
+    P, Q = (torch.tensor(x, device=dev) for x in (p, qs))
+    seen = _path_kernel_calls(lambda: sinkhorn.sinkhorn_assign(
+        Q[0], P, n_iters=iters), ("sinkhorn_log", "round_dominant"))
+    (cost, tau, _), k1_launches = seen["sinkhorn_log"][0]
+    k1 = _check_sinkhorn(f"scale sinkhorn_assign n={n}: K1", cost, tau,
+                         iters, 2 * iters + 2)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v2f = [sinkhorn.sinkhorn_assign(Q[i], P, n_iters=iters).row_to_col
+           for i in range(k)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / k
+    launches = {name: c / k for name, c in ops.LAUNCHES.items()}
+    lap.wait(timeout=600)
+    if lap.returncode != 0:
+        raise AssertionError(f"scale: the host LAP child failed "
+                             f"({lap.returncode}): {lap.stderr.read()}")
+    opt = json.loads(lap_out.read_text())["opt"]
+    cost64 = scale_host_cost(qs[0], p)
+    got = float(cost64[np.arange(n), v2f[0].cpu().numpy()].sum())
+    b, by = bound_ms(10 * n * n * iters + 2 * n * n, 8 * n * n)
+    info = {"phase": "scale", "row": "sinkhorn_assign", "n": n,
+            "reference": f"sinkhorn_assign_n{n}_hz", "n_iters": iters,
+            "instances": k, "reference_instances": 400,
+            "ms_per_instance": ms, "launches_per_instance": launches,
+            "k1": dict(k1, path_launches=k1_launches, bound_ms=b,
+                       bound_by=by),
+            "v2f_permutations": all(bool(torch.equal(
+                torch.sort(v.long()).values, torch.arange(n, device=dev)))
+                for v in v2f),
+            "subopt": got / opt - 1.0}
+    emit(info)
+    if not (info["v2f_permutations"]
+            and launches.get("sinkhorn_log") == 2 * iters + 2
+            and launches.get("round_dominant") == 1):
+        raise AssertionError(f"scale sinkhorn_assign: {info}")
+    return info
+
+
+def phase_scale(seed: int) -> dict:
+    """The reference's scale rows (`benchmarks/scale.py` `bench_all`) on
+    the card: its problem (`scale_arrays`, seed 0 as the reference draws
+    it; ``seed`` is unused) at n=2000, float32, rolled through
+    `sim.rollout` for each engine row of `SCALE_ROWS` (`streaming` also
+    at n=1000), each with its ms a tick, launches, peak memory and a
+    profiled window (`_scale_row`); K1 (multi-launch), K2 and K3 at
+    n=2000 on the rows' own inputs against their plain versions
+    (`_scale_kernels`); the sanitizer's windows (`_scale_checked`); and
+    `sinkhorn_assign` at n=2000 (`_scale_sinkhorn`). ``launches`` holds
+    each row's counts over its timed window."""
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_scale_"))
+    lap_out = scratch / "lap.json"
+    lap = subprocess.Popen(
+        [sys.executable, "-c", _SCALE_LAP, str(SCALE_N),
+         str(SCALE_INSTANCES), str(lap_out)], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+    try:
+        arrays = {n: scale_arrays(n, np.random.default_rng(0))
+                  for n in SCALE_STREAM_NS}
+        # each row's checks run right after it, so that a row's peak
+        # memory holds its own problem alone
+        rows, kernels, checked = {}, {}, {}
+        for name in SCALE_ROWS:
+            for n in (SCALE_STREAM_NS if name == "streaming"
+                      else (SCALE_N,)):
+                key = name if n == SCALE_N else f"{name}_n{n}"
+                rows[key], inp = _scale_row(name, n, arrays[n])
+                if n == SCALE_N:
+                    kernels.update(_scale_kernels(name, inp))
+                    if name in ("streaming", "flooded_round"):
+                        checked[name] = _scale_checked(inp)
+                del inp
+        del arrays
+        emit({"phase": "scale", "sanitizer": checked})
+        bad = [(row, t) for row, ticks in checked.items() for t in ticks
+               if not t["as_the_host"]]
+        if bad:
+            raise AssertionError(f"scale: the sanitizer's readings at n="
+                                 f"{SCALE_N} are not the host's: {bad}")
+        sk = _scale_sinkhorn(lap_out, lap)
+    finally:
+        if lap.poll() is None:
+            lap.kill()
+            lap.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    info = {"phase": "scale", "card": smi,
+            "cuts": {k: {"ticks": v["ticks"],
+                         "reference_ticks": v["reference_ticks"]}
+                     for k, v in rows.items()},
+            "ms_per_tick": {k: v["ms_per_tick"] for k, v in rows.items()},
+            "sinkhorn_assign_ms": sk["ms_per_instance"],
+            "subopt": sk["subopt"]}
+    emit(info)
+    launches = {k: v["launches"] for k, v in rows.items()}
+    launches["sinkhorn_assign"] = {
+        k: int(v * SCALE_INSTANCES)
+        for k, v in sk["launches_per_instance"].items()}
+    return dict(info, rows=rows, kernels=kernels, checked=checked,
+                sinkhorn_assign=sk, launches=launches)
 
 
 def main(argv=None) -> int:
@@ -6101,7 +6690,8 @@ def main(argv=None) -> int:
                  "serve_recovery": phase_serve_recovery,
                  "serve_watch": phase_serve_watch,
                  "serve_procs": phase_serve_procs, "bridge": phase_bridge,
-                 "audit": phase_audit, "parallel": phase_parallel}
+                 "audit": phase_audit, "parallel": phase_parallel,
+                 "scale": phase_scale}
         done = {}
         for name in args.phases.split(","):
             if name == "trial_batch":
@@ -6181,6 +6771,7 @@ def main(argv=None) -> int:
     off = timed("offline", phase_offline, args.seed, tr, kern)
     timed("audit", phase_audit, args.seed)
     par = timed("parallel", phase_parallel, args.seed)
+    sc = timed("scale", phase_scale, args.seed)
     timed("cbaa_join", cb.join)
 
     sources = {"sinkhorn_log": ("aclswarm_torch/csrc/sinkhorn.cu",
@@ -6205,6 +6796,8 @@ def main(argv=None) -> int:
                                "buffer, senders split over 4 groups",
                                "byte-mask tile, select + signed min")}
     rows = []
+    scale_key = {"sinkhorn_log": "k1", "round_dominant": "k2",
+                 "flood_merge": "k3"}
     for name, key in (("sinkhorn_log", "sinkhorn_log"),
                       ("round_dominant", "round_dominant"),
                       ("flood_merge", f"flood_merge_w{N // 2}")):
@@ -6238,7 +6831,10 @@ def main(argv=None) -> int:
                    "bridge": br["launches"][name],
                    "offline": off["launches"][name],
                    "parallel": par["launches"][name],
-                   "parallel_batch": par["batch_launches"][name]},
+                   "parallel_batch": par["batch_launches"][name],
+                   "parallel_uneven": par["uneven_launches"][name],
+                   **{f"scale_{path}": v[name]
+                      for path, v in sc["launches"].items()}},
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,
@@ -6248,6 +6844,11 @@ def main(argv=None) -> int:
         if name == "round_dominant":
             row.update(dense_bound_ms=k["dense_bound_ms"],
                        rounds=k["rounds"])
+        row["n2000"] = [{x: v[x] for x in ("check", "shape", "launches",
+                                            "ms", "plain_ms", "bound_ms",
+                                            "bound_by")}
+                        for key2, v in sc["kernels"].items()
+                        if key2.startswith(scale_key[name])]
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

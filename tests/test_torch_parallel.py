@@ -298,6 +298,12 @@ for name, c in torch.load(f"{d}/inputs.pt", weights_only=False).items():
             "staged": sinkhorn.sinkhorn_assign(q, p, stage_shardings=(
                 M.row_sharding(mesh), M.replicated(mesh))).row_to_col}
         continue
+    if c["kind"] == "staged":
+        mesh = M.make_mesh(n_agents=c["q"].shape[0], device="cpu")
+        out[name] = {"mesh": mesh.size, "result": sinkhorn.sinkhorn_assign(
+            c["q"], c["p"], stage_shardings=(M.row_sharding(mesh),
+                                             M.replicated(mesh)))}
+        continue
     n = c["form"].points.shape[-2]
     mesh = M.make_mesh(n_agents=n, device="cpu")
     cfg = sim.SimConfig(**c["cfg"])
@@ -361,8 +367,11 @@ def two_ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def three_ranks(tmp_path_factory):
+    q, p = _sinkhorn_problem()
     return _world(tmp_path_factory.mktemp("world3"), 3,
-                  dict(_inputs(UNEVEN), **_batch3_inputs()))
+                  dict(_inputs(UNEVEN), **_batch3_inputs(),
+                       staged=dict(kind="staged", q=torch.as_tensor(q),
+                                   p=torch.as_tensor(p))))
 
 
 # --------------------------------------------------------------- reference
@@ -594,6 +603,23 @@ def test_uneven_world_third_rank_holds_nothing(three_ranks, name):
         _check_final(r[name]["final"], jfinal,
                      est=UNEVEN[name][2].get("localization", False))
         _check_metrics(r[name]["metrics"], jm, step=name == "step")
+
+
+def test_staged_sinkhorn_uneven_world(three_ranks):
+    """The staged solve on a mesh of two ranks of three: the rank outside
+    the mesh receives the mesh's result (`collectives.spill`)."""
+    q, p = _sinkhorn_problem()
+    ref = jsinkhorn.sinkhorn_assign(jnp.asarray(q), jnp.asarray(p))
+    assert [r["staged"]["mesh"] for r in three_ranks] == [2, 2, 2]
+    first = three_ranks[0]["staged"]["result"]
+    for r in three_ranks:
+        got = r["staged"]["result"]
+        np.testing.assert_array_equal(got.row_to_col.numpy(),
+                                      np.asarray(ref.row_to_col))
+        assert torch.equal(got.plan_log, first.plan_log)
+        assert torch.equal(got.err, first.err)
+    np.testing.assert_allclose(first.plan_log.numpy(),
+                               np.asarray(ref.plan_log), rtol=0, atol=1e-10)
 
 
 # --------------------------------------------------------------- the batch
