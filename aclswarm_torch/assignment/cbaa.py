@@ -75,21 +75,56 @@ def init_tables(n: int, device=None, dtype=torch.float32) -> CbaaTables:
                                      device=dev))
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+           ) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, for float32 tensors, as a
+    fused multiply-add rounds it, on any device. The product is exact in
+    float64 and the sum is rounded to odd there (a float64 sum whose error,
+    from an exact two-sum, is not zero moves to its odd neighbour), so
+    the one rounding to float32 that follows is the correct one: 53 bits
+    is at least 24 + 2. Every step is an elementwise IEEE operation, so
+    nothing depends on the device, the place or a compiler's contraction."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
+                                             err))
+    return torch.where((err != 0) & even, away, s).float()
+
+
 def _own_distances(q_veh: torch.Tensor, paligned: torch.Tensor
                    ) -> torch.Tensor:
-    """d[v, j] = ||q_v - paligned_v[j]||. `vector_norm` sums the three
-    squares in the fused multiply-add chain the reference's compiled norm
-    uses on the CPU (sqrt((dx^2 + dy^2) + dz^2) with separately rounded
-    squares differs from it in the last bit of one distance in nine), so
-    prices agree to the last bit and no strict comparison between bids
-    can flip."""
-    return torch.linalg.vector_norm(q_veh[:, None, :] - paligned, dim=-1)
+    """d[v, j] = ||q_v - paligned_v[j]||, rounded as the CPU's norm rounds
+    it: the three squares summed in the fused multiply-add chain
+    fma(dz, dz, fma(dy, dy, dx * dx)) that `torch.linalg.vector_norm`
+    takes on the CPU, which is the reference's compiled norm (the
+    separately rounded sum of squares differs from it in the last bit of
+    one distance in nine). In float32 the chain is written out (`_fma32`)
+    and the root is taken in float64 and rounded once, the correctly
+    rounded float32 root: the card's float32 `sqrt` is not correctly
+    rounded and its norm sums in another order, so written out the card's
+    distances equal the CPU's bit for bit and no strict comparison between
+    bids can flip. Other dtypes keep `vector_norm`, the reference's bits on
+    the CPU: there a written-out float64 chain would need a correctly
+    rounded float64 root, which the CPU's vectorized `torch.sqrt` is not,
+    and no check holds float64 bids on the card against the CPU's."""
+    d = q_veh[:, None, :] - paligned
+    if d.dtype != torch.float32:
+        return torch.linalg.vector_norm(d, dim=-1)
+    sq = _fma32(d[..., 2], d[..., 2],
+                _fma32(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
+    return torch.sqrt(sq.double()).float()
 
 
 def bid_prices(q_veh: torch.Tensor, paligned: torch.Tensor) -> torch.Tensor:
     """Candidate prices: price[v, j] = 1 / (||q_v - paligned_v[j]|| + eps);
     ``paligned`` is each agent's own locally-aligned formation ((n, n, 3),
-    agent axis first)."""
+    agent axis first). The distance rounds the same on every device
+    (`_own_distances`), and the add and the reciprocal are single IEEE
+    operations, so the card's prices equal the CPU's bit for bit."""
     return 1.0 / (_own_distances(q_veh, paligned) + PRICE_EPS)
 
 

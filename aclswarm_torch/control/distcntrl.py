@@ -8,8 +8,8 @@ per-axis deadbands, and everything is computed in formation space.
 The 3x3 gain products (`_gain_product`) are elementwise: each output is
 its own three products and two adds in one fixed order, with no
 reduction across entries, so an entry rounds the same at every place in
-the batch. The sum over a row's neighbours (`_row_sum`) is a fixed
-pairwise fold of elementwise adds for the same reason. `compute` also
+the batch. The sum over a row's neighbours (`core.geometry.row_sum`) is a
+fixed pairwise fold of elementwise adds for the same reason. `compute` also
 takes a batch of trials (a leading ``(B,)`` axis on the state, the
 formation and ``v2f``), and a trial's rows round as they do alone.
 
@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from aclswarm_torch.core import perm as permutil
+from aclswarm_torch.core.geometry import row_sum
 from aclswarm_torch.core.types import ControlGains, Formation, SwarmState
 
 
@@ -60,7 +61,7 @@ def compute(state: SwarmState, formation: Formation, v2f: torch.Tensor,
 
     F = scale_control(qij, formation.dstar_xy, formation.dstar_z, gains)
     lin = _gain_product(formation.gains, qij)
-    up = _row_sum(adj[..., None] * (lin + F * qij))
+    up = row_sum(adj[..., None] * (lin + F * qij))
     deg = torch.sum(adj, dim=-1)
     up_veh = permutil.formation_to_veh_order(up, v2f)
     deg_veh = permutil.formation_to_veh_order(deg, v2f)
@@ -94,7 +95,7 @@ def compute_rows(vel: torch.Tensor, rows_form: Formation,
     adj = (rows_form.adjmat > 0).to(vel.dtype)
     F = scale_control(qij, rows_form.dstar_xy, rows_form.dstar_z, gains)
     lin = _gain_product(rows_form.gains, qij)
-    up = _row_sum(adj[..., None] * (lin + F * qij))
+    up = row_sum(adj[..., None] * (lin + F * qij))
     deg = torch.sum(adj, dim=-1)
     return gains.kp * up - gains.kd * deg[..., None] * vel
 
@@ -110,20 +111,3 @@ def _gain_product(g: torch.Tensor, qij: torch.Tensor) -> torch.Tensor:
     by its place in the batch."""
     return (g[..., 0] * qij[..., 0:1] + g[..., 1] * qij[..., 1:2]
             + g[..., 2] * qij[..., 2:3])
-
-
-def _row_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x.sum(dim=-2)`` as a pairwise fold of elementwise adds (the first
-    half plus the second, an odd row left over added into the first),
-    so each output's order of additions depends on the length of the
-    summed axis alone. The card's reduction picks another order when it
-    has few outputs (a block of a few rows splits each sum over more
-    threads), so a rank's rows would leave the whole swarm's bits."""
-    while x.shape[-2] > 1:
-        m = x.shape[-2]
-        h = m // 2
-        y = x[..., :h, :] + x[..., h:2 * h, :]
-        if m % 2:
-            y[..., :1, :] += x[..., 2 * h:, :]
-        x = y
-    return x[..., 0, :]

@@ -9,7 +9,9 @@ import (`aclswarm_torch/__init__.py`), the counterpart of the reference's
 clouds ``(B, n, 3)``. Their matrix products and the alignment's sums over
 the n rows are taken trial by trial (`_mm`, `_moments`), and a 2-D
 rotation comes in closed form, element by element (`_rotation2`): a batch
-equals its serial runs bit for bit on the card as on the CPU.
+equals its serial runs bit for bit on the card as on the CPU. The local
+alignment (`align_formation_local`) goes further: it rounds in one fixed
+order on both devices (`row_sum`), so the card's equals the CPU's.
 """
 from __future__ import annotations
 
@@ -140,6 +142,24 @@ def align(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None,
     return _mm(p, R.mT) + t[..., None, :]
 
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(dim=-2)`` as a pairwise fold of elementwise adds (the first
+    half plus the second, an odd row left over added into the first),
+    so each output's order of additions depends on the length of the
+    summed axis alone. The card's reduction picks another order when it
+    has few outputs (a block of a few rows splits each sum over more
+    threads), and another than the CPU's: a fold rounds the same on both
+    devices and at every place."""
+    while x.shape[-2] > 1:
+        m = x.shape[-2]
+        h = m // 2
+        y = x[..., :h, :] + x[..., h:2 * h, :]
+        if m % 2:
+            y[..., :1, :] += x[..., 2 * h:, :]
+        x = y
+    return x[..., 0, :]
+
+
 def align_formation_local(q_veh: torch.Tensor, p: torch.Tensor,
                           adjmat: torch.Tensor, v2f: torch.Tensor,
                           est: torch.Tensor | None = None) -> torch.Tensor:
@@ -153,34 +173,46 @@ def align_formation_local(q_veh: torch.Tensor, p: torch.Tensor,
     formation in row v.
 
     The reference maps `align` over agents; here the n weighted `arun`
-    problems (d=2) are one batch: weighted centroids, an (n, 2, 2) stack of
-    cross-covariances, and each agent's rotation in closed form
-    (`_rotation2`, as `arun` takes it), element by element, so an agent's
-    rotation is its lone solve's bit for bit (a batched SVD rounds a batch
-    otherwise than its members). The z axis passes through (R=I, t=0
-    there), as `arun` embeds it. A batch of trials calls it trial by trial
-    (CBAA runs so in `sim.engine`), so a batch equals its serial runs here
-    too."""
+    problems (d=2) are one batch (`_align_rows`), and each agent's row is
+    computed in a fixed order that does not depend on the device or on
+    the agent's place: elementwise products, sums over the n formation
+    points as a pairwise fold (`row_sum`), the 2x2 products written out
+    term by term, and each rotation in closed form (`_rotation2`, as `arun`
+    takes it). So an agent's row equals its lone solve bit for bit, the
+    card's rows equal the CPU's, and a batch of trials, which calls it
+    trial by trial (CBAA runs so in `sim.engine`), equals its serial runs.
+    The z axis passes through (R=I, t=0 there), as `arun` embeds it."""
     from aclswarm_torch.core import perm as permutil
 
     n = adjmat.shape[0]
-    dtype, dev = q_veh.dtype, q_veh.device
     idx = v2f.long()
     f2v = permutil.invert(v2f).long()
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
-    w = ((adjmat[idx] > 0) | eye[idx]).to(dtype)          # (agent, point)
+    eye = torch.eye(n, dtype=torch.bool, device=q_veh.device)
+    w = ((adjmat[idx] > 0) | eye[idx]).to(q_veh.dtype)     # (agent, point)
     # destination clouds in formation order, xy only
     qs = (q_veh[f2v][None] if est is None else est[:, f2v])[..., :2]
-    ps = p[:, :2]
-    wsum = torch.clamp(torch.sum(w, dim=1), min=1e-12)[:, None]
-    mu_p = torch.sum(w[:, :, None] * ps[None], dim=1) / wsum       # (n, 2)
-    mu_q = torch.sum(w[:, :, None] * qs, dim=1) / wsum
-    pc = ps[None] - mu_p[:, None, :]                                # (n, n, 2)
-    qc = qs - mu_q[:, None, :]
-    sigma = torch.einsum("vmi,vmj->vij", qc * w[:, :, None], pc) \
-        / wsum[:, :, None]
-
-    Rd = _rotation2(sigma)                                          # (n, 2, 2)
-    td = mu_q - (Rd @ mu_p[:, :, None])[:, :, 0]
-    xy = torch.einsum("md,vkd->vmk", ps, Rd) + td[:, None, :]
+    xy = _align_rows(w, qs, p[:, :2])
     return torch.cat([xy, p[None, :, 2:3].expand(n, n, 1)], dim=-1)
+
+
+def _align_rows(w: torch.Tensor, qs: torch.Tensor,
+                ps: torch.Tensor) -> torch.Tensor:
+    """The local alignments of a block of r agents: weights ``w`` (r, n)
+    over the formation points, destination clouds ``qs`` ((r or 1), n, 2)
+    and the formation's xy ``ps`` (n, 2); returns each agent's aligned
+    xy, (r, n, 2). Nothing mixes two agents' rows."""
+    w = w[:, :, None]
+    ps = ps[None]
+    wsum = torch.clamp(row_sum(w), min=1e-12)                    # (r, 1)
+    mu_p = row_sum(w * ps) / wsum                                 # (r, 2)
+    mu_q = row_sum(w * qs) / wsum
+    pc = ps - mu_p[:, None, :]                                    # (r, n, 2)
+    qc = (qs - mu_q[:, None, :]) * w
+    # sigma[v, i, j] = sum_m qc[v, m, i] pc[v, m, j] / wsum[v]
+    sigma = row_sum((qc[..., :, None] * pc[..., None, :]).flatten(-2)) \
+        .unflatten(-1, (2, 2)) / wsum[:, :, None]
+    Rd = _rotation2(sigma)                                        # (r, 2, 2)
+    td = mu_q - (Rd[..., 0] * mu_p[:, None, 0]
+                 + Rd[..., 1] * mu_p[:, None, 1])
+    return (ps[..., None, 0] * Rd[:, None, :, 0]
+            + ps[..., None, 1] * Rd[:, None, :, 1]) + td[:, None, :]

@@ -132,3 +132,14 @@ def build(quiet: bool = True) -> bool:
         return False
     _load_failed = False
     return available()
+
+
+def build_locked(quiet: bool = True) -> bool:
+    """`build` under a file lock beside the library: processes that share
+    the build directory (parallel test workers) build it once, and none
+    loads it while another is still writing it."""
+    import fcntl
+    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    with open(_LIB_PATH.parent / ".build.lock", "a+b") as f:
+        fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+        return build(quiet)

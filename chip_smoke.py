@@ -57,10 +57,11 @@ and prints no result line:
              second auction seeded with the first's tables; rounds, ms per
              round and per auction, the local alignment's ms; and n=64
              dense against `task_block=16`, bit-identical. The CPU
-             auctions (and the CPU alignment) run in a child process from
+             auctions (and the CPU alignments) run in a child process from
              the card's inputs while the later phases run, and are joined
              and held against the card's before the kernels line
-             (``cbaa_join``);
+             (``cbaa_join``): winners, tables, rounds and validity equal,
+             and prices and local alignments bit for bit;
 10. slice_cbaa — the `simform1000_cbaa_flooded` deployment, 121 ticks (two
              auctions), with the launch counters read around that run: K3
              once per tick, K1 and K2 never; ms per tick on and off
@@ -299,8 +300,17 @@ and prints no result line:
              masses 1e-4; K2, K3 bit for bit) with ms and bounds; five
              sanitized ticks of two rows, each reading exactly what the
              host finds (the problem starts vehicles outside the room);
-             `sinkhorn_assign(n_iters=50)` at n=2000, ms an instance,
-             launches and the suboptimality against the exact host LAP;
+             the engine's CBAA tick at n=2000 (`SCALE_CBAA_ENGINE`, 21
+             ticks, two auction ticks timed alone) with K3 at (2000, 1000)
+             on its inputs bit for bit; the reference's CBAA rows:
+             `cbaa_earlyexit` at n=2000 (eight chained auctions, task
+             blocks of 64, s an auction, rounds, peak memory, one profiled
+             auction; blocks of 128 bit for bit; each instance's alignment
+             and bids bit for bit against a CPU child's) and
+             `cbaa_fullbudget` at n=1000 (2000 rounds, tables equal to the
+             early exit's); `sinkhorn_assign(n_iters=50)` at n=2000, ms an
+             instance, launches and the suboptimality against the exact
+             host LAP; every report with the card's name and power limit;
 36. the `kernels` line, then the result line. Each kernel row carries the
    contract's keys plus `design`, `prev_design` and `prev_ms` (the first
    design, timed in this run), `launches_by_path` and `batched` (the
@@ -319,6 +329,7 @@ Needs a CUDA card and the repository (it imports `aclswarm_torch`).
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
 import dataclasses
@@ -539,11 +550,16 @@ def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def phase_device() -> dict:
-    smi = subprocess.run(
+def _card() -> str:
+    """The card's name and power limit as `nvidia-smi` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    smi = _card()
     print(smi, flush=True)
     info = {"phase": "device", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -1338,12 +1354,14 @@ def _sync_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _device_profile(fn, top: int = 6) -> dict:
+def _device_profile(fn, top: int = 6, classes: dict | None = None) -> dict:
     """``fn()`` under the profiler, device activity only: the
     device-to-host copies (each read of a flag by the host is one), the
     kernel launches, the device's busy ms and the kernels that took most
-    of it. A warm-up step of one small kernel, traced and dropped, has
-    CUPTI recording before ``fn`` starts."""
+    of it; ``classes`` (label -> substrings of a kernel's full name) adds
+    each class's device ms and share of the busy ms. A warm-up step of one
+    small kernel, traced and dropped, has CUPTI recording before ``fn``
+    starts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1358,6 +1376,7 @@ def _device_profile(fn, top: int = 6) -> dict:
         torch.cuda.synchronize()
         prof.step()
     reads, by_name = 0, {}
+    by_class = dict.fromkeys(classes or (), 0.0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1367,12 +1386,20 @@ def _device_profile(fn, top: int = 6) -> dict:
             acc = by_name.setdefault(e.name[:80], [0, 0.0])
             acc[0] += 1
             acc[1] += e.time_range.elapsed_us() / 1e3
+            for label, keys in (classes or {}).items():
+                if any(k in e.name for k in keys):
+                    by_class[label] += e.time_range.elapsed_us() / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    return {"host_reads": reads,
-            "kernel_launches": sum(v[0] for v in by_name.values()),
-            "device_busy_ms": sum(v[1] for v in by_name.values()),
-            "top": [{"name": k, "launches": v[0], "device_ms": v[1]}
-                    for k, v in ranked]}
+    busy = sum(v[1] for v in by_name.values())
+    out = {"host_reads": reads,
+           "kernel_launches": sum(v[0] for v in by_name.values()),
+           "device_busy_ms": busy,
+           "top": [{"name": k, "launches": v[0], "device_ms": v[1]}
+                   for k, v in ranked]}
+    if classes:
+        out["classes"] = {k: {"device_ms": v, "share": v / busy if busy
+                              else None} for k, v in by_class.items()}
+    return out
 
 
 def _auction_reads(iters: int, max_rounds: int, poll_every: int) -> int:
@@ -1486,10 +1513,14 @@ def _flooded_inputs(seed: int, dev, ticks: int = 6):
 
 
 def _same_cbaa(card, cpu) -> dict:
+    """A card auction against its CPU twin: winners, tables, rounds and
+    validity, and the prices bit for bit (`price_differ` counts the
+    entries that are not)."""
     out = {k + "_equal": torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
-           for k in ("v2f", "f2v", "who")}
+           for k in ("v2f", "f2v", "who", "price")}
     out.update(rounds=int(card.rounds), rounds_cpu=int(cpu.rounds),
                valid=bool(card.valid), valid_cpu=bool(cpu.valid),
+               price_differ=int((card.price.cpu() != cpu.price).sum()),
                price_max_rel_diff=((card.price.cpu() - cpu.price).abs()
                                    / cpu.price.abs().clamp(min=1e-30))
                .max().item())
@@ -1498,27 +1529,102 @@ def _same_cbaa(card, cpu) -> dict:
 
 def _cbaa_agrees(info: dict) -> bool:
     return (info["v2f_equal"] and info["f2v_equal"] and info["who_equal"]
+            and info["price_equal"]
             and info["rounds"] == info["rounds_cpu"]
             and info["valid"] == info["valid_cpu"])
 
 
-# the CPU half of the `cbaa` phase, in a child process: the four n=1000
-# auctions (cold, warm from the cold tables, cold at seeds + 1 and + 2) and
-# the local alignment, from the card's inputs in argv[1], to argv[2]. One
-# thread, pinned to the CPU argv[3], at the lowest priority: the later
-# phases' host work keeps every other core to itself
-_CPU_CBAA = """
-import os
-import sys
-import time
-import torch
+def _same_bits(card: torch.Tensor, cpu: torch.Tensor) -> dict:
+    """How far a card tensor is from its CPU twin: the entries that differ
+    and the largest absolute difference (0 and 0.0 when bit for bit)."""
+    card = card.cpu()
+    return {"differ": int((card != cpu).sum()),
+            "max_abs_diff": (card - cpu).abs().max().item()}
+
+
+# the head of every `_CpuChild`'s code: the lowest priority, the core in
+# argv[1] alone, one thread; argv[2] is the child's scratch directory
+_CPU_CHILD_HEAD = """
+import os, sys
 os.nice(19)
+os.sched_setaffinity(0, {int(sys.argv[1])})
+import torch
 torch.set_num_threads(1)
-os.sched_setaffinity(0, {int(sys.argv[3])})
+scratch = sys.argv[2]
+"""
+
+
+class _CpuChild:
+    """A CPU twin of card work, computed in a child process while the card
+    goes on: ``code`` (after `_CPU_CHILD_HEAD`) runs from the repository's
+    root with ``args`` after the core and its scratch directory, where
+    ``inputs``, if given, waits as ``in.pt``. Each child holds a core that
+    no other child of the run holds (the highest free one; the phases'
+    own host work keeps the lowest) until it is joined or closed. `join`
+    returns its standard output and raises if it failed; `close` kills it
+    if it still runs and removes its scratch directory. A run that ends
+    early leaves no child running (`stop_all`, at exit)."""
+
+    held: set = set()
+    live: list = []
+
+    def __init__(self, tag: str, code: str, *args, inputs=None):
+        free = sorted(set(os.sched_getaffinity(0)) - self.held)
+        if len(free) < 2:
+            raise RuntimeError("no core is left for another CPU child")
+        self.core, self.tag = free[-1], tag
+        self.held.add(self.core)
+        self.scratch = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
+        if inputs is not None:
+            torch.save(inputs, self.scratch / "in.pt")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _CPU_CHILD_HEAD + code, str(self.core),
+             str(self.scratch), *map(str, args)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=Path(__file__).resolve().parent)
+        self.t0 = time.perf_counter()
+        self.live.append(self)
+
+    def _stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.held.discard(self.core)
+
+    def join(self, timeout: float = 900) -> str:
+        try:
+            out, err = self.proc.communicate(timeout=timeout)
+        finally:
+            self._stop()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"the CPU child {self.tag} failed (exit "
+                                 f"{self.proc.returncode}):\n{err[-4000:]}")
+        return out
+
+    def close(self) -> None:
+        self._stop()
+        shutil.rmtree(self.scratch, ignore_errors=True)
+        if self in self.live:
+            self.live.remove(self)
+
+    @classmethod
+    def stop_all(cls) -> None:
+        for child in list(cls.live):
+            child.close()
+
+
+atexit.register(_CpuChild.stop_all)
+
+
+# the CPU half of the `cbaa` phase (a `_CpuChild`): the four n=1000
+# auctions (cold, warm from the cold tables, cold at seeds + 1 and + 2) and
+# the three local alignments, from the card's inputs, to ``out.pt``
+_CPU_CBAA = """
+import time
 from aclswarm_torch.assignment import cbaa
 from aclswarm_torch.core import geometry
 t0 = time.perf_counter()
-inp = torch.load(sys.argv[1], weights_only=False)
+inp = torch.load(f"{scratch}/in.pt", weights_only=False)
 block = inp["block"]
 
 def keep(res):
@@ -1529,28 +1635,28 @@ out = {}
 for i, case in enumerate(inp["cases"]):
     args = (case["q"], case["points"], case["adjmat"], case["v2f"])
     cold = cbaa.cbaa_from_state(*args, est=case["est"], task_block=block)
-    out[i] = {"cold": keep(cold)}
+    out[i] = {"cold": keep(cold), "align": geometry.align_formation_local(
+        *args, est=case["est"])}
     if i == 0:
         out[i]["warm"] = keep(cbaa.cbaa_from_state(
             *args, est=case["est"], task_block=block,
             warm=cbaa.CbaaTables(price=cold.price, who=cold.who)))
-        out[i]["align"] = geometry.align_formation_local(
-            *args[:3], args[3], est=case["est"])
 out["seconds"] = time.perf_counter() - t0
-torch.save(out, sys.argv[2])
+torch.save(out, f"{scratch}/out.pt")
 """
 
 
 def phase_cbaa(seed: int):
     """CBAA at n=1000, float32, `task_block=64`, estimates from a flooded
     table: a cold auction and one seeded with its tables on the card, then
-    the cold auction on the card at seeds ``seed`` + 1 and + 2 (a near-tie
-    within the alignments' ~1e-6 would flip a winner at one seed and not
-    another), and n=64 dense against `task_block=16` on the card, bit for
-    bit. The same auctions on the CPU, from the card's inputs, run in a
+    the cold auction on the card at seeds ``seed`` + 1 and + 2, and n=64
+    dense against `task_block=16` on the card, bit for bit. The same
+    auctions and alignments on the CPU, from the card's inputs, run in a
     child process while the later phases run: the returned `_CbaaPending`
     joins it and holds each card auction against its CPU twin before the
-    kernels line."""
+    kernels line, prices and alignments bit for bit (the alignment and
+    the bids round in one order on both devices, and the consensus after
+    them is exact, so no near-tie can part them)."""
     from aclswarm_torch.assignment import cbaa
     from aclswarm_torch.core import geometry
 
@@ -1559,17 +1665,9 @@ def phase_cbaa(seed: int):
     inputs = [_flooded_inputs(s, dev) for s in (seed, seed + 1, seed + 2)]
     formation, q, est, v2f = inputs[0]
     pts, adj = formation.points, formation.adjmat
-    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_cbaa_"))
-    torch.save({"block": block, "cases": [
+    child = _CpuChild("cbaa", _CPU_CBAA, inputs={"block": block, "cases": [
         {"q": qq.cpu(), "points": f.points.cpu(), "adjmat": f.adjmat.cpu(),
-         "v2f": vv.cpu(), "est": ee.cpu()} for f, qq, ee, vv in inputs]},
-        scratch / "in.pt")
-    child = subprocess.Popen(
-        [sys.executable, "-c", _CPU_CBAA, str(scratch / "in.pt"),
-         str(scratch / "out.pt"), str(max(os.sched_getaffinity(0)))],
-        stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
-        cwd=Path(__file__).resolve().parent)
+         "v2f": vv.cpu(), "est": ee.cpu()} for f, qq, ee, vv in inputs]})
 
     def run(warm=None):
         return cbaa.cbaa_from_state(q, pts, adj, v2f, est=est,
@@ -1585,7 +1683,8 @@ def phase_cbaa(seed: int):
     cold_prof = _device_profile(run)
     warm, warm_ms = _sync_ms(lambda: run(cbaa.CbaaTables(price=cold.price,
                                                          who=cold.who)))
-    al = geometry.align_formation_local(q, pts, adj, v2f, est=est)
+    al = [geometry.align_formation_local(qq, f.points, f.adjmat, vv, est=ee)
+          for f, qq, ee, vv in inputs]
     lines = [("cold", seed, cold, cold_ms,
               dict(**cold_prof, peak_memory_bytes=peak)),
              ("warm", seed, warm, warm_ms, {})]
@@ -1606,67 +1705,56 @@ def phase_cbaa(seed: int):
           "valid": bool(dense.valid)})
     if not same:
         raise AssertionError("cbaa: task_block=16 differs from dense")
-    return _CbaaPending(child, scratch, lines, al, align_ms, block, seed)
+    return _CbaaPending(child, lines, al, align_ms, block, seed)
 
 
 class _CbaaPending:
     """The `cbaa` phase's CPU child, joined before the kernels line."""
 
-    def __init__(self, child, scratch, lines, al, align_ms, block, seed):
-        self.child, self.scratch, self.lines = child, scratch, lines
+    def __init__(self, child, lines, al, align_ms, block, seed):
+        self.child, self.lines = child, lines
         self.al, self.align_ms, self.block, self.seed = (al, align_ms,
                                                          block, seed)
-        self.t0 = time.perf_counter()
 
     def join(self) -> dict:
         """Wait for the CPU auctions (900 s at most) and hold every card
-        auction against its CPU twin: winners, tables and rounds equal,
-        the alignments within 1e-2 m. Raises on any failure."""
+        auction against its CPU twin: winners, tables, prices, rounds and
+        validity equal, and its local alignment equal to the CPU's, bit
+        for bit. Raises on any failure."""
         from types import SimpleNamespace
 
         from aclswarm_torch.assignment import cbaa
 
         try:
-            _, err = self.child.communicate(timeout=900)
+            self.child.join()
+            cpu = torch.load(self.child.scratch / "out.pt",
+                             weights_only=False)
         finally:
-            if self.child.poll() is None:
-                self.child.kill()
-                self.child.wait()
-        try:
-            if self.child.returncode != 0:
-                raise AssertionError(f"cbaa: the CPU auctions failed (exit "
-                                     f"{self.child.returncode}):\n"
-                                     f"{err[-4000:]}")
-            cpu = torch.load(self.scratch / "out.pt", weights_only=False)
-        finally:
-            shutil.rmtree(self.scratch, ignore_errors=True)
-        joined_s = time.perf_counter() - self.t0
+            self.child.close()
+        joined_s = time.perf_counter() - self.child.t0
         twins = [cpu[0]["cold"], cpu[0]["warm"], cpu[1]["cold"],
                  cpu[2]["cold"]]
-        for (label, s, card, ms, extra), twin in zip(self.lines, twins):
+        for (label, s, card, ms, extra), twin, i in zip(self.lines, twins,
+                                                        (0, 0, 1, 2)):
+            align = _same_bits(self.al[i], cpu[i]["align"])
             info = {"phase": "cbaa", "auction": label, "seed": s, "n": N,
                     "dtype": "float32", "task_block": self.block,
-                    **_same_cbaa(card, SimpleNamespace(**twin)), "ms": ms}
+                    **_same_cbaa(card, SimpleNamespace(**twin)),
+                    "align_differ": align["differ"],
+                    "align_max_abs_diff": align["max_abs_diff"], "ms": ms}
             if s == self.seed:
                 info.update(poll_every=cbaa.POLL_EVERY, ms_per_round=(
                     ms - self.align_ms) / max(int(card.rounds), 1),
                     align_ms=self.align_ms)
             if label == "cold" and s == self.seed:
-                info.update(**extra, align_max_abs_diff=(
-                    self.al.cpu() - cpu[0]["align"]).abs().max().item(),
-                    cpu_child_seconds=cpu["seconds"],
-                    joined_after_seconds=joined_s)
+                info.update(**extra, cpu_child_seconds=cpu["seconds"],
+                            joined_after_seconds=joined_s)
             emit(info)
-            if not _cbaa_agrees(info):
+            if not _cbaa_agrees(info) or align["differ"]:
                 raise AssertionError(f"cbaa check failed: {info}")
             if not bool(card.valid):
                 raise AssertionError(f"cbaa: an auction at n=1000 was "
                                      f"invalid: {info}")
-        # float32 sums of up to n weighted positions in two orders: the two
-        # alignments may differ by ~1e-4 m on a 130 m formation
-        if (self.al.cpu() - cpu[0]["align"]).abs().max().item() > 1e-2:
-            raise AssertionError("cbaa: the card's alignment is off the "
-                                 "CPU's")
         return {"cpu_child_seconds": cpu["seconds"]}
 
 
@@ -1681,28 +1769,31 @@ def _cbaa_tick_inputs(state, formation, cfg):
     return state.swarm.q, loc.est, state.v2f
 
 
-def _rollout_in_pieces(state, formation, gains, sparams, cfg) -> dict:
-    """121 ticks as tick 0 (auction), ticks 1-119, tick 120 (auction), each
-    piece ended by a synchronize: the final state, the ms of each auction
-    tick, the ms per tick of the others, the stacked `assign_valid` and
-    `auctioned`, and the state before each auction tick."""
+def _rollout_in_pieces(state, formation, gains, sparams, cfg,
+                       period: int = TICKS_AUCTIONS - 1) -> dict:
+    """``period`` + 1 ticks as tick 0 (auction), ticks 1 to ``period`` - 1,
+    tick ``period`` (auction), each piece ended by a synchronize: the final
+    state, the ms of each auction tick, the ms per tick of the others, the
+    stacked `assign_valid`, `auctioned` and `v2f`, and the state before
+    each auction tick."""
     from aclswarm_torch import sim
 
     out = {"auction_tick_ms": [], "befores": []}
-    valid, auctioned = [], []
-    for ticks in (1, TICKS_AUCTIONS - 2, 1):
+    valid, auctioned, v2f = [], [], []
+    for ticks in (1, period - 1, 1):
         before = state
         (state, m), ms = _sync_ms(lambda: sim.rollout(
             before, formation, gains, sparams, cfg, ticks))
         valid.append(m.assign_valid)
         auctioned.append(m.auctioned)
+        v2f.append(m.v2f)
         if ticks == 1:
             out["auction_tick_ms"].append(ms)
             out["befores"].append(before)
         else:
             out["other_ms_per_tick"] = ms / ticks
     out.update(final=state, valid=torch.cat(valid),
-               auctioned=torch.cat(auctioned))
+               auctioned=torch.cat(auctioned), v2f=torch.cat(v2f))
     return out
 
 
@@ -1712,6 +1803,7 @@ def phase_slice_cbaa(seed: int) -> dict:
     trial harness carries no warm tables), 121 ticks."""
     from aclswarm_torch import ops, sim
     from aclswarm_torch.assignment import cbaa
+    from aclswarm_torch.core import geometry
     from aclswarm_torch.core import perm as permutil
 
     dev = torch.device("cuda")
@@ -1720,11 +1812,19 @@ def phase_slice_cbaa(seed: int) -> dict:
         keepout_repulse_vel=KEEPOUT_REPULSE_VEL)
     cfg = sim.SimConfig(**ENGINE_CBAA)
 
-    def auction_at(before, on):
+    def inputs_at(before, on):
         q, est, v2f = _cbaa_tick_inputs(before, formation, cfg)
-        return cbaa.cbaa_from_state(
-            q.to(on), formation.points.to(on), formation.adjmat.to(on),
-            v2f.to(on), est=est.to(on), task_block=cfg.cbaa_task_block)
+        return (q.to(on), formation.points.to(on), formation.adjmat.to(on),
+                v2f.to(on)), est.to(on)
+
+    def auction_at(before, on):
+        args, est = inputs_at(before, on)
+        return cbaa.cbaa_from_state(*args, est=est,
+                                    task_block=cfg.cbaa_task_block)
+
+    def align_at(before, on):
+        args, est = inputs_at(before, on)
+        return geometry.align_formation_local(*args, est=est)
 
     sim.rollout(state, formation, gains, sparams,
                 sim.SimConfig(**dict(ENGINE_CBAA, assignment="none")), 2)
@@ -1737,7 +1837,8 @@ def phase_slice_cbaa(seed: int) -> dict:
     final = run["final"]
 
     # outside the counted run: each auction once more for its round count,
-    # and an invalid one against the CPU on the same inputs
+    # and an invalid one against the CPU on the same inputs, prices and
+    # alignment bit for bit
     rounds = []
     for before, ok in zip(run["befores"],
                           run["valid"][run["auctioned"]].tolist()):
@@ -1745,9 +1846,12 @@ def phase_slice_cbaa(seed: int) -> dict:
         rounds.append(int(again.rounds))
         if not ok:
             same = _same_cbaa(again, auction_at(before, "cpu"))
+            align = _same_bits(align_at(before, dev), align_at(before, "cpu"))
+            same.update(align_differ=align["differ"],
+                        align_max_abs_diff=align["max_abs_diff"])
             emit({"phase": "slice_cbaa",
                   "invalid_auction_at_tick": before.tick, **same})
-            if not _cbaa_agrees(same):
+            if not _cbaa_agrees(same) or align["differ"]:
                 raise AssertionError("slice_cbaa: an invalid auction on the "
                                      f"card differs from the CPU's: {same}")
 
@@ -6054,14 +6158,15 @@ def _product_place(dev) -> dict:
     and against two halves of the rows, and `vector_norm` over (2, N, 3)
     against its two halves: a finding, the reason for the next line. The
     elementwise product (`control.distcntrl._gain_product`) rolled and in
-    halves, and the row sum (`_row_sum`) of blocks of `PLACE_ROWS` rows at
-    the first and the last offset, of one trial and of two, against the
-    whole swarm's: every count 0, or the phase fails. `torch.sum` on the
-    same blocks is printed beside it, with how many of the product's
-    outputs the change of formulation moved, and the kernel launches and
-    device ms of the control law's product and row sum in each
-    formulation at n=1000 (`law_device`)."""
+    halves, and the row sum (`core.geometry.row_sum`) of blocks of
+    `PLACE_ROWS` rows at the first and the last offset, of one trial and
+    of two, against the whole swarm's: every count 0, or the phase fails.
+    `torch.sum` on the same blocks is printed beside it, with how many of
+    the product's outputs the change of formulation moved, and the kernel
+    launches and device ms of the control law's product and row sum in
+    each formulation at n=1000 (`law_device`)."""
     from aclswarm_torch.control import distcntrl
+    from aclswarm_torch.core import geometry
 
     def bmm(g, q):
         return torch.einsum("ijab,ijb->ija", g, q)
@@ -6106,13 +6211,13 @@ def _product_place(dev) -> dict:
     new, info = place(distcntrl._gain_product)
     adj = x[0, ..., :1] > 0
     laws = {"einsum_and_sum": lambda: torch.sum(adj * bmm(g, q), dim=-2),
-            "elementwise_and_fold": lambda: distcntrl._row_sum(
+            "elementwise_and_fold": lambda: geometry.row_sum(
                 adj * distcntrl._gain_product(g, q))}
     info.update({"phase": "parallel",
                  "product_place": "elementwise gain product, row fold",
                  "outputs": new.numel(),
                  "moved_from_einsum": int((new != old).sum()),
-                 "row_fold_differ": rows(distcntrl._row_sum),
+                 "row_fold_differ": rows(geometry.row_sum),
                  "torch_sum_differ": rows(lambda t: torch.sum(t, dim=-2)),
                  "law_device": {k: _law_profile(f)
                                 for k, f in laws.items()}})
@@ -6317,19 +6422,32 @@ SCALE_SINKHORN_ITERS = 50
 SCALE_INSTANCES = 8          # the reference chains 400
 SCALE_PROFILE_TICKS = 5      # one profiled window per row
 SCALE_CHECKED_TICKS = 5      # the sanitizer's windows
+# `bench_all`'s CBAA rows (:484-536): `cbaa_faithful_earlyexit` times a
+# chain of Kc = 8 auctions (2 under --quick) at `build_bench_problem`'s
+# task block, from the identity assignment; `cbaa_fullbudget` runs the
+# fixed 2n-round budget on one instance at n <= 1024 (here n=1000)
+SCALE_CBAA_CHAIN = 8
+SCALE_CBAA_BLOCK = 64
+# the engine's CBAA tick on the scale problem's flooded start: the
+# `simform1000_cbaa_flooded` engine with an auction every 20 ticks, so
+# that the window (ticks 0-20) holds two auction ticks
+SCALE_CBAA_ENGINE = dict(ENGINE_CBAA, assign_every=20)
 
 
 def scale_arrays(n: int, rng) -> dict:
     """`benchmarks/scale.py` `build_bench_problem` (:98-125) as numpy
     arrays, in its draw order from ``rng``: the points, the complete
     graph, (n, n, 3, 3) gains x 0.01 and an airborne start; then the start
-    `bench_all` draws next for the flooded rows (:425-427)."""
+    `bench_all` draws next for the flooded rows (:425-427) and the
+    `SCALE_CBAA_CHAIN` vehicle position sets of its CBAA rows (:496)."""
     pts = rng.normal(size=(n, 3)).astype(np.float32) * 20
     adj = (np.ones((n, n)) - np.eye(n)).astype(np.float32)
     gains = (rng.normal(size=(n, n, 3, 3)) * 0.01).astype(np.float32)
     q0 = rng.normal(size=(n, 3)).astype(np.float32) * 20 + [0, 0, 2]
     q_loc = rng.normal(size=(n, 3)).astype(np.float32) * 20 + [0, 0, 2]
-    return dict(points=pts, adjmat=adj, gains=gains, q0=q0, q_loc=q_loc)
+    cbaa_q = rng.normal(size=(SCALE_CBAA_CHAIN, n, 3)).astype(np.float32) * 20
+    return dict(points=pts, adjmat=adj, gains=gains, q0=q0, q_loc=q_loc,
+                cbaa_q=cbaa_q)
 
 
 def scale_instances(n: int, k: int, seed: int = 0) -> tuple:
@@ -6357,20 +6475,40 @@ def _scale_problem(arrays: dict, flooded: bool, dev, dtype, **init_kw):
     return formation, types.ControlGains(), sparams, state
 
 
-# the exact host LAP of the Sinkhorn row's first instance, in a child
-# process on one CPU at nice 19 while the card rolls the engine rows
+# the exact host LAP of the Sinkhorn row's first instance at n=argv[3]
+# of argv[4] instances, printed, in a `_CpuChild` while the card rolls the
+# engine rows
 _SCALE_LAP = """
-import json, os, sys
-os.nice(19)
-os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[-2]})
 import numpy as np
 from aclswarm_torch.assignment.lapjv import lapjv
 import chip_smoke
-n, k, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+n, k = int(sys.argv[3]), int(sys.argv[4])
 p, qs = chip_smoke.scale_instances(n, k)
 cost = chip_smoke.scale_host_cost(qs[0], p)
 col = lapjv(cost)
-json.dump({"opt": float(cost[np.arange(n), col].sum())}, open(out, "w"))
+print(float(cost[np.arange(n), col].sum()))
+"""
+
+
+# the CBAA rows' local alignments and bids at n=argv[3] on the CPU, one
+# file an instance in the scratch directory, in a `_CpuChild` while the
+# card rolls the engine rows
+_SCALE_CBAA_CPU = """
+import time
+import numpy as np
+from aclswarm_torch.assignment import cbaa
+from aclswarm_torch.core import geometry
+import chip_smoke
+n = int(sys.argv[3])
+a = chip_smoke.scale_arrays(n, np.random.default_rng(0))
+P, A = torch.from_numpy(a["points"]), torch.from_numpy(a["adjmat"])
+v2f0 = torch.arange(n, dtype=torch.int32)
+t0 = time.perf_counter()
+for i, q in enumerate(torch.from_numpy(a["cbaa_q"])):
+    al = geometry.align_formation_local(q, P, A, v2f0)
+    torch.save({"align": al, "price": cbaa.bid_prices(q, al)},
+               f"{scratch}/{i}.pt")
+print(time.perf_counter() - t0)
 """
 
 
@@ -6445,13 +6583,165 @@ def _scale_row(name: str, n: int, arrays: dict) -> tuple[dict, tuple]:
     return info, (formation, gains, sparams, state, cfg)
 
 
+def _scale_cbaa_engine(arrays: dict, card: str) -> tuple[dict, tuple]:
+    """The engine's CBAA tick at n=2000 (`SCALE_CBAA_ENGINE`) from the
+    scale problem's flooded start in its bounds: a two-tick warm-up, then
+    ticks 0-20 in pieces (`_rollout_in_pieces`: the two auction ticks
+    alone), with the launch counters and the peak memory read around them
+    (the problem's tensors resident before); every state finite, `v2f` a
+    permutation at every tick, ages within the cap, K3 once a tick and K1
+    and K2 never. Returns the report and the row's inputs."""
+    from aclswarm_torch import ops, sim
+    from aclswarm_torch.sim import localization as loclib
+
+    n, period = SCALE_N, SCALE_CBAA_ENGINE["assign_every"]
+    dev = torch.device("cuda")
+    formation, gains, sparams, state = _scale_problem(arrays, True, dev,
+                                                      torch.float32)
+    cfg = sim.SimConfig(**SCALE_CBAA_ENGINE)
+    sim.rollout(state, formation, gains, sparams, cfg, 2)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = _rollout_in_pieces(state, formation, gains, sparams, cfg, period)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    final = run["final"]
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        final.swarm.q, final.swarm.vel, final.loc.est))
+    perm = bool((torch.sort(run["v2f"].long(), dim=-1).values
+                 == torch.arange(n, device=dev)).all())
+    info = {"phase": "scale", "row": "cbaa_engine", "n": n, "card": card,
+            "config": dict(SCALE_CBAA_ENGINE),
+            "ticks": period + 1, "auction_tick_ms": run["auction_tick_ms"],
+            "ordinary_ms_per_tick": run["other_ms_per_tick"],
+            "auctions": int(run["auctioned"].sum()),
+            "valid_auctions": int((run["valid"] & run["auctioned"]).sum()),
+            "launches": launches, "peak_memory_bytes": peak,
+            "resident_before_bytes": resident, "finite": finite,
+            "v2f_permutation_every_tick": perm,
+            "max_age": int(final.loc.age.max()), "age_cap": loclib.AGE_CAP}
+    emit(info)
+    if not (finite and perm and info["max_age"] <= loclib.AGE_CAP
+            and info["auctions"] == 2
+            and launches["flood_merge"] == period + 1
+            and launches["sinkhorn_log"] == 0
+            and launches["round_dominant"] == 0):
+        raise AssertionError(f"scale cbaa_engine n={n}: {info}")
+    return info, (formation, gains, sparams, state, cfg)
+
+
+def _scale_cbaa(arrays: dict, cpu: _CpuChild, card: str) -> dict:
+    """`bench_all`'s CBAA rows on the card. `cbaa_earlyexit` at n=2000:
+    `cbaa_from_state` (task blocks of 64, the identity assignment) over
+    the `SCALE_CBAA_CHAIN` instances, each timed alone (host clock,
+    synchronized), with the launch counters and the peak memory read
+    around the chain (the problem's tensors resident before it), every
+    auction valid; one auction profiled (device busy ms, the shares of
+    the masked broadcast and of the max over senders); instance 0 in task
+    blocks of 128 equal to 64's bit for bit; and every instance's local
+    alignment and bids equal bit for bit to the CPU child's (``cpu``),
+    which with the exact consensus after them
+    makes each card auction the CPU's. `cbaa_fullbudget` at n=1000: the
+    fixed 2n-round budget on instance 0, 2000 rounds, its tables equal to
+    the early-exit auction's bit for bit. Raises on any failure."""
+    from aclswarm_torch import ops
+    from aclswarm_torch.assignment import cbaa
+    from aclswarm_torch.core import geometry
+
+    dev = torch.device("cuda")
+    blk = SCALE_CBAA_BLOCK
+
+    def inputs(n):
+        a = arrays[n]
+        return (torch.tensor(a["cbaa_q"], device=dev),
+                torch.tensor(a["points"], device=dev),
+                torch.tensor(a["adjmat"], device=dev),
+                torch.arange(n, dtype=torch.int32, device=dev))
+
+    n = SCALE_N
+    qs, pts, adj, v2f0 = inputs(n)
+
+    def auction(q, block=blk, **kw):
+        return cbaa.cbaa_from_state(q, pts, adj, v2f0, task_block=block,
+                                    **kw)
+
+    auction(qs[0], n_iters=2)                                  # warm-up
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    runs = [_sync_ms(lambda: auction(q)) for q in qs]
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _device_profile(lambda: auction(qs[0]), top=8, classes={
+        "masked_broadcast": ("where_kernel",),
+        "max_over_senders": ("MaxOps",)})
+    wide, wide_ms = _sync_ms(lambda: auction(qs[0], block=2 * blk))
+    same_blocks = all(torch.equal(a, b) for a, b in zip(runs[0][0], wide))
+    secs = [ms / 1e3 for _, ms in runs]
+    info = {"phase": "scale", "row": "cbaa_earlyexit", "n": n, "card": card,
+            "reference": f"cbaa_faithful_earlyexit_n{n}_b{blk}_hz",
+            "task_block": blk, "chain": len(runs),
+            "reference_chain": SCALE_CBAA_CHAIN,
+            "s_per_auction": float(np.median(secs)),
+            "s_per_auction_each": secs,
+            "rounds": [int(r.rounds) for r, _ in runs], "budget": 2 * n,
+            "valid": all(bool(r.valid) for r, _ in runs),
+            "peak_memory_bytes": peak, "resident_before_bytes": resident,
+            "launches": launches, "profiled_auction": prof}
+    emit(info)
+    emit({"phase": "scale", "check": f"cbaa n={n} task_block {blk} vs "
+          f"{2 * blk}", "card": card, "bit_identical": same_blocks,
+          "ms": runs[0][1], "ms_wide": wide_ms})
+
+    # the CPU child's alignments and bids, bit for bit
+    out = cpu.join()
+    align, price = [], []
+    for i, q in enumerate(qs):
+        twin = torch.load(cpu.scratch / f"{i}.pt")
+        al = geometry.align_formation_local(q, pts, adj, v2f0)
+        align.append(_same_bits(al, twin["align"])["differ"])
+        price.append(_same_bits(cbaa.bid_prices(q, al),
+                                twin["price"])["differ"])
+    bits = {"phase": "scale", "check": f"cbaa n={n} alignment and bids, "
+            "card vs CPU", "card": card, "instances": len(qs),
+            "align_differ": align, "price_differ": price,
+            "of": [n * n * 3, n * n], "cpu_child_seconds": float(out.split()[-1])}
+    emit(bits)
+    del qs, pts, adj, v2f0
+
+    # the fixed budget at n=1000 against the early exit
+    qs, pts, adj, v2f0 = inputs(N)
+    fast = auction(qs[0])
+    ops.reset_launches()
+    full, full_ms = _sync_ms(lambda: auction(qs[0], early_exit=False))
+    budget = {"phase": "scale", "row": "cbaa_fullbudget", "n": N,
+              "card": card, "reference": f"cbaa_fullbudget_n{N}_b{blk}_hz",
+              "task_block": blk, "chain": 1, "reference_chain": 1,
+              "s_per_auction": full_ms / 1e3, "rounds": int(full.rounds),
+              "early_exit_rounds": int(fast.rounds),
+              "launches": dict(ops.LAUNCHES),
+              "tables_equal_early_exit": all(
+                  torch.equal(getattr(fast, k), getattr(full, k))
+                  for k in ("v2f", "f2v", "price", "who"))}
+    emit(budget)
+    if not (info["valid"] and same_blocks and not any(align)
+            and not any(price) and budget["rounds"] == 2 * N
+            and budget["tables_equal_early_exit"]):
+        raise AssertionError(f"scale cbaa: {info} {bits} {budget}")
+    return {"earlyexit": info, "fullbudget": budget, "bits": bits}
+
+
 def _scale_kernels(row: str, inputs: tuple) -> dict:
     """The kernels of an n=2000 row on the inputs it hands them at its
     first tick: on `streaming`, K1 (the multi-launch design, 2 n_iters + 2
     launches a solve) within 5e-5 of `sinkhorn_log_plain` with masses
     within 1e-4, and K2 on K1's plan bit for bit; on `flooded_round` and
-    `flooded_phased2`, K3 at (n, n) and (n, n/2) bit for bit; each with
-    its ms, the plain version's ms and its bound."""
+    `flooded_phased2`, K3 at (n, n) and (n, n/2) bit for bit, and on
+    `cbaa_engine` at (n, n/2); each with its ms, the plain version's ms
+    and its bound."""
     from aclswarm_torch import ops, sim
     from aclswarm_torch.ops import rounding
 
@@ -6483,7 +6773,7 @@ def _scale_kernels(row: str, inputs: tuple) -> dict:
                                       K2_KERNELS),
                          plain_ms=time_ms(lambda: ops.round_dominant_plain(
                              plan), 1))
-    elif row in ("flooded_round", "flooded_phased2"):
+    elif row in ("flooded_round", "flooded_phased2", "cbaa_engine"):
         (packed, comm, *_), _ = first_calls(("flood_merge",))[
             "flood_merge"][0]
         w = packed.shape[-1]
@@ -6537,7 +6827,7 @@ def _scale_checked(inputs: tuple) -> list:
     return ticks
 
 
-def _scale_sinkhorn(lap_out: Path, lap) -> dict:
+def _scale_sinkhorn(lap: _CpuChild) -> dict:
     """`sinkhorn_assign(q, p, n_iters=50)` at n=2000 on `SCALE_INSTANCES`
     seeded instances: ms an instance (host clock, synchronized), launches
     an instance (K1's multi-launch design, K2 once), K1 on the first
@@ -6564,11 +6854,7 @@ def _scale_sinkhorn(lap_out: Path, lap) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / k
     launches = {name: c / k for name, c in ops.LAUNCHES.items()}
-    lap.wait(timeout=600)
-    if lap.returncode != 0:
-        raise AssertionError(f"scale: the host LAP child failed "
-                             f"({lap.returncode}): {lap.stderr.read()}")
-    opt = json.loads(lap_out.read_text())["opt"]
+    opt = float(lap.join(timeout=600).split()[-1])
     cost64 = scale_host_cost(qs[0], p)
     got = float(cost64[np.arange(n), v2f[0].cpu().numpy()].sum())
     b, by = bound_ms(10 * n * n * iters + 2 * n * n, 8 * n * n)
@@ -6598,16 +6884,16 @@ def phase_scale(seed: int) -> dict:
     at n=1000), each with its ms a tick, launches, peak memory and a
     profiled window (`_scale_row`); K1 (multi-launch), K2 and K3 at
     n=2000 on the rows' own inputs against their plain versions
-    (`_scale_kernels`); the sanitizer's windows (`_scale_checked`); and
-    `sinkhorn_assign` at n=2000 (`_scale_sinkhorn`). ``launches`` holds
-    each row's counts over its timed window."""
-    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_scale_"))
-    lap_out = scratch / "lap.json"
-    lap = subprocess.Popen(
-        [sys.executable, "-c", _SCALE_LAP, str(SCALE_N),
-         str(SCALE_INSTANCES), str(lap_out)], stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True,
-        cwd=Path(__file__).resolve().parent)
+    (`_scale_kernels`); the sanitizer's windows (`_scale_checked`); the
+    engine's CBAA tick at n=2000 with K3 on its inputs
+    (`_scale_cbaa_engine`); the CBAA rows, `cbaa_earlyexit` at n=2000 held
+    against the CPU's alignments and bids and `cbaa_fullbudget` at n=1000
+    (`_scale_cbaa`); and `sinkhorn_assign` at n=2000 (`_scale_sinkhorn`).
+    ``launches`` holds each row's counts over its timed window; every
+    report carries the card's name and power limit."""
+    card = _card()
+    lap = _CpuChild("scale_lap", _SCALE_LAP, SCALE_N, SCALE_INSTANCES)
+    cbaa_cpu = _CpuChild("scale_cbaa", _SCALE_CBAA_CPU, SCALE_N)
     try:
         arrays = {n: scale_arrays(n, np.random.default_rng(0))
                   for n in SCALE_STREAM_NS}
@@ -6624,37 +6910,47 @@ def phase_scale(seed: int) -> dict:
                     if name in ("streaming", "flooded_round"):
                         checked[name] = _scale_checked(inp)
                 del inp
-        del arrays
         emit({"phase": "scale", "sanitizer": checked})
         bad = [(row, t) for row, ticks in checked.items() for t in ticks
                if not t["as_the_host"]]
         if bad:
             raise AssertionError(f"scale: the sanitizer's readings at n="
                                  f"{SCALE_N} are not the host's: {bad}")
-        sk = _scale_sinkhorn(lap_out, lap)
+        engine, inp = _scale_cbaa_engine(arrays[SCALE_N], card)
+        kernels.update(_scale_kernels("cbaa_engine", inp))
+        del inp
+        cb = _scale_cbaa(arrays, cbaa_cpu, card)
+        del arrays
+        sk = _scale_sinkhorn(lap)
     finally:
-        if lap.poll() is None:
-            lap.kill()
-            lap.wait()
-        shutil.rmtree(scratch, ignore_errors=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    info = {"phase": "scale", "card": smi,
-            "cuts": {k: {"ticks": v["ticks"],
-                         "reference_ticks": v["reference_ticks"]}
-                     for k, v in rows.items()},
+        lap.close()
+        cbaa_cpu.close()
+    cuts = {k: {"ticks": v["ticks"], "reference_ticks": v["reference_ticks"]}
+            for k, v in rows.items()}
+    cuts.update({f"cbaa_{k}": {"chain": v["chain"],
+                               "reference_chain": v["reference_chain"]}
+                 for k, v in cb.items() if "chain" in v},
+                cbaa_engine={"ticks": engine["ticks"]})
+    info = {"phase": "scale", "card": card, "cuts": cuts,
             "ms_per_tick": {k: v["ms_per_tick"] for k, v in rows.items()},
             "sinkhorn_assign_ms": sk["ms_per_instance"],
-            "subopt": sk["subopt"]}
+            "subopt": sk["subopt"],
+            "cbaa_earlyexit_s": cb["earlyexit"]["s_per_auction"],
+            "cbaa_fullbudget_s": cb["fullbudget"]["s_per_auction"],
+            "cbaa_engine_ms": {
+                "auction_tick": engine["auction_tick_ms"],
+                "ordinary_tick": engine["ordinary_ms_per_tick"]}}
     emit(info)
     launches = {k: v["launches"] for k, v in rows.items()}
     launches["sinkhorn_assign"] = {
         k: int(v * SCALE_INSTANCES)
         for k, v in sk["launches_per_instance"].items()}
+    launches.update(cbaa_engine=engine["launches"],
+                    cbaa_earlyexit=cb["earlyexit"]["launches"],
+                    cbaa_fullbudget=cb["fullbudget"]["launches"])
     return dict(info, rows=rows, kernels=kernels, checked=checked,
-                sinkhorn_assign=sk, launches=launches)
+                sinkhorn_assign=sk, cbaa=cb, cbaa_engine=engine,
+                launches=launches)
 
 
 def main(argv=None) -> int:

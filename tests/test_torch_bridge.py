@@ -31,11 +31,17 @@ from aclswarm_torch.interop import native as nat
 torch.set_num_threads(1)  # tiny tensors: threads only contend across workers
 
 REPO = Path(__file__).resolve().parents[1]
-needs_native = pytest.mark.skipif(
-    nat.load() is None,
-    reason="the shm rings need native/build/libaclswarm_native.so "
-           "(make -C native)")
-pytestmark = needs_native
+
+
+@pytest.fixture(autouse=True)
+def native():
+    """Build the native library once (under a file lock: test workers
+    share the build directory) or skip. Decided when a test runs, never
+    at import: there another worker's build may still be writing the
+    library, and the cases would skip in that worker alone."""
+    if not nat.build_locked():
+        pytest.skip("the shm rings need native/build/libaclswarm_native.so "
+                    "(make -C native)")
 
 
 def _load_factor() -> float:

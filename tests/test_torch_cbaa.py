@@ -395,6 +395,20 @@ def test_bid_prices_bit_for_bit():
         np.asarray(jcbaa.bid_prices(_j(q), _j(pal))))
 
 
+@pytest.mark.parametrize("n,seed", [(40, 12), (130, 3)])
+def test_bid_prices_bit_for_bit_float32(n, seed):
+    """In float32 the port writes the reference's norm out (a fused
+    multiply-add chain, the correctly rounded root) so that the card
+    rounds it as the CPU does: the bits are still the reference's."""
+    q, p, adj, v2f = _case(n, seed)
+    q = q.astype(np.float32)
+    pal = _aligned(q, p, adj, v2f).astype(np.float32)
+    np.testing.assert_array_equal(
+        cbaa.bid_prices(_t(q, torch.float32), _t(pal, torch.float32))
+        .numpy(),
+        np.asarray(jcbaa.bid_prices(jnp.asarray(q), jnp.asarray(pal))))
+
+
 @settings(max_examples=20, deadline=None)
 @given(n=st.integers(2, 10), seed=st.integers(0, 2**31 - 1),
        task_block=st.sampled_from([None, 1, 3]), grid=st.booleans(),

@@ -270,13 +270,16 @@ class TestLoopback:
         np.testing.assert_array_equal(rb.assignment_from_ros(
             ros.pubs["/SQ04s/assignment"].published[-1]), pushed)
 
-    @pytest.mark.skipif(nat.load() is None,
-                        reason="the shm rings need "
-                               "native/build/libaclswarm_native.so "
-                               "(make -C native)")
     def test_shm_backend_two_process_deployment(self):
         """fake ROS graph -> adapter node -> ShmPlannerClient -> shm rings
-        -> the port's planner daemon subprocess -> back."""
+        -> the port's planner daemon subprocess -> back. The native library
+        is built (under a file lock: test workers share the build
+        directory) when the test runs, never at import, where another
+        worker's build may still be writing it; the test skips only if the
+        build fails."""
+        if not nat.build_locked():
+            pytest.skip("the shm rings need native/build/"
+                        "libaclswarm_native.so (make -C native)")
         ns = f"/asw-torchros-{uuid.uuid4().hex[:8]}"
         n = 4
         env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")

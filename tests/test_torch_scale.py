@@ -10,7 +10,12 @@ n=130 is past both of the problem's size switches: k=16 avoidance
 `tests/test_torch_engine.py`'s: assignment, flight modes and ages exact;
 positions, velocities, estimates and |distcmd| atol 1e-8. Beside them
 `sinkhorn_assign(n_iters=50)` (the row `sinkhorn_throughput` times) on the
-reference's instance, assignment exact."""
+reference's instance, assignment exact; and `bench_all`'s two CBAA rows,
+`cbaa_from_state` on its chained instances from the identity assignment
+with the early exit and with the fixed 2n-round budget, each against the
+reference's (assignment, `who`, rounds and validity exact, prices at
+1e-12 relative as `tests/test_torch_cbaa.py` holds `cbaa_from_state`),
+the two budgets' tables equal bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -20,8 +25,9 @@ import jax.numpy as jnp
 
 import chip_smoke
 from aclswarm_torch import convert, sim
-from aclswarm_torch.assignment import sinkhorn
+from aclswarm_torch.assignment import cbaa, sinkhorn
 from aclswarm_tpu import sim as jsim
+from aclswarm_tpu.assignment import cbaa as jcbaa
 from aclswarm_tpu.assignment import sinkhorn as jsinkhorn
 from aclswarm_tpu.core.types import ControlGains as JControlGains
 from aclswarm_tpu.core.types import SafetyParams as JSafetyParams
@@ -117,3 +123,49 @@ def test_sinkhorn_assign_matches_reference():
                                   np.asarray(ref.row_to_col))
     np.testing.assert_allclose(got.plan_log.numpy(),
                                np.asarray(ref.plan_log), rtol=0, atol=1e-9)
+
+
+def test_cbaa_instances_are_the_references(arrays):
+    """`bench_all` draws its CBAA rows' instances right after the flooded
+    start, Kc = 8 of them (2 under --quick, the same first two)."""
+    rng = np.random.default_rng(0)
+    jscale.build_bench_problem(N, rng)
+    rng.normal(size=(N, 3))                          # the flooded start
+    want = rng.normal(size=(8, N, 3)).astype(np.float32) * 20
+    assert chip_smoke.SCALE_CBAA_CHAIN == 8
+    np.testing.assert_array_equal(arrays["cbaa_q"], want)
+    _, _, _, _, block = jscale.build_bench_problem(
+        N, np.random.default_rng(0))
+    assert chip_smoke.SCALE_CBAA_BLOCK == block
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("instance", [0, 1])
+def test_cbaa_row_matches_reference(arrays, instance, early_exit):
+    q = arrays["cbaa_q"][instance]
+    args = (q, arrays["points"], arrays["adjmat"],
+            np.arange(N, dtype=np.int32))
+    block = chip_smoke.SCALE_CBAA_BLOCK
+    ref = jcbaa.cbaa_from_state(
+        *(jnp.asarray(a, jnp.int32 if a.dtype == np.int32 else jnp.float64)
+          for a in args), task_block=block, early_exit=early_exit)
+    got = cbaa.cbaa_from_state(
+        *(torch.as_tensor(a) if a.dtype == np.int32
+          else torch.as_tensor(a, **F64) for a in args),
+        task_block=block, early_exit=early_exit)
+    for k in ("v2f", "f2v", "who", "rounds", "valid"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(ref, k)),
+                                      err_msg=k)
+    np.testing.assert_allclose(got.price.numpy(), np.asarray(ref.price),
+                               rtol=1e-12, atol=0)
+    assert bool(got.valid)
+    if not early_exit:
+        assert int(got.rounds) == 2 * N
+        fast = cbaa.cbaa_from_state(
+            *(torch.as_tensor(a) if a.dtype == np.int32
+              else torch.as_tensor(a, **F64) for a in args),
+            task_block=block)
+        assert int(fast.rounds) < 2 * N
+        for k in ("v2f", "f2v", "price", "who"):
+            assert torch.equal(getattr(fast, k), getattr(got, k)), k

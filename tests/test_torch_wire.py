@@ -22,11 +22,9 @@ port 0, and every wait has its own deadline.
 """
 from __future__ import annotations
 
-import fcntl
 import socket
 import time
 import uuid
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -53,12 +51,7 @@ def _cfg(**kw) -> ServiceConfig:
 def _need_native() -> None:
     """Build the native library once (under a file lock: test workers
     share the build directory) or skip the calling test."""
-    lock = Path(nat._LIB_PATH).parent
-    lock.mkdir(parents=True, exist_ok=True)
-    with open(lock / ".build.lock", "a+b") as f:
-        fcntl.flock(f.fileno(), fcntl.LOCK_EX)
-        ok = nat.build()
-    if not ok:
+    if not nat.build_locked():
         pytest.skip("native transport not built (make -C native)")
 
 
